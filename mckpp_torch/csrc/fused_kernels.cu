@@ -9,9 +9,26 @@
 // fused_step_kernel<T>         replaces make_fused_step (pallas_call at
 //     fused_pass.py:1149, body _step_body).
 //
-// One thread per column, 128 columns per block, the ragged last block
-// masked; the per-block shared data (aref, grid rows, depth prefix) is
-// loaded cooperatively before the mask.  Build:
+// What bounds them on the H100: one pass of one column at nz = 69 needs
+// ~49,600 floating-point operations (EOS polynomials and four PCR solves on
+// two distinct matrices at every level, the reference averages over aref's
+// nonzeros; cuda_kernels.pass_ops) on ~6.4 KB
+// (fast) or ~10.4 KB (full) of profiles moved once; one pass is bytes-bound
+// on paper and the step, ~6 passes per active column on data that stays on
+// chip, is bound by operations.  What the design does about it
+// (fused_pass.cuh has the details):
+// * one warp per column, levels on lanes (three slots of 32 levels), so a
+//   column's profiles live in registers and a small per-warp shared-memory
+//   area, not in per-thread local memory (L2/HBM);
+// * each warp runs its own column's convergence and trap loops, so a warp
+//   never waits for a slower column, and a land column's warp skips them;
+// * a block of W >= 8 warps takes W consecutive columns and stages their
+//   inputs and outputs through shared memory, so each level row of a
+//   profile moves as whole 32-byte sectors;
+// * the reference averages run over each aref row's nonzero prefix.
+// The launch geometry (warps per block, blocks, aref columns kept, dynamic
+// shared-memory bytes) comes from the wrapper; the launcher checks the
+// bytes against smem_bytes().  Build:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
 //        -shared -Xcompiler -fPIC -DKPP_REAL=float|double
 // -fmad=false keeps each multiply and add rounded on its own, as the
@@ -26,98 +43,46 @@
 
 namespace kpp {
 
-constexpr int THREADS = 128;
-constexpr int N_OUT_MAX = 23;
-
-template <typename T> struct Outputs { T* p[N_OUT_MAX]; };
-
-template <typename T>
-__device__ Shared<T> load_shared(const PassParams& P, const Inputs<T>& in,
-                                 unsigned char* raw) {
-  const int wz = P.wz;
-  T* sm = reinterpret_cast<T*>(raw);
-  Shared<T> g;
-  T* aref = sm;
-  T* rows = sm + wz * wz;   // zm hm dm tdn tup pfx, wz each
-  for (int i = threadIdx.x; i < wz * wz; i += blockDim.x) aref[i] = in.p[IN_AREF][i];
-  const int src[6] = {IN_ZM, IN_HM, IN_DM, IN_TDN, IN_TUP, IN_PFX};
-  const int nrows = P.l_advect ? 6 : 5;
-  for (int i = threadIdx.x; i < nrows * wz; i += blockDim.x)
-    rows[i] = in.p[src[i / wz]][i % wz];
-  __syncthreads();
-  g.aref = aref;
-  g.zm = rows;
-  g.hm = rows + wz;
-  g.dm = rows + 2 * wz;
-  g.tdn = rows + 3 * wz;
-  g.tup = rows + 4 * wz;
-  g.pfx = rows + 5 * wz;
-  return g;
-}
-
-template <typename T>
-size_t shared_bytes(const PassParams& P) {
-  return (size_t(P.wz) * P.wz + 6 * size_t(P.wz)) * sizeof(T);
-}
+constexpr int MAX_WARPS = 8;
+constexpr int SMEM_MAX = 232448;   // dynamic shared memory one block may use
+// blocks per SM the register budget aims at: 2 x 8 warps (128 registers a
+// thread) in float, 1 in double
+template <typename T> struct MinBlocks { static constexpr int value = 2; };
+template <> struct MinBlocks<double> { static constexpr int value = 1; };
 
 template <typename T, bool FULL>
-__global__ void __launch_bounds__(THREADS)
-fused_pass_kernel(PassParams P, Inputs<T> in, Outputs<T> out) {
+__global__ void __launch_bounds__(MAX_WARPS * 32, MinBlocks<T>::value)
+fused_pass_kernel(PassParams P, Geometry G, Inputs<T> in, Outputs<T> out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Shared<T> g = load_shared<T>(P, in, smem_raw);
-  const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  if (col >= P.ncol) return;
-  const int nc = P.ncol, wz = P.wz;
-  T u[MAXWZ], v[MAXWZ], t[MAXWZ], s[MAXWZ];
-  T ux[MAXWZ], vx[MAXWZ], tx[MAXWZ], sx[MAXWZ];
-  T* w[8] = {u, v, t, s, ux, vx, tx, sx};
-  for (int i = 0; i < 8; ++i)
-    for (int k = 0; k < wz; ++k) w[i][k] = in.p[IN_U + i][k * nc + col];
-  ColOut<T> co;
-  pass_column<T, FULL>(P, in, g, col, u, v, t, s, ux, vx, tx, sx,
-                       in.p[IN_COLSCAL][CS_F * nc + col], &co,
-                       FULL ? out.p + 4 : nullptr);
-  const int nprof = FULL ? 4 : 8;
-  for (int i = 0; i < nprof; ++i)
-    for (int k = 0; k < wz; ++k) out.p[i][k * nc + col] = w[i][k];
-  if (!FULL) {
-    const T c8[8] = {co.hbl, co.kbl, co.rho0, co.cp0, T(0), T(0), T(0), T(0)};
-    for (int i = 0; i < 8; ++i) out.p[8][i * nc + col] = c8[i];
-  }
+  pass_block<T, FULL>(P, G, in, out, smem_raw);
 }
 
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-fused_step_kernel(PassParams P, Inputs<T> in, Outputs<T> out) {
+__global__ void __launch_bounds__(MAX_WARPS * 32, MinBlocks<T>::value)
+fused_step_kernel(PassParams P, Geometry G, Inputs<T> in, Outputs<T> out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Shared<T> g = load_shared<T>(P, in, smem_raw);
-  const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  if (col >= P.ncol) return;
-  const int nc = P.ncol, wz = P.wz;
-  T u[MAXWZ], v[MAXWZ], t[MAXWZ], s[MAXWZ];
-  T ux[MAXWZ], vx[MAXWZ], tx[MAXWZ], sx[MAXWZ];
-  T colstep[8];
-  step_column<T>(P, in, g, col, u, v, t, s, ux, vx, tx, sx, colstep);
-  T* w[8] = {u, v, t, s, ux, vx, tx, sx};
-  for (int i = 0; i < 8; ++i)
-    for (int k = 0; k < wz; ++k) out.p[i][k * nc + col] = w[i][k];
-  for (int i = 0; i < 8; ++i) out.p[8][i * nc + col] = colstep[i];
+  step_block<T>(P, G, in, out, smem_raw);
 }
 
 template <typename K>
-int launch(K kern, const PassParams& P, size_t smem, cudaStream_t stream,
+int launch(K kern, const PassParams& P, const Geometry& G, cudaStream_t stream,
            const Inputs<KPP_REAL>& in, const Outputs<KPP_REAL>& out) {
+  const size_t need = smem_bytes(G.kref, G.warps, int(sizeof(KPP_REAL)));
+  if (G.warps < 1 || G.warps > MAX_WARPS || G.kref < 0 || G.kref > P.wz
+      || size_t(G.smem) != need || G.smem > SMEM_MAX
+      || size_t(G.blocks) * G.warps < size_t(P.ncol))
+    return int(cudaErrorInvalidValue);
   cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, G.smem);
   if (e != cudaSuccess) return int(e);
   if (P.ncol <= 0) return 0;
-  const int blocks = (P.ncol + THREADS - 1) / THREADS;
-  kern<<<blocks, THREADS, smem, stream>>>(P, in, out);
+  kern<<<G.blocks, G.warps * 32, G.smem, stream>>>(P, G, in, out);
   return int(cudaGetLastError());
 }
 
 }  // namespace kpp
 
+using kpp::Geometry;
 using kpp::Inputs;
 using kpp::Outputs;
 using kpp::PassParams;
@@ -128,6 +93,7 @@ static void unpack(const void* ins, const void* outs, int n_out,
   const void* const* ip = static_cast<const void* const*>(ins);
   void* const* op = static_cast<void* const*>(outs);
   for (int i = 0; i < kpp::N_IN; ++i) in->p[i] = static_cast<const Real*>(ip[i]);
+  in->ref_hi = static_cast<const int*>(ip[kpp::N_IN]);
   for (int i = 0; i < kpp::N_OUT_MAX; ++i)
     out->p[i] = i < n_out ? static_cast<Real*>(op[i]) : nullptr;
 }
@@ -139,30 +105,44 @@ int kpp_real_bytes() { return int(sizeof(Real)); }
 
 int kpp_max_wz() { return kpp::MAXWZ; }
 
+#ifdef KPP_PHASES
+// the stage clocks of fused_pass.cuh: copy the 16 sums out, or zero them
+int kpp_phase_read(unsigned long long* out) {
+  return int(cudaMemcpyFromSymbol(out, kpp_phase, sizeof(kpp_phase)));
+}
+int kpp_phase_zero() {
+  const unsigned long long z[16] = {0};
+  return int(cudaMemcpyToSymbol(kpp_phase, z, sizeof(z)));
+}
+#endif
+
 // ins: host array of kpp::N_IN device pointers (the 25 pass inputs + the
-// depth prefix); outs: 9 (full=0) or 23 (full=1) device pointers; params:
-// host PassParams; stream: cudaStream_t.  Returns a cudaError_t code.
+// depth prefix), then the int32 aref row extents; outs: 9 (full=0) or 23
+// (full=1) device pointers; params: host PassParams; geom: host Geometry;
+// stream: cudaStream_t.  Returns a cudaError_t code.
 int kpp_fused_pass(int full, const void* ins, const void* outs,
-                   const void* params, void* stream) {
+                   const void* params, const void* geom, void* stream) {
   const PassParams& P = *static_cast<const PassParams*>(params);
+  const Geometry& G = *static_cast<const Geometry*>(geom);
   Inputs<Real> in;
   Outputs<Real> out;
   unpack(ins, outs, full ? 23 : 9, &in, &out);
-  const size_t smem = kpp::shared_bytes<Real>(P);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return full ? kpp::launch(kpp::fused_pass_kernel<Real, true>, P, smem, st, in, out)
-              : kpp::launch(kpp::fused_pass_kernel<Real, false>, P, smem, st, in, out);
+  return full ? kpp::launch(kpp::fused_pass_kernel<Real, true>, P, G, st, in, out)
+              : kpp::launch(kpp::fused_pass_kernel<Real, false>, P, G, st, in, out);
 }
 
 // ins: the step's 21 inputs placed in the pass slots (ux..sx repeat
-// u0..s0) + the depth prefix; outs: 9 device pointers.
+// u0..s0) + the depth prefix + the aref row extents; outs: 9 device
+// pointers.
 int kpp_fused_step(const void* ins, const void* outs, const void* params,
-                   void* stream) {
+                   const void* geom, void* stream) {
   const PassParams& P = *static_cast<const PassParams*>(params);
+  const Geometry& G = *static_cast<const Geometry*>(geom);
   Inputs<Real> in;
   Outputs<Real> out;
   unpack(ins, outs, 9, &in, &out);
-  return kpp::launch(kpp::fused_step_kernel<Real>, P, kpp::shared_bytes<Real>(P),
+  return kpp::launch(kpp::fused_step_kernel<Real>, P, G,
                      static_cast<cudaStream_t>(stream), in, out);
 }
 

@@ -12,19 +12,22 @@ Kernels (``mckpp_torch/csrc/fused_kernels.cu``, device code in
   fused_pass.py:1149).
 
 What bounds them on the H100: at nz=69 a pass moves ~6.4 KB per column
-(14 profiles in, 8 out) against ~89,000 floating-point operations (the
-WZ x WZ reference-average product, four PCR solves of log2(nz) stages,
-the EOS polynomials at every level), so one pass sits near the ridge
-point and is bound by bytes on paper; the step kernel runs ~6 passes per
-column on data that stays on chip and is bound by operations.  The first
-design is one thread per column with its profiles in thread-local arrays
-(coalesced across a warp, since consecutive threads hold consecutive
-columns of the ``(WZ, ncol)`` layout) and ``aref`` plus the grid rows in
-shared memory; the convergence and trap loops run per thread, so each
-column stops iterating as soon as it converges.  It runs at ~1-2% of
-its bound (PERF.md): local-memory traffic of the per-thread arrays, low
-occupancy and divergence between the columns of a warp are what a later
-version would attack.
+(14 profiles in, 8 out; ~10.4 KB for the full pass) against ~49,600
+floating-point operations (the EOS polynomials at every level, four PCR
+solves of log2(nz) stages on two distinct matrices, the reference
+averages over ``aref``'s nonzeros; :func:`pass_ops`), so one pass is
+bound by bytes on paper; the
+step kernel runs ~6 passes per active column on data that stays on chip
+and is bound by operations.  The design (``csrc/fused_pass.cuh``): one
+warp per column with its levels on the lanes, so the live profiles sit in
+registers and a small per-warp shared-memory area instead of per-thread
+local memory; each warp runs its own column's convergence and trap loops,
+so no warp waits for a slower column and a land column's warp skips them;
+a block of ``WARPS`` warps takes that many consecutive columns and stages
+their inputs and outputs through shared memory, so global traffic moves
+whole 32-byte sectors; the reference averages run over each ``aref`` row's
+nonzero prefix (:func:`row_extents`, computed once per ``aref`` tensor).
+:func:`launch_geometry` computes the launch geometry the C side is given.
 
 A wrapper called with CPU tensors runs the plain torch body
 (``ops/fused_pass.py``); with CUDA tensors it launches its kernel or
@@ -41,7 +44,9 @@ import os
 import shutil
 import subprocess
 import threading
+import weakref
 
+import numpy as np
 import torch
 
 from .. import constants as c
@@ -60,6 +65,13 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _REALS = {torch.float32: "float", torch.float64: "double"}
 _libs: dict = {}
 _lock = threading.Lock()
+
+# launch geometry (the constants of csrc/fused_pass.cuh and fused_kernels.cu)
+WARPS = 8              # columns per block, one warp each
+LZ = 96                # levels per profile row in shared memory (KPP_MAXWZ)
+N_SLOTS = 23           # per-warp profile slots (NB)
+N_COLV = 48            # per-warp column values: colscal rows + 16 outputs
+SMEM_MAX = 232_448     # dynamic shared memory one block may use (H100)
 
 
 def reset_counts():
@@ -84,21 +96,27 @@ def _source_hash() -> str:
     return h.hexdigest()[:16]
 
 
-def _lib_path(dtype) -> str:
-    return os.path.join(_BUILD, f"libkpp_{_REALS[dtype]}_{_source_hash()}.so")
+def _lib_path(dtype, phases=False) -> str:
+    tag = "_phases" if phases else ""
+    return os.path.join(_BUILD,
+                        f"libkpp_{_REALS[dtype]}{tag}_{_source_hash()}.so")
 
 
-def build(dtypes=(torch.float32, torch.float64)) -> dict:
+def build(dtypes=(torch.float32, torch.float64), phases=False) -> dict:
     """Compile the kernels for ``dtypes`` (one nvcc process per dtype, run
     together) unless an up-to-date library exists.  Returns {dtype: ptxas
-    report} for the libraries built by this call."""
+    report} for the libraries built by this call.  ``phases`` builds the
+    library with the stage clocks of ``csrc/fused_pass.cuh`` on
+    (``-DKPP_PHASES``, for chip_phases.py) under its own name; the port
+    itself always loads the one without."""
     os.makedirs(_BUILD, exist_ok=True)
     procs = {}
     for dt in dtypes:
-        out = _lib_path(dt)
+        out = _lib_path(dt, phases)
         if os.path.exists(out):
             continue
         cmd = [_nvcc(), *NVCC_FLAGS, f"-DKPP_REAL={_REALS[dt]}",
+               *(["-DKPP_PHASES"] if phases else []),
                "-o", out + ".tmp", os.path.join(_CSRC, "fused_kernels.cu")]
         procs[dt] = (out, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
@@ -116,21 +134,34 @@ def _lib(dtype):
     with _lock:
         lib = _libs.get(dtype)
         if lib is None:
-            path = _lib_path(dtype)
-            if not os.path.exists(path):
-                build((dtype,))
-            lib = ctypes.CDLL(path)
-            vp, ci = ctypes.c_void_p, ctypes.c_int
-            lib.kpp_fused_pass.argtypes = [ci, vp, vp, vp, vp]
-            lib.kpp_fused_pass.restype = ci
-            lib.kpp_fused_step.argtypes = [vp, vp, vp, vp]
-            lib.kpp_fused_step.restype = ci
-            lib.kpp_real_bytes.restype = ci
-            lib.kpp_max_wz.restype = ci
-            if lib.kpp_real_bytes() != torch.empty((), dtype=dtype).element_size():
-                raise RuntimeError(f"{path} was built for another dtype")
+            lib = load(dtype)
             _libs[dtype] = lib
         return lib
+
+
+def load(dtype, phases=False):
+    """The kernel library for ``dtype``, built if missing (``phases``: see
+    :func:`build`)."""
+    path = _lib_path(dtype, phases)
+    if not os.path.exists(path):
+        build((dtype,), phases)
+    lib = ctypes.CDLL(path)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.kpp_fused_pass.argtypes = [ci, vp, vp, vp, vp, vp]
+    lib.kpp_fused_pass.restype = ci
+    lib.kpp_fused_step.argtypes = [vp, vp, vp, vp, vp]
+    lib.kpp_fused_step.restype = ci
+    lib.kpp_real_bytes.restype = ci
+    lib.kpp_max_wz.restype = ci
+    if phases:
+        lib.kpp_phase_read.argtypes = [vp]
+        lib.kpp_phase_read.restype = ci
+        lib.kpp_phase_zero.restype = ci
+    if lib.kpp_real_bytes() != torch.empty((), dtype=dtype).element_size():
+        raise RuntimeError(f"{path} was built for another dtype")
+    if lib.kpp_max_wz() != LZ:
+        raise RuntimeError(f"{path}: MAXWZ {lib.kpp_max_wz()} != {LZ}")
+    return lib
 
 
 class PassParams(ctypes.Structure):
@@ -221,19 +252,119 @@ def _check(arrays, kw, n_prof):
     return ncol, dtype
 
 
+class Geometry(ctypes.Structure):
+    """Field for field the C struct kpp::Geometry (csrc/fused_pass.cuh)."""
+    _fields_ = [("warps", ctypes.c_int), ("blocks", ctypes.c_int),
+                ("kref", ctypes.c_int), ("smem", ctypes.c_int)]
+
+    @property
+    def cols_per_block(self) -> int:
+        return self.warps            # one warp per column
+
+
+def _warp_stride() -> int:
+    """Elements of one warp's shared-memory area, padded to 4 (mod 32)
+    (csrc/fused_pass.cuh warp_stride)."""
+    pw = N_SLOTS * LZ + N_COLV
+    return pw + (4 - pw % 32) % 32
+
+
+def launch_geometry(nz: int, dtype, ncol: int, kref: int | None = None
+                    ) -> Geometry:
+    """Warps (= columns) per block, blocks, aref columns kept in shared
+    memory and dynamic shared-memory bytes of one launch at ``nz`` levels
+    over ``ncol`` columns.  ``kref`` is the number of ``aref`` columns the
+    reference averages read (:func:`row_extents`); the default is the
+    worst case, all ``nz + 2``."""
+    wz = nz + 2
+    if wz > LZ:
+        raise ValueError(f"nz+2={wz} exceeds the kernels' MAXWZ={LZ}")
+    kref = wz if kref is None else kref
+    if not 0 <= kref <= wz:
+        raise ValueError(f"kref={kref} outside 0..{wz}")
+    esize = torch.empty((), dtype=dtype).element_size()
+    smem = ((6 + kref) * LZ + WARPS * _warp_stride()) * esize + LZ * 4
+    if smem > SMEM_MAX:
+        raise ValueError(f"{smem} bytes of shared memory exceed {SMEM_MAX}")
+    return Geometry(warps=WARPS, blocks=-(-ncol // WARPS), kref=kref,
+                    smem=smem)
+
+
+def row_extents(aref) -> np.ndarray:
+    """Last nonzero column of each row of ``aref`` (-1 for a zero row), as
+    int32: the reference averages sum ``aref[n, 0..hi[n]]`` only."""
+    a = (aref.detach().cpu().numpy() if isinstance(aref, torch.Tensor)
+         else np.asarray(aref))
+    cols = np.arange(a.shape[1])
+    return np.where(a != 0, cols, -1).max(axis=1).astype(np.int32)
+
+
+# id(aref) -> (weak reference, its _version, row extents on its device,
+# kref); the grid is static, so each aref is read back to the host once
+_extents: dict = {}
+
+
+def _ref_extents(aref: torch.Tensor):
+    hit = _extents.get(id(aref))
+    if hit is not None and hit[0]() is aref and hit[1] == aref._version:
+        return hit[2], hit[3]
+    hi = row_extents(aref)
+    dev = torch.as_tensor(hi, device=aref.device)
+    kref = int(hi.max()) + 1 if hi.size else 0
+    if len(_extents) > 64:                   # drop entries of dead tensors
+        for key in [k for k, v in _extents.items() if v[0]() is None]:
+            del _extents[key]
+    _extents[id(aref)] = (weakref.ref(aref), aref._version, dev, kref)
+    return dev, kref
+
+
+def pass_ops(nz: int, aref, kbl, ldd: bool = False):
+    """Floating-point operations of one pass of one column, counted from
+    csrc/fused_pass.cuh (each add, mul, div, sqrt, exp, pow is one): per
+    level 12 relax + 270 EOS (abk80 ~190, cpsw ~70, rho/buoy) + 11 solar +
+    14 shear/dbloc + 30 rimix + 3 x 8 tridcof + 2 x 12 tridrhs + 8 U/V RHS
+    + 8 T/S increments; per level and PCR stage (ceil(log2 nz) of them) 11
+    for each distinct matrix (U and V share one, T and S another unless
+    double diffusion (``ldd``) makes difs differ from dift) and 4 for each
+    of the four right-hand sides; 6 per entry of each ``aref`` row's
+    nonzero prefix (3 profiles, a multiply and an add); ~120 per column of
+    surface terms; per level above ``kbl`` 110 bldepth and 150 blmix (each
+    with one ~45-op wscale).  ``kbl`` is a number or a tensor of
+    per-column values (then the result is a tensor)."""
+    wz = nz + 2
+    stages = math.ceil(math.log2(nz)) if nz > 1 else 0
+    pcr = stages * (11 * (3 if ldd else 2) + 4 * 4)
+    per_level = 12 + 270 + 11 + 14 + 30 + pcr + 24 + 24 + 8 + 8
+    n_ref = int((row_extents(aref).astype(np.int64) + 1).sum())
+    base = wz * per_level + 6 * n_ref + 120
+    if isinstance(kbl, torch.Tensor):
+        return base + (kbl - 1).clamp_min(0) * 260
+    return base + max(kbl - 1, 0) * 260
+
+
+def _raise_on(rc: int, name: str):
+    if rc == 1:       # cudaErrorInvalidValue: the launcher's own checks
+        raise RuntimeError(f"{name}: launch geometry refused (the shared-"
+                           "memory layout of launch_geometry and csrc differ?)")
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+
+
 def _ptrs(tensors):
     return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
 
 
-def _launch_args(arrays, kw, dtype):
+def _launch_args(arrays, kw, ncol, dtype):
+    """The library, the extra inputs (depth prefix, aref row extents) and
+    the launch geometry."""
+    nz = kw["nz"]
+    hi, kref = _ref_extents(arrays[-1])
+    geom = launch_geometry(nz, dtype, ncol, kref)
     lib = _lib(dtype)
-    if kw["nz"] + 2 > lib.kpp_max_wz():
-        raise ValueError(f"nz+2={kw['nz'] + 2} exceeds the kernels' MAXWZ="
-                         f"{lib.kpp_max_wz()}")
     hm = arrays[-5]
-    pfx = (fp._depth_prefix(hm, kw["nz"]).contiguous()
+    pfx = (fp._depth_prefix(hm, nz).contiguous()
            if kw["flags"].l_advect else hm)
-    return lib, pfx
+    return lib, [pfx, hi], geom
 
 
 class FusedPass:
@@ -253,7 +384,7 @@ class FusedPass:
 
     def launch(self, *arrays):
         ncol, dtype = _check(arrays, self.kw, 12)
-        lib, pfx = _launch_args(arrays, self.kw, dtype)
+        lib, extra, geom = _launch_args(arrays, self.kw, ncol, dtype)
         wz = self.kw["nz"] + 2
         dev = arrays[0].device
         mk = lambda rows: torch.empty((rows, ncol), dtype=dtype, device=dev)
@@ -262,15 +393,15 @@ class FusedPass:
                    [mk(wz) for _ in range(18)]
         else:
             outs = [mk(wz) for _ in range(8)] + [mk(8)]
-        ins = list(arrays) + [pfx]
+        ins = list(arrays) + extra
         params = _params(self.kw, ncol)
         pin, pout = _ptrs(ins), _ptrs(outs)   # alive across the call
         rc = lib.kpp_fused_pass(int(self.full), ctypes.addressof(pin),
                                 ctypes.addressof(pout),
                                 ctypes.addressof(params),
+                                ctypes.addressof(geom),
                                 torch.cuda.current_stream(dev).cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"{self.name} launch failed: CUDA error {rc}")
+        _raise_on(rc, self.name)
         LAUNCHES[self.name] += 1
         return tuple(outs)
 
@@ -292,21 +423,21 @@ class FusedStep:
 
     def launch(self, *arrays):
         ncol, dtype = _check(arrays, self.kw, 8)
-        lib, pfx = _launch_args(arrays, self.kw, dtype)
+        lib, extra, geom = _launch_args(arrays, self.kw, ncol, dtype)
         wz = self.kw["nz"] + 2
         dev = arrays[0].device
         outs = [torch.empty((wz, ncol), dtype=dtype, device=dev)
                 for _ in range(8)]
         outs.append(torch.empty((8, ncol), dtype=dtype, device=dev))
         # the pass slots: u0..s0 stand in for ux..sx (unused by the step)
-        ins = list(arrays[:4]) + list(arrays[:4]) + list(arrays[4:]) + [pfx]
+        ins = list(arrays[:4]) + list(arrays[:4]) + list(arrays[4:]) + extra
         params = _params(self.kw, ncol)
         pin, pout = _ptrs(ins), _ptrs(outs)   # alive across the call
         rc = lib.kpp_fused_step(ctypes.addressof(pin),
                                 ctypes.addressof(pout),
                                 ctypes.addressof(params),
+                                ctypes.addressof(geom),
                                 torch.cuda.current_stream(dev).cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"fused_step launch failed: CUDA error {rc}")
+        _raise_on(rc, self.name)
         LAUNCHES[self.name] += 1
         return tuple(outs)
