@@ -26,7 +26,16 @@ Phases, each printing JSON lines; any breach raises, so the script exits
    beside the card's bound;
 6. a device trace (``torch.profiler``) of one full step and one
    prognostic step at the main-path width: device time by kernel name and
-   the device-idle share.
+   the device-idle share;
+7. the CLI (``mckpp_torch.cli``) on the TerraMaris configuration at full
+   width (inputs written by ``mckpp_torch.io.benchmark_inputs``): 24 steps
+   chained through CUDA graphs, timed, its outputs held (finite over
+   ocean, land at the fill value, hmix in [0, dmax]); the same steps
+   through the per-step loop (``MCKPP_CHAIN=0``), equal bit for bit, and
+   both again in the other order for the spread of the rates; 2k
+   steps straight against k steps, a restart and k more, equal bit for
+   bit; a trace of one replayed segment against the same steps run per
+   step; one model day (72 steps) when the time allows.
 
 The last line is {"ok": true, "device": {...}}.  Without CUDA, or without
 the mckpp_torch package beside it, the script exits non-zero.
@@ -58,7 +67,8 @@ def emit(obj):
 
 def sync():
     import torch
-    torch.cuda.synchronize()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
 
 
 def smi_line():
@@ -681,6 +691,15 @@ def phase_trace(model, st, prm, frc, nt, name):
         st, frc = run_steps(model, st, prm, frc, nt, 1, True)
         st, frc = run_steps(model, st, prm, frc, nt + 1, 1, False)
         sync()
+    emit({"phase": "trace", "card": name, "steps": ["full", "prognostic"],
+          **trace_stats(prof)})
+
+
+def trace_stats(prof, top_n=12):
+    """Device time of a torch.profiler run: the window (first host event
+    to last device event), the device's busy time and idle share, kpp
+    kernel and other kernel ms, launches, and ms by kernel name."""
+    import torch
     evs = prof.events()
     cuda = torch.autograd.DeviceType.CUDA
     dev = [(e.time_range.start, e.time_range.end, e.name) for e in evs
@@ -699,14 +718,390 @@ def phase_trace(model, st, prm, frc, nt, name):
     for a, b, n in dev:
         n = n[:120]
         by_name[n] = by_name.get(n, 0.0) + (b - a) / 1e3
-    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:12])
+    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:top_n])
     kpp_ms = sum(v for k, v in by_name.items() if "kpp::" in k)
-    emit({"phase": "trace", "card": name, "steps": ["full", "prognostic"],
-          "window_ms": (t1 - t0) / 1e3, "device_busy_ms": busy / 1e3,
-          "device_idle_share": 1.0 - busy / (t1 - t0),
-          "kernel_ms_kpp": kpp_ms,
-          "kernel_ms_other": sum(by_name.values()) - kpp_ms,
-          "device_launches": len(dev), "device_ms_by_kernel": top})
+    return {"window_ms": (t1 - t0) / 1e3, "device_busy_ms": busy / 1e3,
+            "device_idle_share": 1.0 - busy / (t1 - t0),
+            "kernel_ms_kpp": kpp_ms,
+            "kernel_ms_other": sum(by_name.values()) - kpp_ms,
+            "device_launches": len(dev), "device_ms_by_kernel": top}
+
+
+# ---------------------------------------------------------------------------
+# the CLI on the TerraMaris configuration
+# ---------------------------------------------------------------------------
+
+CLI_STEPS = 24          # 8 model hours: two emits of output_kpp_all
+CLI_DAY_STEPS = 72      # one model day, the reference job's length
+CLI_DAY_BEFORE_S = 600  # ... run when the script has used less than this
+RESUME_K = 6            # the resume check: k steps, restart, k more
+
+
+def run_cli(data_dir, out_dir, steps, chain=True, namelist=None,
+            iodef=None, device="cuda"):
+    """``mckpp_torch.cli`` in float32 on ``device``, launch counts from 0;
+    returns its summary with wall seconds and peak device memory."""
+    import os
+    import torch
+    from mckpp_torch import cli
+    from mckpp_torch.ops import cuda_kernels as ck
+    os.environ["MCKPP_CHAIN"] = "1" if chain else "0"
+    argv = ["--namelist", namelist or os.path.join(data_dir, "3D_ocn.nml"),
+            "--data-dir", data_dir, "--output-dir", out_dir,
+            "--steps", str(steps), "--dtype", "float32", "--device", device]
+    if iodef:
+        argv += ["--iodef", iodef]
+    on_card = device == "cuda"
+    sync()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    ck.reset_counts()
+    t0 = time.perf_counter()
+    try:
+        summary = cli.run(argv)
+    finally:
+        os.environ.pop("MCKPP_CHAIN", None)
+    sync()
+    summary["wall_s"] = time.perf_counter() - t0
+    summary["peak_memory_bytes"] = (torch.cuda.max_memory_allocated()
+                                    if on_card else None)
+    summary["launches_read"] = dict(ck.LAUNCHES)
+    return summary
+
+
+def read_nc_dir(path):
+    """{file: {variable: array}} of every .nc file in ``path``."""
+    import os
+    import numpy as np
+    from scipy.io import netcdf_file
+    out = {}
+    for fn in sorted(os.listdir(path)):
+        if fn.endswith(".nc"):
+            nc = netcdf_file(os.path.join(path, fn), "r", mmap=False)
+            try:
+                out[fn] = {k: np.array(v[:]) for k, v in nc.variables.items()}
+            finally:
+                nc.close()
+    return out
+
+
+def hold_outputs(files, land, dmax):
+    """Every field finite over ocean, land at the fill value, hmix in
+    [0, dmax]; ``land`` is the (ny, nx) land mask."""
+    import numpy as np
+    n = 0
+    for fn, vs in files.items():
+        for name, a in vs.items():
+            if a.ndim < 3:                      # time, z, lon, lat axes
+                continue
+            sea = a[..., ~land]
+            if not np.isfinite(sea).all():
+                raise AssertionError(f"{fn}:{name} not finite over ocean")
+            fill = np.float32(1e20) if a.dtype.itemsize == 4 else 1e20
+            if not (a[..., land] == fill).all():
+                raise AssertionError(f"{fn}:{name} land not at fill value")
+            if name.startswith("hmix") and not (
+                    (sea >= 0.0) & (sea <= dmax)).all():
+                raise AssertionError(f"{fn}:{name} outside [0, {dmax}]")
+            n += 1
+    return n
+
+
+def same_bits(a_files, b_files, what):
+    """Every variable of every file equal bit for bit."""
+    import numpy as np
+    if sorted(a_files) != sorted(b_files):
+        raise AssertionError(f"{what}: files {sorted(a_files)} vs "
+                             f"{sorted(b_files)}")
+    n = 0
+    for fn in a_files:
+        a, b = a_files[fn], b_files[fn]
+        if sorted(a) != sorted(b):
+            raise AssertionError(f"{what}: {fn} variables differ")
+        for k in a:
+            if a[k].dtype != b[k].dtype or not np.array_equal(
+                    bits(a[k]), bits(b[k])):
+                raise AssertionError(f"{what}: {fn}:{k} differs")
+            n += 1
+    return n
+
+
+def bits(a):
+    """The bytes of an array, so that equal means equal bit for bit."""
+    import numpy as np
+    return np.ascontiguousarray(a).reshape(-1).view(np.uint8)
+
+
+def npz_arrays(path):
+    import numpy as np
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def diag_s(summary):
+    """The "Diagnostic output" seconds of a CLI run's timer table."""
+    import re
+    m = re.search(r"^Diagnostic output\s+\d+\s+([\d.]+)$",
+                  summary["timers"], re.M)
+    return float(m.group(1)) if m else None
+
+
+def edit_namelist(src, dst, **subs):
+    """Copy a namelist, replacing ``key=value`` entries (case-insensitive
+    keys, the value up to the next comma or space)."""
+    import re
+    with open(src) as f:
+        text = f.read()
+    for key, val in subs.items():
+        text, n = re.subn(rf"(?i)\b{key}\s*=\s*[^,\s]+", f"{key}={val}",
+                          text)
+        if n != 1:
+            raise AssertionError(f"namelist key {key}: {n} matches")
+    with open(dst, "w") as f:
+        f.write(text)
+
+
+def cli_trace(data_dir, work, name, device="cuda"):
+    """At the library level on the same inputs: the initial mixing pass
+    timed alone; then steps 10-12 from one state as a replayed 3-step
+    segment, as the same chain run eagerly and per step (model.step +
+    DiagnosticsManager.step): wall ms of each, and a torch.profiler trace
+    of the replay and of the per-step run."""
+    import dataclasses
+    import os
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from mckpp_torch import forcing as forcing_mod
+    from mckpp_torch import setup as setup_mod
+    from mckpp_torch.io.diagnostics import DiagnosticsManager
+    from mckpp_torch.io.streams import parse_iodef
+    from mckpp_torch.models.chain import ChainedStepper
+    from mckpp_torch.utils import namelist as nml
+    from mckpp_torch.state import tree_map
+
+    cfg, _ = nml.load_config(os.path.join(data_dir, "3D_ocn.nml"))
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    d, t = cfg.domain, cfg.time
+    sync()
+    t0 = time.perf_counter()
+    model, st, prm, frc, fluxes, mgr = setup_mod.build(cfg, data_dir,
+                                                       device=device)
+    sync()
+    build_s = time.perf_counter() - t0
+    zm = model.grid.zm.double().cpu().numpy()
+    lon0, lat0 = float(prm.dlon[0]), float(prm.dlat[0])
+    u0, t0p, s0 = setup_mod.load_initial_profiles(cfg, data_dir, zm, lon0,
+                                                  lat0, d.nx, d.ny)
+    init_s = []
+    for _ in range(2):
+        sync()
+        t0 = time.perf_counter()
+        model.initial_state(u0, t0p, s0, prm)
+        sync()
+        init_s.append(time.perf_counter() - t0)
+
+    # synchronous writers: no emitted window is fetched to the host until
+    # flush, so the traced windows hold device work and its host glue only
+    streams = parse_iodef(os.path.join(data_dir, "iodef.xml"), t.dto)
+    mk = lambda sub: DiagnosticsManager(
+        streams, d.nx, d.ny, model.grid.zm, outdir=os.path.join(work, sub),
+        start_time_days=t.startt, dto_seconds=t.dto, l_ocean=prm.l_ocean,
+        async_write=False)
+    diag_g, diag_p = mk("g"), mk("p")
+    on_card = device == "cuda"
+    stepper = ChainedStepper(model._step, diag_g, graphs=on_card)
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card
+                                     else [])
+
+    def pre(nt, st, frc):
+        days = t.startt + (nt - 1) * t.dto / 86400.0
+        st, frc = forcing_mod.update_fluxes(cfg, st, prm, frc, fluxes(days),
+                                            nt <= 1, model.grid.dm)
+        if nt > 1 and mgr.due_any(nt):
+            frc = mgr.update(nt, days, frc)
+        return st, frc
+
+    for nt0 in (1, 4, 7):
+        st, frc = pre(nt0, st, frc)
+        st, acc, inst = stepper.exec(nt0, 3, st, prm, frc)
+        stepper.commit(nt0 + 2, 3, acc, inst)
+    st, frc = pre(10, st, frc)
+    captures = stepper.captures
+    eager = ChainedStepper(model._step, mk("e"), graphs=False)
+
+    def replayed():
+        return stepper.exec(10, 3, st, prm, frc)
+
+    def eager_chain():
+        return eager.exec(10, 3, st, prm, frc)
+
+    def per_step():
+        s = st
+        for nt in range(10, 13):
+            s = model.step(s, prm, frc, first_step=False,
+                           with_diags=diag_p.needs_full(nt))
+            diag_p.step(nt, s, prm, frc)
+        return s, None, None
+
+    # wall ms of the three forms of steps 10-12, no profiler, from one
+    # state (the replays' inputs are in place after the first)
+    wall = {}
+    for label, fn in (("replayed", replayed), ("eager_chain", eager_chain),
+                      ("per_step", per_step)):
+        ts = []
+        for _ in range(4):
+            sync()
+            t0 = time.perf_counter()
+            out = fn()
+            sync()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        wall[label] = ts
+        if label == "replayed":
+            st_g = out[0]
+        elif label == "per_step":
+            st_p = out[0]
+    if on_card and (stepper.captures != captures or not stepper.replays):
+        raise AssertionError("the timed segment was captured, not replayed")
+    diffs = []
+    tree_map(lambda a, b: diffs.append(not torch.equal(a, b)), st_g, st_p)
+    if any(diffs):
+        raise AssertionError("replayed segment and per-step run differ")
+    traces = {}
+    if on_card:
+        for label, fn in (("replayed", replayed), ("per_step", per_step)):
+            sync()
+            with profile(activities=acts) as prof:
+                fn()
+                sync()
+            traces[label] = trace_stats(prof)
+    for m in (diag_g, diag_p, eager.diag):
+        m.flush()
+    emit({"phase": "cli_trace", "card": name, "steps": [10, 12],
+          "build_s": build_s, "initial_state_s": init_s, "wall_ms": wall,
+          "traces": traces, "bitwise_equal": True})
+
+
+def phase_cli(name, smi, t_start, device="cuda", shrink=1):
+    """The CLI on the TerraMaris configuration at full width on the card:
+    inputs, a timed graph-chained run with its outputs held, the same
+    steps through the per-step loop (bit for bit), a restart resumed (bit
+    for bit), a trace of a replayed segment, and one model day when the
+    time allows."""
+    import os
+    import shutil
+    import tempfile
+    import numpy as np
+    from mckpp_torch.io import ncio
+    from mckpp_torch.io.benchmark_inputs import write_terramaris
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        data = os.path.join(work, "in")
+        t0 = time.perf_counter()
+        grid = write_terramaris(data, shrink=shrink)
+        inputs_s = time.perf_counter() - t0
+        in_bytes = sum(os.path.getsize(os.path.join(data, f))
+                       for f in os.listdir(data))
+        with ncio.open_nc(os.path.join(data, "lsm.nc")) as nc:
+            land = ncio.get_var(nc, "lsm") == 1.0
+        dmax = grid["dmax"]
+        on_card = device == "cuda"
+
+        # the graph-chained run, then the per-step loop over the same steps
+        g = run_cli(data, os.path.join(work, "g"), CLI_STEPS, device=device)
+        if on_card and (g["captures"] < 1 or g["replays"] < 1):
+            raise AssertionError(f"no CUDA graph ran: {g['captures']} "
+                                 f"captures, {g['replays']} replays")
+        zero = [k for k in ("fused_step", "fused_pass_full")
+                if g["launches_read"][k] == 0]
+        if on_card and zero:
+            raise AssertionError(f"kernels not launched by the CLI: {zero}")
+        g_files = read_nc_dir(os.path.join(work, "g"))
+        n_held = hold_outputs(g_files, land, dmax)
+        p = run_cli(data, os.path.join(work, "p"), CLI_STEPS, chain=False,
+                    device=device)
+        n_same = same_bits(g_files, read_nc_dir(os.path.join(work, "p")),
+                           "graph chain vs MCKPP_CHAIN=0")
+        del g_files
+        shutil.rmtree(os.path.join(work, "p"))
+        shutil.rmtree(os.path.join(work, "g"))
+        # the two again, in the other order, for the spread of the rates
+        p2 = run_cli(data, os.path.join(work, "p2"), CLI_STEPS, chain=False,
+                     device=device)
+        g2 = run_cli(data, os.path.join(work, "g2"), CLI_STEPS, device=device)
+        shutil.rmtree(os.path.join(work, "p2"))
+        shutil.rmtree(os.path.join(work, "g2"))
+
+        # restart: 2k steps with a restart every k == k, restart, k more
+        k = RESUME_K
+        light = os.path.join(work, "iodef_light.xml")
+        with open(os.path.join(data, "iodef.xml")) as f:
+            text = f.read()
+        cut = text.index('<file id="output_kpp_means"')
+        end = text.index("</file_definition>")
+        with open(light, "w") as f:
+            f.write(text[:cut] + text[end:])
+        nml_a = os.path.join(work, "a.nml")
+        edit_namelist(os.path.join(data, "3D_ocn.nml"), nml_a,
+                      ndt_per_restart=k)
+        a = run_cli(data, os.path.join(work, "a"), 2 * k, namelist=nml_a,
+                    iodef=light, device=device)
+        at_k, at_2k = sorted(p_ for p_ in a["restarts"]
+                             if p_.endswith(".npz"))
+        valid_k = float(npz_arrays(at_k)["meta_time_days"])
+        # the namelist names the file relative to the data directory (a
+        # '/' would end the namelist group)
+        os.link(at_k, os.path.join(data, "resume.npz"))
+        nml_b = os.path.join(work, "b.nml")
+        edit_namelist(nml_a, nml_b, startt=repr(valid_k),
+                      L_RESTART=".T., restart_infile='resume.npz'")
+        b = run_cli(data, os.path.join(work, "b"), k, namelist=nml_b,
+                    iodef=light, device=device)
+        straight = npz_arrays(at_2k)
+        resumed = npz_arrays([p_ for p_ in b["restarts"]
+                              if p_.endswith(".npz")][-1])
+        bad = [key for key in straight if not key.startswith("meta_")
+               and not np.array_equal(bits(straight[key]),
+                                      bits(resumed[key]))]
+        if bad:
+            raise AssertionError(f"resumed run differs from the straight "
+                                 f"run in {bad[:8]}")
+        shutil.rmtree(os.path.join(work, "a"))
+        shutil.rmtree(os.path.join(work, "b"))
+
+        cli_trace(data, os.path.join(work, "t"), name, device)
+
+        day = None
+        if time.perf_counter() - t_start < CLI_DAY_BEFORE_S:
+            day = run_cli(data, os.path.join(work, "day"), CLI_DAY_STEPS,
+                          device=device)
+            hold_outputs(read_nc_dir(os.path.join(work, "day")), land, dmax)
+            shutil.rmtree(os.path.join(work, "day"))
+        keys = ("segments", "captures", "replays", "launches_read",
+                "steady_s", "steady_steps", "column_steps_per_s",
+                "bytes_written", "wall_s", "peak_memory_bytes", "timers")
+        emit({"phase": "cli", "card": name, "nvidia_smi": smi,
+              "ncol": g["ncol"], "nz": grid["nz"], "nx": grid["nx"],
+              "ny": grid["ny"], "land_share": grid["land_share"],
+              "dtype": "float32", "inputs_s": inputs_s,
+              "input_bytes": in_bytes, "steps": CLI_STEPS,
+              "graph": {k_: g.get(k_) for k_ in keys},
+              "per_step": {k_: p.get(k_) for k_ in keys},
+              "rates_in_run_order": {
+                  "graph_1": g.get("column_steps_per_s"),
+                  "per_step_1": p.get("column_steps_per_s"),
+                  "per_step_2": p2.get("column_steps_per_s"),
+                  "graph_2": g2.get("column_steps_per_s")},
+              "diag_output_s_in_run_order": [
+                  diag_s(r) for r in (g, p, p2, g2)],
+              "fields_held": n_held, "arrays_bitwise_equal": n_same,
+              "resume": {"k": k, "arrays_equal": len(straight) - 2,
+                         "from": os.path.basename(at_k)},
+              "day": None if day is None else {k_: day.get(k_)
+                                               for k_ in keys}})
+        return g
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def main():
@@ -736,6 +1131,8 @@ def main():
     rows = phase_times(caps, counts, name, ptxas)
     phase_trace(build(NCOL_MAIN, NZ_MAIN, land=LAND_SHARE)[0], st, prm, frc,
                 nt, name)
+    del st, prm, frc, caps
+    phase_cli(name, smi, t_start)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"kernels": [{k: r[k] for k in (

@@ -120,6 +120,18 @@ def vertical_grid_from_arrays(z: np.ndarray, h: np.ndarray, d: np.ndarray,
     return _to_grid(zm, hm, dm, dto, device)
 
 
+def regular_lonlat(nx: int, ny: int, alon: float, alat: float,
+                   dlon: float, dlat: float, dtype=torch.float64,
+                   device="cpu"):
+    """Regular lon/lat grid flattened to (npts,) row-major in y (the
+    reference's ipt = (j-1)*nx + i layout)."""
+    lons = alon + dlon * np.arange(nx)
+    lats = alat + dlat * np.arange(ny)
+    lon2, lat2 = np.meshgrid(lons, lats)        # (ny, nx)
+    t = lambda a: torch.as_tensor(a.reshape(-1), dtype=dtype, device=device)
+    return t(lon2), t(lat2)
+
+
 def coriolis(dlat: torch.Tensor, twopi: float = c.TWOPI) -> torch.Tensor:
     """Coriolis parameter with a floor at 2.5 degrees latitude
     (reference: mckpp_initialize_geography_mod.F90:78-88)."""

@@ -21,6 +21,7 @@ from ..ops.eos import abk80, cpsw
 from ..ops.ocnstep_fused import make_ocnstep_fused
 from ..ops.overrides import bottomtemp, check_profile
 from ..ops.swfrac import swdk, swfrac_levels
+from ..ops.vmix import vmix
 from ..state import ColumnParams, Forcing, State, init_forcing, init_state, tree_map
 
 _PASS_IMPLS = ("eager", "eager_step", "cuda", "cuda_step")
@@ -39,6 +40,21 @@ def _not_ported(what):
         f"{what} is not implemented in mckpp_torch yet (ROADMAP A14)")
 
 
+def resolve_device(device=None) -> torch.device:
+    """The model's device: CUDA unless the caller names another."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "KppModel runs on CUDA by default and no CUDA device is "
+                "available; pass device='cpu' to run the plain bodies")
+        device = "cuda"
+    return torch.device(device)
+
+
+def model_dtype(cfg: KppConfig) -> torch.dtype:
+    return torch.float64 if cfg.dtype == "float64" else torch.float32
+
+
 class KppModel:
     """Holds the configuration and the vertical grid; exposes functions over
     (State, ColumnParams, Forcing)."""
@@ -46,14 +62,8 @@ class KppModel:
     def __init__(self, cfg: KppConfig, vgrid: Optional[VerticalGrid] = None,
                  device=None):
         cfg.validate()
-        if device is None:
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "KppModel runs on CUDA by default and no CUDA device is "
-                    "available; pass device='cpu' to run the plain bodies")
-            device = "cuda"
-        self.device = torch.device(device)
-        self.dtype = torch.float64 if cfg.dtype == "float64" else torch.float32
+        self.device = resolve_device(device)
+        self.dtype = model_dtype(cfg)
         ph = cfg.physics
         if ph.pass_layout != "col_lanes":
             raise NotImplementedError(
@@ -97,8 +107,88 @@ class KppModel:
         return torch.as_tensor(a, device=self.device)
 
     # ------------------------------------------------------------------
-    # Initialization
+    # Initialization (reference: mckpp_initialize_ocean.F90:18-111)
     # ------------------------------------------------------------------
+    def initial_state(self, u0, t0, s0, prm: ColumnParams):
+        """Build the initial State from interpolated profiles.
+
+        u0: (ncol, nzp1, 2) currents; t0: (ncol, nzp1) temperature (degC);
+        s0: (ncol, nzp1) *absolute* salinity (psu); numpy arrays or
+        tensors.  The reference salinity Sref = (S_top + S_bot)/2 is
+        removed here (reference:
+        mckpp_initialize_ocean_profiles_mod.F90:103-117) and the initial
+        vertical-mixing pass seeds hmix and the two-level history.
+        """
+        u0, t0, s0 = self._tensor(u0), self._tensor(t0), self._tensor(s0)
+        dt = self.dtype
+        ncol, nzp1 = t0.shape
+        # the model dtype up front: float64 inputs must not leak into a
+        # float32 model's sref/ssurf
+        sref = ((s0[:, 0] + s0[:, -1]) / 2.0).to(dt)
+        prm = prm.replace(sref=sref, ssref=sref, u_init=u0.to(dt))
+        st = init_state(ncol, nzp1, dt, self.device)
+        x = torch.stack([t0.to(dt), s0.to(dt) - sref[:, None]], dim=-1)
+        st = st.replace(u=u0.to(dt), x=x, tref=t0[:, 0].to(dt))
+        if self.cfg.physics.l_ssref:
+            st = st.replace(ssurf=prm.ssref)
+        else:
+            st = st.replace(ssurf=x[:, 0, 1] + prm.sref)
+        frc = init_forcing(ncol, nzp1, dt, self.device)
+        st = self._init_columns(st, prm, frc)
+        return st, prm, frc
+
+    def _init_columns(self, st: State, prm: ColumnParams, frc: Forcing):
+        """The initial vmix pass (init flag on, no wXNT update), the
+        initial diagnostic fluxes and the history seed."""
+        grid, cfg = self.grid, self.cfg
+        ph = cfg.physics
+        nz = grid.nz
+        # cached shortwave fraction at levels (swfrac_opt with fact=1)
+        st = st.replace(swfrac=swfrac_levels(1.0, grid.zm,
+                                             prm.jerlov).to(grid.zm.dtype))
+        # the JAX package's initial pass evaluates the velocity scales in
+        # the nodal form whatever wscale_mode says (no table is built
+        # outside "table"), so this pass does too
+        vm = vmix(st.u, st.x, frc.sflux, st.ssurf, prm.sref, prm.jerlov,
+                  prm.f, prm.ocdepth, True, st.swdk_opt, st.swfrac, st.wxnt,
+                  True, grid, lri=ph.lri, ldd=ph.ldd, lkpp=ph.lkpp,
+                  update_wxnt=False, cst=cfg.constants, wscale_mode="nodal")
+        wu, wx = st.wu.clone(), st.wx.clone()
+        wu[:, 0] = vm.wu0
+        wx[:, 0] = vm.wx0
+        # initial diagnostic fluxes (reference :66-81)
+        hm = grid.hm
+        deltaz = 0.5 * (hm[:nz] + hm[1:])
+        x, u = st.x, st.u
+        dif_t = vm.dift if ph.ldd else vm.difs
+        wx1 = -dif_t[:, 1:nz + 1] * ((x[:, :nz, 0] - x[:, 1:, 0]) / deltaz
+                                     - vm.ghat[:, 1:] * wx[:, 0, 0:1])
+        wx2 = -vm.difs[:, 1:nz + 1] * ((x[:, :nz, 1] - x[:, 1:, 1]) / deltaz
+                                       - vm.ghat[:, 1:] * wx[:, 0, 1:2])
+        wxb = cfg.constants.grav * (vm.talpha[:, :nz] * wx1
+                                    - vm.sbeta[:, :nz] * wx2)
+        wu1 = -vm.difm[:, 1:nz + 1] * (u[:, :nz, 0] - u[:, 1:, 0]) / deltaz
+        wu2 = -vm.difm[:, 1:nz + 1] * (u[:, :nz, 1] - u[:, 1:, 1]) / deltaz
+        wx[:, 1:, 0], wx[:, 1:, 1], wx[:, 1:, 2] = wx1, wx2, wxb
+        wu[:, 1:, 0], wu[:, 1:, 1] = wu1, wu2
+        ncol = x.shape[0]
+        new_st = st.replace(
+            rho=vm.rho, cp=vm.cp, talpha=vm.talpha, sbeta=vm.sbeta,
+            buoy=vm.buoy, rhoh2o=vm.rhoh2o, difm=vm.difm, difs=vm.difs,
+            dift=vm.dift, ghat=vm.ghat, rig=vm.rig, dbloc=vm.dbloc,
+            shsq=vm.shsq, wu=wu, wx=wx, wxnt=vm.wxnt, swdk_opt=vm.swdk_opt,
+            uref=vm.uref, vref=vm.vref, hmix=vm.hbl, kmix=vm.kbl,
+            tref=x[:, 0, 0],
+            # two-level history seed (reference :83-100)
+            us=torch.stack([u, u], dim=-1), xs=torch.stack([x, x], dim=-1),
+            hmixd=torch.stack([vm.hbl, vm.hbl], dim=-1),
+            old=torch.zeros((ncol,), dtype=torch.int32, device=self.device),
+            new=torch.ones((ncol,), dtype=torch.int32, device=self.device))
+        # pin the declared dtypes (float64 constants must not promote a
+        # float32 model's fields)
+        new_st = tree_map(lambda a, b: a.to(b.dtype), new_st, st)
+        return _select(prm.run_physics, new_st, st)
+
     def warm_start(self, u0, t0, s0, prm: ColumnParams):
         """Fast initialization: seed the two-level history and the
         shortwave caches without the initial per-column vertical-mixing

@@ -17,13 +17,23 @@ import torch
 from .. import constants as c
 
 
+# (dtype, device) -> the three tables as one (3, 5) tensor, made once: a
+# host-to-device copy on every step would stall a CUDA-graph capture
+_TABLES: dict = {}
+
+
 def jerlov_coeffs(jerlov: torch.Tensor, like: torch.Tensor):
     """Jerlov band coefficients (rfac, a1, a2) per column, in the dtype and
     on the device of ``like``.  The tables become tensors of the model
     dtype here: float64 tables would promote a float32 model's math."""
-    idx = jerlov.long()
-    tab = lambda t: torch.tensor(t, dtype=like.dtype, device=like.device)[idx]
-    return tab(c.JERLOV_RFAC), tab(c.JERLOV_A1), tab(c.JERLOV_A2)
+    key = (like.dtype, like.device)
+    tab = _TABLES.get(key)
+    if tab is None:
+        tab = torch.tensor((c.JERLOV_RFAC, c.JERLOV_A1, c.JERLOV_A2),
+                           dtype=like.dtype, device=like.device)
+        _TABLES[key] = tab
+    vals = tab[:, jerlov.long()]
+    return vals[0], vals[1], vals[2]
 
 
 def _bcast(jerlov, z):
@@ -39,6 +49,16 @@ def swfrac_levels(fact, zm: torch.Tensor, jerlov: torch.Tensor):
     rfac, a1, a2 = _bcast(jerlov, zm)
     r1 = torch.clamp_min(zm * fact / a1, c.SWFRAC_RMIN)
     r2 = torch.clamp_min(zm * fact / a2, c.SWFRAC_RMIN)
+    return rfac * torch.exp(r1) + (1.0 - rfac) * torch.exp(r2)
+
+
+def swfrac(fact, z: torch.Tensor, jerlov: torch.Tensor):
+    """Pointwise sw fraction with rmin clipping, ``z`` and ``jerlov`` of
+    one shape (reference: MCKPP_PHYSICS_SWFRAC,
+    mckpp_physics_swfrac_mod.F90:49-79)."""
+    rfac, a1, a2 = jerlov_coeffs(jerlov, z)
+    r1 = torch.clamp_min(z * fact / a1, c.SWFRAC_RMIN)
+    r2 = torch.clamp_min(z * fact / a2, c.SWFRAC_RMIN)
     return rfac * torch.exp(r1) + (1.0 - rfac) * torch.exp(r2)
 
 

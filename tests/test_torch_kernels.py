@@ -309,3 +309,52 @@ def test_stage_marks_match_chip_phases():
         ker = f.read()
     tail = ker[ker.index("#ifdef KPP_PHASES"):]
     assert "int kpp_phase_read(" in tail and "int kpp_phase_zero(" in tail
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wide", [False, True])
+def test_graph_chain_matches_eager_chain(tmp_path, cuda, wide):
+    """models/chain.py on the card: the spans replayed as CUDA graphs give
+    the eager chain's state and emitted windows bit for bit, with and
+    without a reducing stream that samples a wide field; the replays
+    count the kernel launches they issue."""
+    from scipy.io import netcdf_file
+    from mckpp_torch.io.diagnostics import DiagnosticsManager, Stream
+    from mckpp_torch.models import chain
+
+    ck.build((torch.float32,))
+
+    def run(graphs, out):
+        m, st, prm, frc = model(19, "cuda_step", cuda)
+        streams = [Stream("i", "instant", 2, fields=("T", "hmix", "difs")),
+                   Stream("mean", "average", 4, fields=("S", "hmix")),
+                   Stream("min", "minimum", 4,
+                          fields=("difm",) if wide else ("T",))]
+        diag = DiagnosticsManager(streams, 19, 1, m.grid.zm, outdir=str(out),
+                                  dto_seconds=m.cfg.time.dto,
+                                  async_write=False)
+        stepper = chain.ChainedStepper(m._step, diag, graphs=graphs)
+
+        def end(nt):
+            return (chain.emit_due(diag, nt)
+                    or (diag.needs_full(nt) and not stepper.wide_reducing))
+
+        for nt0, k in chain.plan_segments(9, ndtocn=3, end_pred=end):
+            st = stepper.run(nt0, k, st, prm, frc)
+        return st, diag.flush(), stepper
+
+    st_e, paths_e, _ = run(False, tmp_path / "e")
+    ck.reset_counts()
+    st_g, paths_g, stepper = run(True, tmp_path / "g")
+    assert stepper.captures >= 1 and stepper.replays >= stepper.captures
+    assert ck.LAUNCHES["fused_step"] >= 9
+    for name in st_e.__dataclass_fields__:
+        assert torch.equal(getattr(st_e, name), getattr(st_g, name)), name
+    assert set(paths_e) == set(paths_g)
+    for key in paths_e:
+        with netcdf_file(paths_e[key], "r", mmap=False) as a, \
+                netcdf_file(paths_g[key], "r", mmap=False) as b:
+            for v in a.variables:
+                np.testing.assert_array_equal(np.asarray(a.variables[v][:]),
+                                              np.asarray(b.variables[v][:]),
+                                              err_msg=f"{key}:{v}")

@@ -257,9 +257,13 @@ def test_state_initializers_match():
 
 
 def test_import_loads_no_jax():
-    """Importing the port pulls in neither jax nor the JAX package."""
+    """Importing the port, its CLI included, pulls in neither jax nor the
+    JAX package."""
     code = ("import sys, mckpp_torch, mckpp_torch.ops.cuda_kernels, "
-            "mckpp_torch.convert\n"
+            "mckpp_torch.convert, mckpp_torch.cli, mckpp_torch.setup, "
+            "mckpp_torch.models.chain, mckpp_torch.io.restart, "
+            "mckpp_torch.io.ancillaries, mckpp_torch.io.streams, "
+            "mckpp_torch.io.benchmark_inputs, mckpp_torch.ops.vmix\n"
             "bad = sorted({m.split('.')[0] for m in sys.modules} & "
             "{'jax', 'jaxlib', 'mckpp_tpu'})\n"
             "assert not bad, bad\n")
