@@ -31,11 +31,26 @@ Phases, each printing JSON lines; any breach raises, so the script exits
    width (inputs written by ``mckpp_torch.io.benchmark_inputs``): 24 steps
    chained through CUDA graphs, timed, its outputs held (finite over
    ocean, land at the fill value, hmix in [0, dmax]); the same steps
-   through the per-step loop (``MCKPP_CHAIN=0``), equal bit for bit, and
-   both again in the other order for the spread of the rates; 2k
-   steps straight against k steps, a restart and k more, equal bit for
-   bit; a trace of one replayed segment against the same steps run per
-   step; one model day (72 steps) when the time allows.
+   through the per-step loop (``MCKPP_CHAIN=0``), equal bit for bit
+   (every file and the restart written at the last step), and both again
+   in the other order for the spread of the rates; 2k steps straight
+   against k steps, a restart and k more, equal bit for bit; a trace of
+   one replayed segment against the same steps run per step; every file
+   written by the C++ encoder;
+8. distributed: the same 24 steps as two ``--distributed`` processes
+   sharing the card (``KPP_*`` rendezvous, gloo), single writer and shard
+   mode (merged by ``python -m mckpp_torch.tools.merge_shards``), each
+   equal bit for bit to phase 7's graph-chained run, every rank launching
+   the step kernel and the full pass, gathers counted; ``--multi-device``
+   (one worker a card) on the resume check's 12-step straight run, equal
+   bit for bit to it; a 4-member ensemble (578,028 columns) stepped 3
+   times, member 0 equal bit for bit to the single run; one full-width
+   ``output_kpp_all`` window encoded by the C++ encoder and by scipy,
+   timed;
+9. one model day (72 steps) of the CLI when the script has used less
+   than ``CLI_DAY_BEFORE_S`` (so that the script ends within 8 minutes).
+
+Every phase line carries ``t_s``, the seconds since the script started.
 
 The last line is {"ok": true, "device": {...}}.  Without CUDA, or without
 the mckpp_torch package beside it, the script exits non-zero.
@@ -61,7 +76,14 @@ REPLACES = {"fused_pass_fast": "mckpp_tpu/ops/fused_pass.py:1031",
 SOURCE = "mckpp_torch/csrc/fused_kernels.cu"
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj):
+    """One JSON line; a phase line also carries ``t_s``, the seconds since
+    the script started."""
+    if "phase" in obj:
+        obj = dict(obj, t_s=time.perf_counter() - T_START)
     print(json.dumps(obj), flush=True)
 
 
@@ -733,7 +755,8 @@ def trace_stats(prof, top_n=12):
 
 CLI_STEPS = 24          # 8 model hours: two emits of output_kpp_all
 CLI_DAY_STEPS = 72      # one model day, the reference job's length
-CLI_DAY_BEFORE_S = 600  # ... run when the script has used less than this
+CLI_DAY_BEFORE_S = 370  # ... run when the script has used less than this
+                        # (the day takes ~95 s: the script stays in 8 min)
 RESUME_K = 6            # the resume check: k steps, restart, k more
 
 
@@ -981,127 +1004,479 @@ def cli_trace(data_dir, work, name, device="cuda"):
           "traces": traces, "bitwise_equal": True})
 
 
-def phase_cli(name, smi, t_start, device="cuda", shrink=1):
+def phase_cli(name, smi, work, device="cuda", shrink=1):
     """The CLI on the TerraMaris configuration at full width on the card:
     inputs, a timed graph-chained run with its outputs held, the same
     steps through the per-step loop (bit for bit), a restart resumed (bit
-    for bit), a trace of a replayed segment, and one model day when the
-    time allows."""
+    for bit), a trace of a replayed segment.  The 24-step runs write a
+    restart at their last step.  Leaves the inputs and the first
+    graph-chained run's output in ``work`` for phases 8 and 9, and the
+    resume check's straight run (``work``/a); returns (inputs dir, its
+    namelist, land mask, dmax, that run's summary, (the straight run's
+    namelist, iodef, summary))."""
     import os
     import shutil
-    import tempfile
     import numpy as np
     from mckpp_torch.io import ncio
     from mckpp_torch.io.benchmark_inputs import write_terramaris
 
-    work = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    data = os.path.join(work, "in")
+    t0 = time.perf_counter()
+    grid = write_terramaris(data, shrink=shrink)
+    inputs_s = time.perf_counter() - t0
+    in_bytes = sum(os.path.getsize(os.path.join(data, f))
+                   for f in os.listdir(data))
+    with ncio.open_nc(os.path.join(data, "lsm.nc")) as nc:
+        land = ncio.get_var(nc, "lsm") == 1.0
+    dmax = grid["dmax"]
+    on_card = device == "cuda"
+    # a restart at the last of the CLI_STEPS, for phase 8 to compare
+    nml = os.path.join(work, "cli.nml")
+    edit_namelist(os.path.join(data, "3D_ocn.nml"), nml,
+                  ndt_per_restart=CLI_STEPS)
+
+    # the graph-chained run, then the per-step loop over the same steps
+    g = run_cli(data, os.path.join(work, "g"), CLI_STEPS, namelist=nml,
+                device=device)
+    if on_card and (g["captures"] < 1 or g["replays"] < 1):
+        raise AssertionError(f"no CUDA graph ran: {g['captures']} "
+                             f"captures, {g['replays']} replays")
+    zero = [k for k in ("fused_step", "fused_pass_full")
+            if g["launches_read"][k] == 0]
+    if on_card and zero:
+        raise AssertionError(f"kernels not launched by the CLI: {zero}")
+    native_only(g, "the graph-chained CLI run")
+    g_files = read_nc_dir(os.path.join(work, "g"))
+    n_held = hold_outputs(g_files, land, dmax)
+    p = run_cli(data, os.path.join(work, "p"), CLI_STEPS, chain=False,
+                namelist=nml, device=device)
+    n_same = same_bits(g_files, read_nc_dir(os.path.join(work, "p")),
+                       "graph chain vs MCKPP_CHAIN=0")
+    n_same += same_restart(g, p, "graph chain vs MCKPP_CHAIN=0")
+    del g_files
+    shutil.rmtree(os.path.join(work, "p"))
+    # the two again, in the other order, for the spread of the rates
+    p2 = run_cli(data, os.path.join(work, "p2"), CLI_STEPS, chain=False,
+                 namelist=nml, device=device)
+    g2 = run_cli(data, os.path.join(work, "g2"), CLI_STEPS, namelist=nml,
+                 device=device)
+    shutil.rmtree(os.path.join(work, "p2"))
+    shutil.rmtree(os.path.join(work, "g2"))
+
+    # restart: 2k steps with a restart every k == k, restart, k more
+    k = RESUME_K
+    light = os.path.join(work, "iodef_light.xml")
+    with open(os.path.join(data, "iodef.xml")) as f:
+        text = f.read()
+    cut = text.index('<file id="output_kpp_means"')
+    end = text.index("</file_definition>")
+    with open(light, "w") as f:
+        f.write(text[:cut] + text[end:])
+    nml_a = os.path.join(work, "a.nml")
+    edit_namelist(os.path.join(data, "3D_ocn.nml"), nml_a,
+                  ndt_per_restart=k)
+    a = run_cli(data, os.path.join(work, "a"), 2 * k, namelist=nml_a,
+                iodef=light, device=device)
+    at_k, at_2k = sorted(p_ for p_ in a["restarts"] if p_.endswith(".npz"))
+    valid_k = float(npz_arrays(at_k)["meta_time_days"])
+    # the namelist names the file relative to the data directory (a '/'
+    # would end the namelist group)
+    os.link(at_k, os.path.join(data, "resume.npz"))
+    nml_b = os.path.join(work, "b.nml")
+    edit_namelist(nml_a, nml_b, startt=repr(valid_k),
+                  L_RESTART=".T., restart_infile='resume.npz'")
+    b = run_cli(data, os.path.join(work, "b"), k, namelist=nml_b,
+                iodef=light, device=device)
+    straight = npz_arrays(at_2k)
+    resumed = npz_arrays([p_ for p_ in b["restarts"]
+                          if p_.endswith(".npz")][-1])
+    bad = [key for key in straight if not key.startswith("meta_")
+           and not np.array_equal(bits(straight[key]), bits(resumed[key]))]
+    if bad:
+        raise AssertionError(f"resumed run differs from the straight run "
+                             f"in {bad[:8]}")
+    os.remove(os.path.join(data, "resume.npz"))
+    shutil.rmtree(os.path.join(work, "b"))
+
+    cli_trace(data, os.path.join(work, "t"), name, device)
+
+    emit({"phase": "cli", "card": name, "nvidia_smi": smi,
+          "ncol": g["ncol"], "nz": grid["nz"], "nx": grid["nx"],
+          "ny": grid["ny"], "land_share": grid["land_share"],
+          "dtype": "float32", "inputs_s": inputs_s,
+          "input_bytes": in_bytes, "steps": CLI_STEPS,
+          "graph": {k_: g.get(k_) for k_ in CLI_KEYS},
+          "per_step": {k_: p.get(k_) for k_ in CLI_KEYS},
+          "rates_in_run_order": {
+              "graph_1": g.get("column_steps_per_s"),
+              "per_step_1": p.get("column_steps_per_s"),
+              "per_step_2": p2.get("column_steps_per_s"),
+              "graph_2": g2.get("column_steps_per_s")},
+          "diag_output_s_in_run_order": [diag_s(r) for r in (g, p, p2, g2)],
+          "fields_held": n_held, "arrays_bitwise_equal": n_same,
+          "resume": {"k": k, "arrays_equal": len(straight) - 2,
+                     "from": os.path.basename(at_k)}})
+    return data, nml, land, dmax, g, (nml_a, light, a)
+
+
+CLI_KEYS = ("segments", "captures", "replays", "launches_read", "steady_s",
+            "steady_steps", "column_steps_per_s", "bytes_written", "writes",
+            "wall_s", "peak_memory_bytes", "timers")
+
+
+def native_only(summary, what):
+    """Every NetCDF file of a CLI run came from the native encoder."""
+    w = summary["writes"]
+    if w["scipy"] or not w["native"]:
+        raise AssertionError(f"{what}: NetCDF writers {w}, expected the "
+                             "native encoder only")
+
+
+def same_restart(a, b, what):
+    """The last .npz restart of two CLI runs (summaries), equal bit for
+    bit in every array; returns the number of arrays."""
+    import numpy as np
+    ra, rb = ([p_ for p_ in s["restarts"] if p_.endswith(".npz")]
+              for s in (a, b))
+    if not ra or not rb:
+        raise AssertionError(f"{what}: no restart ({ra}, {rb})")
+    za, zb = npz_arrays(ra[-1]), npz_arrays(rb[-1])
+    if sorted(za) != sorted(zb):
+        raise AssertionError(f"{what}: restart arrays differ in names")
+    bad = [k for k in za if za[k].dtype != zb[k].dtype
+           or not np.array_equal(bits(za[k]), bits(zb[k]))]
+    if bad:
+        raise AssertionError(f"{what}: restart differs in {bad[:8]}")
+    return len(za)
+
+
+def phase_day(name, t_start, work, data, land, dmax, device="cuda"):
+    """One model day (72 steps) of the CLI when the script has used less
+    than CLI_DAY_BEFORE_S."""
+    import os
+    import shutil
+    day = None
+    if time.perf_counter() - t_start < CLI_DAY_BEFORE_S:
+        day = run_cli(data, os.path.join(work, "day"), CLI_DAY_STEPS,
+                      device=device)
+        hold_outputs(read_nc_dir(os.path.join(work, "day")), land, dmax)
+        native_only(day, "the 72-step day")
+        shutil.rmtree(os.path.join(work, "day"))
+    emit({"phase": "cli_day", "card": name, "steps": CLI_DAY_STEPS,
+          "ran": day is not None,
+          "day": None if day is None else {k_: day.get(k_)
+                                           for k_ in CLI_KEYS}})
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the CLI over two processes on the one card, and an ensemble
+# ---------------------------------------------------------------------------
+
+RANKS = 2
+ENSEMBLE_MEMBERS = 4
+ENSEMBLE_STEPS = 3
+RANK_TIMEOUT_S = 600
+
+# one rank of a --distributed run: the CLI's own entry, its summary
+# printed as the last line
+RANK_RUNNER = r"""
+import json, sys, time
+from mckpp_torch import cli
+t0 = time.perf_counter()
+summary = cli.run(sys.argv[1:])
+summary["wall_s"] = time.perf_counter() - t0
+print("SUMMARY " + json.dumps(summary, default=str), flush=True)
+"""
+
+
+def run_ranks(data_dir, out_dir, steps, namelist, extra=(), world=RANKS,
+              device="cuda"):
+    """``mckpp_torch.cli --distributed`` as ``world`` processes on this
+    host, joined through the KPP_* variables (each takes cuda:(rank %
+    cards), so here all share the one card), float32; returns their
+    summaries in rank order."""
+    import os
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    argv = ["--namelist", namelist, "--data-dir", data_dir, "--output-dir",
+            out_dir, "--steps", str(steps), "--dtype", "float32",
+            "--device", device, "--distributed", *extra]
+    procs = []
+    for r in range(world):
+        env = dict(os.environ, KPP_COORDINATOR=f"127.0.0.1:{port}",
+                   KPP_NUM_PROCS=str(world), KPP_PROC_ID=str(r),
+                   PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", RANK_RUNNER, *argv], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs = []
     try:
-        data = os.path.join(work, "in")
-        t0 = time.perf_counter()
-        grid = write_terramaris(data, shrink=shrink)
-        inputs_s = time.perf_counter() - t0
-        in_bytes = sum(os.path.getsize(os.path.join(data, f))
-                       for f in os.listdir(data))
-        with ncio.open_nc(os.path.join(data, "lsm.nc")) as nc:
-            land = ncio.get_var(nc, "lsm") == 1.0
-        dmax = grid["dmax"]
-        on_card = device == "cuda"
-
-        # the graph-chained run, then the per-step loop over the same steps
-        g = run_cli(data, os.path.join(work, "g"), CLI_STEPS, device=device)
-        if on_card and (g["captures"] < 1 or g["replays"] < 1):
-            raise AssertionError(f"no CUDA graph ran: {g['captures']} "
-                                 f"captures, {g['replays']} replays")
-        zero = [k for k in ("fused_step", "fused_pass_full")
-                if g["launches_read"][k] == 0]
-        if on_card and zero:
-            raise AssertionError(f"kernels not launched by the CLI: {zero}")
-        g_files = read_nc_dir(os.path.join(work, "g"))
-        n_held = hold_outputs(g_files, land, dmax)
-        p = run_cli(data, os.path.join(work, "p"), CLI_STEPS, chain=False,
-                    device=device)
-        n_same = same_bits(g_files, read_nc_dir(os.path.join(work, "p")),
-                           "graph chain vs MCKPP_CHAIN=0")
-        del g_files
-        shutil.rmtree(os.path.join(work, "p"))
-        shutil.rmtree(os.path.join(work, "g"))
-        # the two again, in the other order, for the spread of the rates
-        p2 = run_cli(data, os.path.join(work, "p2"), CLI_STEPS, chain=False,
-                     device=device)
-        g2 = run_cli(data, os.path.join(work, "g2"), CLI_STEPS, device=device)
-        shutil.rmtree(os.path.join(work, "p2"))
-        shutil.rmtree(os.path.join(work, "g2"))
-
-        # restart: 2k steps with a restart every k == k, restart, k more
-        k = RESUME_K
-        light = os.path.join(work, "iodef_light.xml")
-        with open(os.path.join(data, "iodef.xml")) as f:
-            text = f.read()
-        cut = text.index('<file id="output_kpp_means"')
-        end = text.index("</file_definition>")
-        with open(light, "w") as f:
-            f.write(text[:cut] + text[end:])
-        nml_a = os.path.join(work, "a.nml")
-        edit_namelist(os.path.join(data, "3D_ocn.nml"), nml_a,
-                      ndt_per_restart=k)
-        a = run_cli(data, os.path.join(work, "a"), 2 * k, namelist=nml_a,
-                    iodef=light, device=device)
-        at_k, at_2k = sorted(p_ for p_ in a["restarts"]
-                             if p_.endswith(".npz"))
-        valid_k = float(npz_arrays(at_k)["meta_time_days"])
-        # the namelist names the file relative to the data directory (a
-        # '/' would end the namelist group)
-        os.link(at_k, os.path.join(data, "resume.npz"))
-        nml_b = os.path.join(work, "b.nml")
-        edit_namelist(nml_a, nml_b, startt=repr(valid_k),
-                      L_RESTART=".T., restart_infile='resume.npz'")
-        b = run_cli(data, os.path.join(work, "b"), k, namelist=nml_b,
-                    iodef=light, device=device)
-        straight = npz_arrays(at_2k)
-        resumed = npz_arrays([p_ for p_ in b["restarts"]
-                              if p_.endswith(".npz")][-1])
-        bad = [key for key in straight if not key.startswith("meta_")
-               and not np.array_equal(bits(straight[key]),
-                                      bits(resumed[key]))]
-        if bad:
-            raise AssertionError(f"resumed run differs from the straight "
-                                 f"run in {bad[:8]}")
-        shutil.rmtree(os.path.join(work, "a"))
-        shutil.rmtree(os.path.join(work, "b"))
-
-        cli_trace(data, os.path.join(work, "t"), name, device)
-
-        day = None
-        if time.perf_counter() - t_start < CLI_DAY_BEFORE_S:
-            day = run_cli(data, os.path.join(work, "day"), CLI_DAY_STEPS,
-                          device=device)
-            hold_outputs(read_nc_dir(os.path.join(work, "day")), land, dmax)
-            shutil.rmtree(os.path.join(work, "day"))
-        keys = ("segments", "captures", "replays", "launches_read",
-                "steady_s", "steady_steps", "column_steps_per_s",
-                "bytes_written", "wall_s", "peak_memory_bytes", "timers")
-        emit({"phase": "cli", "card": name, "nvidia_smi": smi,
-              "ncol": g["ncol"], "nz": grid["nz"], "nx": grid["nx"],
-              "ny": grid["ny"], "land_share": grid["land_share"],
-              "dtype": "float32", "inputs_s": inputs_s,
-              "input_bytes": in_bytes, "steps": CLI_STEPS,
-              "graph": {k_: g.get(k_) for k_ in keys},
-              "per_step": {k_: p.get(k_) for k_ in keys},
-              "rates_in_run_order": {
-                  "graph_1": g.get("column_steps_per_s"),
-                  "per_step_1": p.get("column_steps_per_s"),
-                  "per_step_2": p2.get("column_steps_per_s"),
-                  "graph_2": g2.get("column_steps_per_s")},
-              "diag_output_s_in_run_order": [
-                  diag_s(r) for r in (g, p, p2, g2)],
-              "fields_held": n_held, "arrays_bitwise_equal": n_same,
-              "resume": {"k": k, "arrays_equal": len(straight) - 2,
-                         "from": os.path.basename(at_k)},
-              "day": None if day is None else {k_: day.get(k_)
-                                               for k_ in keys}})
-        return g
+        for proc in procs:
+            logs.append(proc.communicate(timeout=RANK_TIMEOUT_S)[0])
     finally:
-        shutil.rmtree(work, ignore_errors=True)
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    out = []
+    for r, (proc, log) in enumerate(zip(procs, logs)):
+        lines = [ln for ln in log.splitlines() if ln.startswith("SUMMARY ")]
+        if proc.returncode != 0 or not lines:
+            raise AssertionError(f"rank {r} exit {proc.returncode}:\n"
+                                 f"{log[-6000:]}")
+        out.append(json.loads(lines[-1][len("SUMMARY "):]))
+    return out
+
+
+def hold_ranks(summaries, what, shard, on_card=True):
+    """Each rank launched the step kernel and the full pass; the single
+    writer gathered (rank 0 wrote every file), shard mode gathered
+    nothing (every rank wrote its own); every file native."""
+    for r, s in enumerate(summaries):
+        zero = [k for k in ("fused_step", "fused_pass_full")
+                if on_card and s["launches"][k] == 0]
+        if zero:
+            raise AssertionError(f"{what}: rank {r} launched no {zero}")
+        if shard and s["emit_gathers"] != 0:
+            raise AssertionError(f"{what}: rank {r} made "
+                                 f"{s['emit_gathers']} emit gathers")
+        if not shard and s["emit_gathers"] == 0:
+            raise AssertionError(f"{what}: rank {r} gathered no window")
+        if shard or r == 0:
+            native_only(s, f"{what}, rank {r}")
+        elif s["writes"]["native"] or s["writes"]["scipy"]:
+            raise AssertionError(f"{what}: rank {r} wrote {s['writes']}")
+
+
+def rank_rows(summaries):
+    return [{"rank": s["rank"], "world": s["world"],
+             "column_steps_per_s": s.get("column_steps_per_s"),
+             "steady_s": s.get("steady_s"), "diag_output_s": diag_s(s),
+             "wall_s": s["wall_s"], "peak_memory_bytes":
+                 s["peak_memory_bytes"], "launches": s["launches"],
+             "emit_gathers": s["emit_gathers"], "writes": s["writes"],
+             "captures": s["captures"], "replays": s["replays"],
+             "timers": s["timers"]}
+            for s in summaries]
+
+
+def encode_window_s(g_dir):
+    """One full-width output_kpp_all window (its first record, every
+    field) encoded by the native encoder and by scipy's writer
+    (MCKPP_NO_NATIVE=1), in the order native, scipy, scipy, native;
+    returns the seconds of each and the bytes of the file."""
+    import os
+    import numpy as np
+    from scipy.io import netcdf_file
+    from mckpp_torch.io import ncio
+    src = sorted(f for f in os.listdir(g_dir)
+                 if f.startswith("output_kpp_all"))[0]
+    with netcdf_file(os.path.join(g_dir, src), "r", mmap=False) as nc:
+        dims = {k: (1 if k == "time" else v)
+                for k, v in nc.dimensions.items()}
+        coords, fields, var_attrs = {}, {}, {}
+        for k, v in nc.variables.items():
+            if k in ("time", "z", "longitude", "latitude"):
+                vals = np.array(v[:1] if k == "time" else v[:], np.float64)
+                coords[k] = (v.dimensions[0], vals)
+            else:
+                fields[k] = (v.dimensions,
+                             np.array(v[:1], np.float32, order="C"))
+            var_attrs[k] = {a: (b.item() if isinstance(b, np.ndarray)
+                                else b) for a, b in v._attributes.items()}
+        attrs = {a: (b.item() if isinstance(b, np.ndarray) else b)
+                 for a, b in nc._attributes.items()}
+    out = os.path.join(g_dir, "window.nc")
+    times = []
+    for writer in ("native", "scipy", "scipy", "native"):
+        if writer == "scipy":
+            os.environ["MCKPP_NO_NATIVE"] = "1"
+        w0 = dict(ncio.WRITES)
+        t0 = time.perf_counter()
+        try:
+            ncio.write_fields(out, dims, coords, fields, attrs, var_attrs)
+        finally:
+            os.environ.pop("MCKPP_NO_NATIVE", None)
+        times.append((writer, time.perf_counter() - t0))
+        if ncio.WRITES[writer] != w0[writer] + 1:
+            raise AssertionError(f"the window was not written by {writer}")
+    nbytes = os.path.getsize(out)
+    os.remove(out)
+    return times, nbytes
+
+
+def ensemble_check(data_dir, nml, name, device="cuda"):
+    """ENSEMBLE_MEMBERS perturbed copies of the TerraMaris state, stepped
+    ENSEMBLE_STEPS times as one batch, against the single run: member 0
+    equal bit for bit, kernels launched."""
+    import dataclasses
+    import torch
+    from mckpp_torch import ensemble as ens
+    from mckpp_torch import forcing as forcing_mod
+    from mckpp_torch import setup as setup_mod
+    from mckpp_torch.ops import cuda_kernels as ck
+    from mckpp_torch.state import tree_map
+    from mckpp_torch.utils import namelist as nmlmod
+
+    cfg, _ = nmlmod.load_config(nml)
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    model, st, prm, frc, fluxes, _ = setup_mod.build(cfg, data_dir,
+                                                     device=device)
+    raw = fluxes(cfg.time.startt)
+    ncol = st.u.shape[0]
+
+    def noise(m, gen, s, p, f):
+        x = s.x.clone()
+        x[..., 0] += 0.05 * torch.randn(x.shape[:-1], generator=gen,
+                                        device=x.device, dtype=x.dtype)
+        return s.replace(x=x), p, f
+
+    def steps(s, p, f, r):
+        s, f = forcing_mod.update_fluxes(cfg, s, p, f, r, True,
+                                         model.grid.dm)
+        for nt in range(1, ENSEMBLE_STEPS + 1):
+            s = model.step(s, p, f, first_step=nt == 1,
+                           with_diags=nt == ENSEMBLE_STEPS)
+        return s
+
+    single = steps(st, prm, frc, raw)
+    est, eprm, efrc = ens.make_ensemble(st, prm, frc, ENSEMBLE_MEMBERS,
+                                        noise, seed=0)
+    del st, frc
+    sync()
+    ck.reset_counts()
+    on_card = device == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    stepped = steps(est, eprm, efrc, ens.replicate(raw, ENSEMBLE_MEMBERS))
+    sync()
+    wall = time.perf_counter() - t0
+    launches = dict(ck.LAUNCHES)
+    zero = [k for k in ("fused_step", "fused_pass_full") if not launches[k]]
+    if zero and on_card:
+        raise AssertionError(f"ensemble: kernels not launched: {zero}")
+    diffs = []
+    tree_map(lambda a, b: diffs.append(not torch.equal(a, b)),
+             ens.member_slice(stepped, 0, ncol), single)
+    if any(diffs):
+        raise AssertionError("ensemble member 0 differs from the single run")
+    if torch.equal(ens.member_slice(stepped, 1, ncol).x, single.x):
+        raise AssertionError("ensemble member 1 was not perturbed")
+    mean, spread = ens.ensemble_mean_spread(stepped.x[..., 0],
+                                            ENSEMBLE_MEMBERS)
+    return {"members": ENSEMBLE_MEMBERS, "columns": int(stepped.u.shape[0]),
+            "steps": ENSEMBLE_STEPS, "wall_s": wall, "launches": launches,
+            "peak_memory_bytes": (torch.cuda.max_memory_allocated()
+                                  if on_card else None),
+            "member0_bitwise_equal": True,
+            "sst_spread_max": float(spread[:, 0].max()),
+            "sst_mean_finite": bool(torch.isfinite(mean).all())}
+
+
+def phase_distributed(name, smi, work, data, nml, g, straight,
+                      device="cuda"):
+    """Phase 8: the CLI as RANKS processes on the one card, single and
+    shard mode, merged with mckpp_torch.tools.merge_shards, each equal bit
+    for bit to phase 7's one-process graph-chained run; --multi-device
+    (one worker per card) on the resume check's straight run (2k steps,
+    the light iodef: on a one-card host it is the plain path once more,
+    so the shorter run does), equal bit for bit to it; an ensemble; one
+    output window encoded by both writers."""
+    import os
+    import shutil
+    import torch
+    from mckpp_torch import cli
+
+    seconds = {}
+    t_part = time.perf_counter()
+
+    def part(label):
+        nonlocal t_part
+        now = time.perf_counter()
+        seconds[label] = now - t_part
+        t_part = now
+
+    g_dir = os.path.join(work, "g")
+    g_files = read_nc_dir(g_dir)
+    if device == "cuda":
+        torch.cuda.empty_cache()        # leave the card to the ranks
+
+    single_dir = os.path.join(work, "d_single")
+    single = run_ranks(data, single_dir, CLI_STEPS, nml, device=device)
+    on_card = device == "cuda"
+    hold_ranks(single, "single mode", shard=False, on_card=on_card)
+    n_single = same_bits(g_files, read_nc_dir(single_dir),
+                         "2 ranks, single mode vs 1 process")
+    n_single += same_restart(g, single[0], "2 ranks, single mode")
+    shutil.rmtree(single_dir)
+    part("single")
+
+    shard_dir = os.path.join(work, "d_shard")
+    merged_dir = os.path.join(work, "d_merged")
+    shard = run_ranks(data, shard_dir, CLI_STEPS, nml,
+                      extra=("--output-mode", "shard"), device=device)
+    hold_ranks(shard, "shard mode", shard=True, on_card=on_card)
+    t0 = time.perf_counter()
+    merge = subprocess.run(
+        [sys.executable, "-m", "mckpp_torch.tools.merge_shards", shard_dir,
+         "--dest", merged_dir], capture_output=True, text=True,
+        timeout=RANK_TIMEOUT_S)
+    merge_s = time.perf_counter() - t0
+    part("shard_runs_and_merge")
+    if merge.returncode != 0 or " 0 scipy" not in merge.stdout:
+        raise AssertionError(f"merge_shards: exit {merge.returncode}\n"
+                             f"{merge.stdout[-3000:]}{merge.stderr[-3000:]}")
+    n_shard = same_bits(g_files, read_nc_dir(merged_dir),
+                        "2 ranks, shard mode merged vs 1 process")
+    n_shard += same_restart(g, shard[0], "2 ranks, shard mode")
+    shutil.rmtree(shard_dir)
+    shutil.rmtree(merged_dir)
+    del g_files
+    part("shard_compare")
+
+    nml_a, light, a = straight
+    a_dir = os.path.join(work, "a")
+    multi_dir = os.path.join(work, "d_multi")
+    os.environ["MCKPP_CHAIN"] = "1"
+    try:
+        multi = cli.run(["--namelist", nml_a, "--iodef", light,
+                         "--data-dir", data, "--output-dir", multi_dir,
+                         "--steps", str(2 * RESUME_K), "--dtype", "float32",
+                         "--device", device, "--multi-device"])
+    finally:
+        os.environ.pop("MCKPP_CHAIN", None)
+    cards = torch.cuda.device_count() if device == "cuda" else 1
+    if multi["world"] != cards:
+        raise AssertionError(f"--multi-device ran {multi['world']} workers")
+    for s in multi["workers"]:
+        s["wall_s"] = None
+    hold_ranks(multi["workers"], "--multi-device",
+               shard=multi["world"] == 1, on_card=on_card)
+    n_multi = same_bits(read_nc_dir(a_dir), read_nc_dir(multi_dir),
+                        "--multi-device vs the plain run")
+    n_multi += same_restart(a, multi["workers"][0], "--multi-device")
+    shutil.rmtree(multi_dir)
+    shutil.rmtree(a_dir)
+    part("multi_device")
+
+    window, window_bytes = encode_window_s(g_dir)
+    part("window_encode")
+    ensemble = ensemble_check(data, nml, name, device)
+    part("ensemble")
+    emit({"phase": "distributed", "card": name, "nvidia_smi": smi,
+          "ranks": RANKS, "steps": CLI_STEPS, "ncol": single[0]["ncol"],
+          "single": rank_rows(single), "shard": rank_rows(shard),
+          "multi_device": rank_rows(multi["workers"]),
+          "arrays_bitwise_equal": {"single": n_single, "shard": n_shard,
+                                   "multi_device": n_multi},
+          "merge_s": merge_s, "multi_device_steps": 2 * RESUME_K,
+          "seconds": seconds,
+          "window_encode_s": window, "window_bytes": window_bytes,
+          "ensemble": ensemble,
+          "note": "two ranks share one card: overhead, not scaling"})
 
 
 def main():
@@ -1119,10 +1494,12 @@ def main():
         print("chip_smoke: run from the repository root (mckpp_torch not "
               "found)", file=sys.stderr)
         return 2
+    import shutil
+    import tempfile
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
-    t_start = time.perf_counter()
+    t_start = T_START
     name, smi, ptxas = phase_device()
     phase_gate()
     model, st, prm, frc, nt, counts = phase_main(name, smi)
@@ -1132,7 +1509,13 @@ def main():
     phase_trace(build(NCOL_MAIN, NZ_MAIN, land=LAND_SHARE)[0], st, prm, frc,
                 nt, name)
     del st, prm, frc, caps
-    phase_cli(name, smi, t_start)
+    work = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        data, nml, land, dmax, g, straight = phase_cli(name, smi, work)
+        phase_distributed(name, smi, work, data, nml, g, straight)
+        phase_day(name, t_start, work, data, land, dmax)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"kernels": [{k: r[k] for k in (

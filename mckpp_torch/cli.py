@@ -4,6 +4,7 @@ mckpp_ocean_model_3d (mckpp_ocean_model_3D.F90:22-76).
 Usage:  python -m mckpp_torch.cli [--namelist 3D_ocn.nml] [--data-dir DIR]
         [--output-dir DIR] [--steps N] [--iodef FILE] [--dtype D]
         [--device cuda|cpu] [--profile DIR [--profile-steps N]]
+        [--distributed | --multi-device] [--output-mode single|shard]
 
 Reads the reference-format namelist, assembles the model (``setup.build``,
 with the initial mixing pass), and runs the time loop with the flux and
@@ -13,6 +14,15 @@ is given.  Every event-free span of steps runs as one chain
 (``models/chain.py``), replayed as a CUDA graph on the card;
 ``MCKPP_CHAIN=0`` runs the per-step loop instead and ``MCKPP_CHAIN_MAX``
 caps a span's length.
+
+``--distributed`` runs one process of a group (``parallel/distributed.py``:
+the ``KPP_*`` or torchrun rendezvous variables, gloo, one card each):
+the columns are split into one slab per process, each reads its own rows
+of the inputs, and the diagnostics and restarts are gathered to rank 0
+(``--output-mode single``) or written by every rank for its own rows
+(``--output-mode shard``; merge with ``python -m
+mckpp_torch.tools.merge_shards``).  ``--multi-device`` starts one such
+process per visible card of this host (one on the CPU).
 """
 
 from __future__ import annotations
@@ -20,18 +30,24 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
+import queue
+import socket
 import sys
 import time
+import traceback
 from concurrent.futures import ThreadPoolExecutor
 
 import torch
+import torch.multiprocessing as mp
 
 from . import forcing as forcing_mod
 from . import setup as setup_mod
+from .io import ncio
 from .io.diagnostics import DiagnosticsManager, Stream, default_streams
 from .io.restart import RestartControl
 from .models.chain import ChainedStepper, emit_due, plan_segments
 from .ops import cuda_kernels as ck
+from .parallel import distributed as dist
 from .utils import namelist as nml
 from .utils.logging import mckpp_print
 from .utils.timer import Timers
@@ -63,14 +79,20 @@ def _parser():
     p.add_argument("--profile-steps", type=int, default=6,
                    help="number of steps to trace under --profile")
     p.add_argument("--multi-device", action="store_true",
-                   help="not implemented in mckpp_torch yet (ROADMAP A13)")
+                   help="start one --distributed process per visible card "
+                        "of this host (one on the CPU)")
     p.add_argument("--distributed", action="store_true",
-                   help="not implemented in mckpp_torch yet (ROADMAP A13)")
+                   help="one process of a group: the rendezvous from "
+                        "KPP_COORDINATOR/KPP_NUM_PROCS/KPP_PROC_ID or "
+                        "torchrun's variables; the columns are split over "
+                        "the processes")
     p.add_argument("--output-mode", choices=["single", "shard"],
                    default="single",
-                   help="'single' writes each stream from this process; "
-                        "'shard' is not implemented in mckpp_torch yet "
-                        "(ROADMAP A13)")
+                   help="diagnostic writes: 'single' gathers each emitted "
+                        "window to rank 0 (XIOS one_file); 'shard' has "
+                        "every rank write its own rows with no gather (XIOS "
+                        "multiple_file); merge with python -m "
+                        "mckpp_torch.tools.merge_shards")
     return p
 
 
@@ -79,21 +101,86 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _worker(rank: int, world: int, port: int, argv, results) -> None:
+    """One process of ``--multi-device``: the ``--distributed`` run with a
+    local rendezvous; its summary (or its traceback) goes to ``results``."""
+    os.environ.update(KPP_COORDINATOR=f"127.0.0.1:{port}",
+                      KPP_NUM_PROCS=str(world), KPP_PROC_ID=str(rank),
+                      LOCAL_RANK=str(rank))
+    try:
+        results.put((rank, run(argv + ["--distributed"]), None))
+    except BaseException:
+        results.put((rank, None, traceback.format_exc()))
+        raise
+
+
+def _multi_device(argv, device: str) -> dict:
+    """Start one worker per visible card (one on the CPU), wait for them
+    and return {"workers": [their summaries in rank order]}."""
+    world = torch.cuda.device_count() if device == "cuda" else 1
+    argv = [a for a in argv if a != "--multi-device"]
+    mckpp_print(ROUTINE, f"--multi-device: {world} worker process(es)")
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=_worker, args=(r, world, port, argv, results))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    summaries, errors = {}, []
+    try:
+        # drain the queue before joining: a worker blocks on a full pipe
+        while len(summaries) + len(errors) < world:
+            try:
+                rank, summary, err = results.get(timeout=1.0)
+            except queue.Empty:
+                if not any(p.is_alive() for p in procs) and results.empty():
+                    break
+                continue
+            if err is None:
+                summaries[rank] = summary
+            else:
+                errors.append(f"rank {rank}:\n{err}")
+    finally:
+        for p in procs:
+            p.join(timeout=None if not errors else 60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    bad = [p.exitcode for p in procs if p.exitcode != 0]
+    if errors or bad or len(summaries) != world:
+        raise RuntimeError(f"--multi-device: worker exit codes "
+                           f"{[p.exitcode for p in procs]}\n"
+                           + "\n".join(errors))
+    return {"workers": [summaries[r] for r in range(world)], "world": world}
+
+
 def run(argv=None) -> dict:
     """The CLI's run; returns its summary (segments, graph captures and
-    replays, kernel launches, the steady-state rate, bytes written, the
-    paths written and the timer report)."""
+    replays, kernel launches, the steady-state rate, bytes written and the
+    files each NetCDF writer wrote, the paths written, the timer report,
+    and the rank, world size and emit gathers of a distributed run).
+    Under ``--multi-device`` it returns {"workers": [each worker's]}."""
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = _parser().parse_args(argv)
-    for flag, on in (("--multi-device", args.multi_device),
-                     ("--distributed", args.distributed),
-                     ("--output-mode shard", args.output_mode == "shard")):
-        if on:
-            raise NotImplementedError(
-                f"{flag} is not implemented in mckpp_torch yet (ROADMAP A13)")
+    if args.multi_device and args.distributed:
+        raise ValueError("--multi-device starts --distributed processes "
+                         "itself: pass one of the two")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda (the default) and no CUDA device "
                            "is available; pass --device cpu")
+    if args.multi_device:
+        return _multi_device(argv, args.device)
     device = torch.device(args.device)
+    if args.distributed:
+        device = dist.initialize(device=args.device)
+    rank, world = dist.process_index(), dist.process_count()
 
     timers = Timers()
     timers.start("Initialization")
@@ -104,17 +191,29 @@ def run(argv=None) -> dict:
     for grp, vals in extras.items():
         # declared-but-inert variables: surfaced, never silently dropped
         mckpp_print(ROUTINE, f"namelist {grp}: not modeled, ignored: {vals}")
+    d = cfg.domain
+    layout = (dist.make_layout(d.nx * d.ny, device=device) if world > 1
+              else None)
     model, st, prm, frc, flux_provider, mgr = setup_mod.build(
-        cfg, args.data_dir, device=device)
-    ncol = st.u.shape[0]
+        cfg, args.data_dir, device=device, layout=layout)
+    ncol_local = st.u.shape[0]
+    # the rate counts every process's (padded) columns
+    ncol = layout.ncol if layout is not None else ncol_local
     mckpp_print(ROUTINE, f"initialized {ncol} columns x {model.grid.nz} "
                 f"levels on {device} ({model.dtype}, pass_impl "
                 f"{model.pass_impl})")
-
-    # rectilinear domain axes for the output files (XIOS domain lon/lat)
-    d = cfg.domain
-    lons_ax = prm.dlon.reshape(d.ny, d.nx)[0].double().cpu().numpy()
-    lats_ax = prm.dlat.reshape(d.ny, d.nx)[:, 0].double().cpu().numpy()
+    # the whole domain's mask and axes for the output files (XIOS domain
+    # lon/lat)
+    if layout is not None:
+        mckpp_print(ROUTINE, f"rank {rank} of {world}: columns "
+                    f"[{layout.lo}, {layout.hi}) of {layout.ncol} padded")
+        l_ocean, dlon, dlat = (layout.gather(a) for a in (
+            prm.l_ocean, prm.dlon, prm.dlat))
+    else:
+        l_ocean, dlon, dlat = (a.cpu().numpy() for a in (
+            prm.l_ocean, prm.dlon, prm.dlat))
+    lons_ax = dlon.reshape(d.ny, d.nx)[0].astype("float64")
+    lats_ax = dlat.reshape(d.ny, d.nx)[:, 0].astype("float64")
     iodef_path = args.iodef or cfg.output.iodef_file
     if cfg.output.streams:
         streams = [Stream(name, red, freq)
@@ -132,12 +231,15 @@ def run(argv=None) -> dict:
     diag = DiagnosticsManager(
         streams, d.nx, d.ny, model.grid.zm, outdir=args.output_dir,
         start_time_days=cfg.time.startt, dto_seconds=cfg.time.dto,
-        l_ocean=prm.l_ocean, lons=lons_ax, lats=lats_ax)
+        l_ocean=l_ocean, write_mode=args.output_mode, lons=lons_ax,
+        lats=lats_ax)
+    diag.set_layout(layout)
     restart = RestartControl(
         f"{args.output_dir}/{cfg.output.restart_outfile}",
         cfg.output.ndt_per_restart, cfg.time.num_timesteps,
         cfg.time.dto, cfg.time.startt,
-        netcdf_grid=((d.nx, d.ny) if cfg.output.l_restart_netcdf else None))
+        netcdf_grid=((d.nx, d.ny) if cfg.output.l_restart_netcdf else None),
+        layout=layout)
     _sync(device)
     timers.stop("Initialization")
 
@@ -155,7 +257,8 @@ def run(argv=None) -> dict:
             return fut.result()
         if flux_provider is not None:
             return flux_provider(time_days)
-        return forcing_mod.constant_test_fluxes(ncol, model.dtype, device)
+        return forcing_mod.constant_test_fluxes(ncol_local, model.dtype,
+                                                device)
 
     def flux_schedule(time_days):
         if flux_provider is None or time_days in flux_next:
@@ -214,15 +317,17 @@ def run(argv=None) -> dict:
             _sync(device)
             prof.__exit__(None, None, None)
             os.makedirs(args.profile, exist_ok=True)
-            prof.export_chrome_trace(os.path.join(args.profile,
-                                                  "trace.json"))
+            prof.export_chrome_trace(os.path.join(
+                args.profile,
+                "trace.json" if world == 1 else f"trace_rank{rank}.json"))
             prof = None
             mckpp_print(ROUTINE, f"profiler trace of steps {prof_start}-"
                         f"{prof_end} written to {args.profile}")
 
     summary = {"segments": num_steps, "captures": 0, "replays": 0,
-               "chain": use_chain}
+               "chain": use_chain, "rank": rank, "world": world}
     launches0 = dict(ck.LAUNCHES)
+    writes0 = dict(ncio.WRITES)
     if use_chain:
         # graphs where the step never waits on the host: the whole-step
         # kernel; the per-pass path ("cuda") syncs inside each step
@@ -293,16 +398,25 @@ def run(argv=None) -> dict:
     flux_exec.shutdown()
     paths = diag.flush()
     mckpp_print(ROUTINE, f"wrote diagnostics: {sorted(paths.values())}")
+    mckpp_print(ROUTINE, f"diag emit gathers: {diag.emit_gathers}")
     timers.start("Restart output")
     written = restart.flush()
     timers.stop("Restart output")
     mckpp_print(ROUTINE, f"wrote restarts: {written}")
+    writes = {k: ncio.WRITES[k] - writes0[k] for k in writes0}
+    mckpp_print(ROUTINE, f"NetCDF files written: {writes['native']} native, "
+                f"{writes['scipy']} scipy")
     report = timers.report()
     print(report)
     summary.update(launches={k: ck.LAUNCHES[k] - launches0[k]
                              for k in launches0}, paths=dict(paths),
                    restarts=list(written), bytes_written=diag.bytes_written,
-                   timers=report, ncol=ncol, num_steps=num_steps)
+                   timers=report, ncol=ncol, num_steps=num_steps,
+                   emit_gathers=diag.emit_gathers, writes=writes,
+                   peak_memory_bytes=(torch.cuda.max_memory_allocated(device)
+                                      if device.type == "cuda" else None))
+    if args.distributed:
+        dist.shutdown()
     return summary
 
 

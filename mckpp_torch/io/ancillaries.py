@@ -17,8 +17,13 @@ ancillary grid on first use and caches the file's time axis.  Fields are
 flattened ``(npts,)`` / ``(npts, nzp1)`` in the model layout
 (``ipt = (j-1)*nx + i``).  Per-reader quirks kept: SST/bottom-temperature
 Kelvin autoconversion; the salinity climatology has Sref removed; the 3-D
-readers validate the file's level count.  Host-local slab reads for
-multi-host runs wait for ROADMAP A13.
+readers validate the file's level count.
+
+With a column layout attached (``set_layout``; ``parallel/distributed.py``)
+every reader fetches only this process's rows ``(lo, hi)`` of the flat
+domain and pads them to its slab, and the Kelvin autoconversion decides
+over the whole domain through ``any_across_processes`` (a collective, on
+the loop thread; the prefetch thread only reads).
 """
 
 from __future__ import annotations
@@ -34,6 +39,8 @@ import torch
 from .. import constants as c
 from .. import forcing as forcing_mod
 from ..config import KppConfig
+from ..parallel.distributed import any_across_processes
+from ..parallel.sharding import pad_rows
 from ..state import Forcing
 from . import ncio
 
@@ -107,47 +114,62 @@ class AncillaryReader:
         self.file_times = ncio.get_time_axis(nc, (self.time_name, "time", "t"))
         self._init = True
 
+    def _yspan(self, rows):
+        """Flat rows [lo, hi) -> (y0, y1, trim): the covering domain rows
+        y0..y1 and the slice of their flattened cells that is [lo, hi)."""
+        if rows is None:
+            return 0, self.ny, slice(None)
+        lo, hi = rows
+        if hi <= lo:
+            return 0, 0, slice(0, 0)
+        y0, y1 = lo // self.nx, (hi - 1) // self.nx + 1
+        return y0, y1, slice(lo - y0 * self.nx, hi - y0 * self.nx)
+
     def _read_uncached(self, kind: str, var: str, pos: int,
-                       nzp1: Optional[int] = None) -> np.ndarray:
+                       nzp1: Optional[int] = None, rows=None) -> np.ndarray:
+        y0, y1, trim = self._yspan(rows)
         with ncio.open_nc(self.path) as nc:
             if not self._init:
                 self._initialize(nc)
             olon, olat = self.offsets
-            yx = (slice(olat, olat + self.ny), slice(olon, olon + self.nx))
+            yx = (slice(olat + y0, olat + y1), slice(olon, olon + self.nx))
             if kind == "2d":      # file layout (t, y, x)
-                return ncio.get_var(nc, var, index=(pos,) + yx).reshape(-1)
+                return ncio.get_var(nc, var,
+                                    index=(pos,) + yx).reshape(-1)[trim]
             data = ncio.get_var(nc, var, index=(pos, slice(None)) + yx)
         if data.shape[0] != nzp1:   # file layout (t, z, y, x)
             raise ncio.NetCDFError(
                 f"{self.path}:{var} has {data.shape[0]} levels, expected "
                 f"{nzp1}")
-        return np.moveaxis(data, 0, -1).reshape(-1, nzp1)
+        return np.moveaxis(data, 0, -1).reshape(-1, nzp1)[trim]
 
-    def _read(self, kind, var, pos, nzp1=None):
+    def _read(self, kind, var, pos, nzp1=None, rows=None):
         with self._cache_lock:
-            hit = self._cache.pop((kind, var, pos, nzp1), None)
+            hit = self._cache.pop((kind, var, pos, nzp1, rows), None)
         if hit is not None:
             self.cache_hits += 1
             return hit
-        return self._read_uncached(kind, var, pos, nzp1)
+        return self._read_uncached(kind, var, pos, nzp1, rows)
 
-    def read2d(self, var: str, pos: int) -> np.ndarray:
-        """(npts,) slab at time index pos."""
-        return self._read("2d", var, pos)
+    def read2d(self, var: str, pos: int, rows=None) -> np.ndarray:
+        """(npts,) slab at time index pos; ``rows=(lo, hi)`` reads only
+        that flat-index range."""
+        return self._read("2d", var, pos, None, rows)
 
-    def read3d(self, var: str, pos: int, nzp1: int) -> np.ndarray:
-        """(npts, nzp1) slab at time index pos."""
-        return self._read("3d", var, pos, nzp1)
+    def read3d(self, var: str, pos: int, nzp1: int, rows=None) -> np.ndarray:
+        """(npts, nzp1) slab at time index pos; ``rows=(lo, hi)`` reads
+        only that flat-index range."""
+        return self._read("3d", var, pos, nzp1, rows)
 
     def prefetch(self, kind: str, var: str, pos: int,
-                 nzp1: Optional[int] = None) -> None:
+                 nzp1: Optional[int] = None, rows=None) -> None:
         """Read a slab into the cache (on the prefetcher thread): the
         bytes the synchronous read would produce."""
-        key = (kind, var, pos, nzp1 if kind == "3d" else None)
+        key = (kind, var, pos, nzp1 if kind == "3d" else None, rows)
         with self._cache_lock:
             if key in self._cache:
                 return
-        data = self._read_uncached(kind, var, pos, key[3])
+        data = self._read_uncached(kind, var, pos, key[3], rows)
         with self._cache_lock:
             # one (newest) entry per (kind, var): a prefetch that lost the
             # race with the synchronous read must not pile up
@@ -165,22 +187,35 @@ class AncillaryReader:
 class FluxFileReader:
     """Forcing-file reader (mckpp_read_fluxes_mod.F90): taux, tauy, swf,
     lwf, lhf, shf, precip at the ndtocn cadence; snow = 0.  The fields
-    come back as tensors of ``dtype`` on ``device``."""
+    come back as tensors of ``dtype`` on ``device``: the whole domain, or
+    with a layout attached (``set_layout``) this process's slab, read
+    host-locally (the fluxes are the most frequent read)."""
 
     def __init__(self, cfg: KppConfig, lon0: float, lat0: float,
                  dtype=torch.float64, device="cpu"):
         d = cfg.domain
         self.cfg = cfg
+        self.npts = d.nx * d.ny
         self.dtype, self.device = dtype, device
+        self.layout = None
         self.rd = AncillaryReader(cfg.forcing.forcing_file, lon0, lat0,
                                   d.nx, d.ny, time_name="time")
+
+    def set_layout(self, layout) -> None:
+        self.layout = layout
 
     def __call__(self, time_days: float) -> forcing_mod.RawFluxes:
         t = self.cfg.time
         _, pos = get_update_time(time_days, t.ndtocn, self.rd.times(),
                                  False, 0, t.dto, t.dtsec, method=1)
-        g = lambda v: torch.as_tensor(self.rd.read2d(v, pos),
-                                      dtype=self.dtype, device=self.device)
+        lay = self.layout
+        rows = None if lay is None else lay.local_rows(self.npts)
+
+        def g(v):
+            a = self.rd.read2d(v, pos, rows)
+            if lay is not None:
+                a = pad_rows(a, lay.hi - lay.lo)
+            return torch.as_tensor(a, dtype=self.dtype, device=self.device)
         taux = g("taux")
         return forcing_mod.RawFluxes(
             taux=taux, tauy=g("tauy"), swf=g("swf"), lwf=g("lwf"),
@@ -198,6 +233,9 @@ class BoundaryManager:
         self.cfg = cfg
         self.nzp1 = nzp1
         self.sref = np.asarray(sref)
+        # with a column layout (set_layout) every read fetches this
+        # process's rows only, padded to its slab
+        self.layout = None
         d, f, b = cfg.domain, cfg.forcing, cfg.boundary
         mk = lambda path: AncillaryReader(path, lon0, lat0, d.nx, d.ny)
         self.sst = mk(b.sst_file) if b.l_climsst or b.l_upd_climsst else None
@@ -216,9 +254,48 @@ class BoundaryManager:
         self._prefetch_pool: Optional[ThreadPoolExecutor] = None
         self._prefetch_futs: list = []
 
+    def set_layout(self, layout) -> None:
+        """Attach a ``parallel.distributed.ColumnLayout`` (or None): reads
+        then fetch this process's rows only (host-local reads, the
+        per-rank block of an MPI decomposition, SURVEY §2.6)."""
+        self.layout = layout
+
+    @property
+    def npts(self) -> int:
+        return self.cfg.domain.nx * self.cfg.domain.ny
+
+    def _rows(self):
+        """This process's flat rows [lo, hi) clamped to the domain; None
+        (the whole domain) without a layout."""
+        if self.layout is None:
+            return None
+        return self.layout.local_rows(self.npts)
+
+    def _local(self, arr: np.ndarray) -> np.ndarray:
+        """A read padded up to the layout's slab (rows beyond the domain
+        are padding columns)."""
+        if self.layout is None:
+            return arr
+        return pad_rows(arr, self.layout.hi - self.layout.lo)
+
+    def _get2d(self, reader, var, pos):
+        return self._local(reader.read2d(var, pos, self._rows()))
+
+    def _get3d(self, reader, var, pos):
+        return self._local(reader.read3d(var, pos, self.nzp1, self._rows()))
+
+    def _local_sref(self) -> np.ndarray:
+        """Sref rows matching what _get3d returns."""
+        rows = self._rows()
+        if rows is None:
+            return self.sref
+        return self._local(self.sref[rows[0]:rows[1]])
+
     def _kelvin(self, a: np.ndarray) -> np.ndarray:
-        """Kelvin autoconversion (mckpp_read_sst_mod.F90:84-88)."""
-        if np.any((a > 200.0) & (a < 400.0)):
+        """Kelvin autoconversion, decided over the whole domain as the
+        reference does (ANY() over the domain, mckpp_read_sst_mod.F90:84-88):
+        a rank's slab must not decide differently from its peers."""
+        if any_across_processes(bool(np.any((a > 200.0) & (a < 400.0)))):
             return a - self.cfg.constants.tk0
         return a
 
@@ -239,7 +316,7 @@ class BoundaryManager:
         b = self.cfg.boundary
         _, pos = self._upd(self.sst, b.ndtupdsst, b.l_periodic_climsst,
                            b.climsst_period, 1)
-        sst = self._kelvin(self.sst.read2d("sst", pos))
+        sst = self._kelvin(self._get2d(self.sst, "sst", pos))
         # uncoupled: SST0 is the whole domain (mckpp_physics_overrides_sst0)
         frc = frc.replace(sst0=self._dev(sst, frc.sst0))
         # the SST read zeroes the ice/surface-current climatologies when
@@ -257,14 +334,14 @@ class BoundaryManager:
         b = self.cfg.boundary
         _, pos = self._upd(self.ice, b.ndtupdice, b.l_periodic_climice,
                            b.climice_period, 1)
-        frc = frc.replace(iceconc=self._dev(self.ice.read2d("iceconc", pos),
-                                            frc.iceconc))
+        frc = frc.replace(iceconc=self._dev(
+            self._get2d(self.ice, "iceconc", pos), frc.iceconc))
         if b.l_clim_ice_depth:
             frc = frc.replace(icedepth=self._dev(
-                self.ice.read2d("icedepth", pos), frc.icedepth))
+                self._get2d(self.ice, "icedepth", pos), frc.icedepth))
         if b.l_clim_snow_on_ice:
             frc = frc.replace(snowdepth=self._dev(
-                self.ice.read2d("snowdepth", pos), frc.snowdepth))
+                self._get2d(self.ice, "snowdepth", pos), frc.snowdepth))
         return frc
 
     def read_fcorr(self, frc: Forcing) -> Forcing:
@@ -272,11 +349,11 @@ class BoundaryManager:
         if f.l_fcorr_withz:
             _, pos = self._upd(self.fcorr, f.ndtupdfcorr, f.l_periodic_fcorr,
                                f.fcorr_period, 1)
-            fz = self.fcorr.read3d("fcorr", pos, self.nzp1)
+            fz = self._get3d(self.fcorr, "fcorr", pos)
             return frc.replace(fcorr_withz=self._dev(fz, frc.fcorr_withz))
         _, pos = self._upd(self.fcorr, f.ndtupdfcorr, f.l_periodic_fcorr,
                            f.fcorr_period, 2)
-        f2 = self.fcorr.read2d("fcorr", pos)
+        f2 = self._get2d(self.fcorr, "fcorr", pos)
         return frc.replace(fcorr_twod=self._dev(f2, frc.fcorr_twod))
 
     def read_sfcorr(self, frc: Forcing) -> Forcing:
@@ -284,18 +361,18 @@ class BoundaryManager:
         if f.l_sfcorr_withz:
             _, pos = self._upd(self.sfcorr, f.ndtupdsfcorr,
                                f.l_periodic_sfcorr, f.sfcorr_period, 1)
-            sz = self.sfcorr.read3d("sfcorr", pos, self.nzp1)
+            sz = self._get3d(self.sfcorr, "sfcorr", pos)
             return frc.replace(sfcorr_withz=self._dev(sz, frc.sfcorr_withz))
         _, pos = self._upd(self.sfcorr, f.ndtupdsfcorr, f.l_periodic_sfcorr,
                            f.sfcorr_period, 2)
-        s2 = self.sfcorr.read2d("sfcorr", pos)
+        s2 = self._get2d(self.sfcorr, "sfcorr", pos)
         return frc.replace(sfcorr_twod=self._dev(s2, frc.sfcorr_twod))
 
     def read_bottom(self, frc: Forcing) -> Forcing:
         f = self.cfg.forcing
         _, pos = self._upd(self.bottom, f.ndtupdbottom,
                            f.l_periodic_bottom_temp, f.bottom_temp_period, 1)
-        bt = self._kelvin(self.bottom.read2d("T", pos))
+        bt = self._kelvin(self._get2d(self.bottom, "T", pos))
         return frc.replace(bottom_temp=self._dev(bt, frc.bottom_temp))
 
     def read_ocnt(self, frc: Forcing, at_time: Optional[float] = None) -> Forcing:
@@ -308,7 +385,7 @@ class BoundaryManager:
                                f.ocnt_period, 2)
         finally:
             self._time = saved
-        t3 = self.ocnt.read3d("temperature", pos, self.nzp1)
+        t3 = self._get3d(self.ocnt, "temperature", pos)
         return frc.replace(ocnt_clim=self._dev(t3, frc.ocnt_clim))
 
     def read_sal(self, frc: Forcing, at_time: Optional[float] = None) -> Forcing:
@@ -321,7 +398,8 @@ class BoundaryManager:
                                f.sal_period, 2)
         finally:
             self._time = saved
-        s3 = self.sal.read3d("salinity", pos, self.nzp1) - self.sref[:, None]
+        s3 = self._get3d(self.sal, "salinity", pos) \
+            - self._local_sref()[:, None]
         return frc.replace(sal_clim=self._dev(s3, frc.sal_clim))
 
     # ---- time interpolation (mckpp_boundary_interpolate.F90) -------------
@@ -485,13 +563,14 @@ class BoundaryManager:
             self._prefetch_pool = ThreadPoolExecutor(
                 max_workers=1, thread_name_prefix="ancprefetch")
         t = self.cfg.time
+        rows = self._rows()
 
         def run(reader, kind, var, ndt, periodic, period, method, when):
             try:
                 _, pos = get_update_time(when, ndt, reader.times(), periodic,
                                          period, t.dto, t.dtsec, method=method)
                 reader.prefetch(kind, var, pos,
-                                self.nzp1 if kind == "3d" else None)
+                                self.nzp1 if kind == "3d" else None, rows)
             except ncio.NetCDFError:
                 # a record past the file's end: the synchronous read, if
                 # it ever comes, raises the real, contextful error

@@ -12,8 +12,15 @@ accumulate on the model's device with ``torch.add``/``minimum``/
 the host and encoded on the writer thread while the model steps on.
 Files are split daily where the stream asks for it, land columns carry
 the fill value, and every file carries the lon/lat axes and the time
-metadata.  Only the single-writer mode ("single", XIOS one_file) is
-carried over; "shard" and ``merge_shard_files`` wait for ROADMAP A13.
+metadata.
+
+In a run over several processes (``set_layout``) the accumulators hold
+each rank's slab.  ``write_mode="single"`` (XIOS one_file) gathers each
+emitted window to rank 0, the one writer, synchronously on the loop
+thread (the gather is a collective, which must not run on the writer
+thread); ``write_mode="shard"`` (XIOS multiple_file) has every rank write
+its own rows to ``<stream>[_<split>]_p<rank>.nc`` with no collective,
+and :func:`merge_shard_files` reassembles them offline.
 """
 
 from __future__ import annotations
@@ -51,11 +58,6 @@ WIDE_FIELDS = frozenset({
 
 _OPS = {"average": torch.add, "minimum": torch.minimum,
         "maximum": torch.maximum}
-
-
-def _shard_not_ported(what):
-    return NotImplementedError(
-        f"{what} is not implemented in mckpp_torch yet (ROADMAP A13)")
 
 
 def extract_fields(st: State, prm: ColumnParams, frc: Forcing,
@@ -137,6 +139,12 @@ def _host(v) -> np.ndarray:
     return np.asarray(v)
 
 
+def _nbytes(v) -> int:
+    if isinstance(v, torch.Tensor):
+        return v.numel() * v.element_size()
+    return int(getattr(v, "nbytes", 0))
+
+
 class DiagnosticsManager:
     """Accumulates temporal reductions on the device; emitted records
     stream to per-split NetCDF files as each split window closes
@@ -147,11 +155,16 @@ class DiagnosticsManager:
                  dto_seconds: float = 0.0, l_ocean=None,
                  async_write: bool = True, write_mode: str = "single",
                  lons=None, lats=None):
-        if write_mode == "shard":
-            raise _shard_not_ported("write_mode='shard'")
-        if write_mode != "single":
+        """``write_mode``: "single" writes each stream from rank 0 (XIOS
+        one_file); "shard" has every rank write its own rows (XIOS
+        multiple_file).  ``l_ocean`` is the whole domain's mask."""
+        if write_mode not in ("single", "shard"):
             raise ValueError(f"write_mode {write_mode!r}")
         self.write_mode = write_mode
+        # windows gathered across processes on emit (stays 0 in shard
+        # mode; the CLI reports it)
+        self.emit_gathers = 0
+        self.layout = None
         self.streams = streams
         self.nx, self.ny = nx, ny
         self.zm = _host(zm)
@@ -184,6 +197,19 @@ class DiagnosticsManager:
         self._inflight_bytes = 0
         self._max_pending_mb = float(
             os.environ.get("MCKPP_DIAG_MAX_PENDING_MB", "512"))
+
+    def set_layout(self, layout) -> None:
+        """Attach a ``parallel.distributed.ColumnLayout``: ``step`` is then
+        fed this rank's slab (padding columns included)."""
+        self.layout = layout
+
+    @property
+    def _multi(self) -> bool:
+        return self.layout is not None and self.layout.world > 1
+
+    @property
+    def _sharded(self) -> bool:
+        return self.write_mode == "shard" and self._multi
 
     def needs_full(self, nt: int) -> bool:
         """Whether step ``nt`` must run with full diagnostic
@@ -235,6 +261,15 @@ class DiagnosticsManager:
         if instant_fields:
             acc.update(instant_fields)
         cnt = self._count[s.name]
+        self._accum[s.name] = None
+        self._count[s.name] = 0
+        if self._multi and self.write_mode == "single":
+            # the single writer: gather the window to rank 0 here, on the
+            # loop thread, once per emitted window
+            acc = {k: self.layout.gather(v, dst=0) for k, v in acc.items()}
+            self.emit_gathers += len(acc)
+            if self.layout.rank != 0:
+                return
         t = self.start + nt * self.dto_days
         # close the current split window first if this record starts a new
         # one (a record stamps the END of its window, so the window index
@@ -251,8 +286,7 @@ class DiagnosticsManager:
             # as soon as the copy lands; block here when the emitted but
             # unfetched bytes pass the cap (the XIOS client does the same
             # when its server buffer fills)
-            nbytes = sum(v.numel() * v.element_size() for v in acc.values()
-                         if isinstance(v, torch.Tensor))
+            nbytes = sum(_nbytes(v) for v in acc.values())
             cap = self._max_pending_mb * 1e6
             while self._inflight and \
                     self._inflight_bytes + nbytes > cap:
@@ -263,19 +297,28 @@ class DiagnosticsManager:
             self._inflight.append((packed, nbytes))
             self._inflight_bytes += nbytes
         self._records[s.name].append((t, packed))
-        self._accum[s.name] = None
-        self._count[s.name] = 0
+
+    def _shard_rows(self):
+        """This rank's [lo, hi) of the unpadded domain (shard mode)."""
+        return self.layout.local_rows(self.nx * self.ny)
 
     def _materialize(self, packed):
         acc, cnt, ops = packed
+        mask = self.mask
+        if self._sharded and mask is not None:
+            lo, hi = self._shard_rows()
+            mask = mask[lo:hi]
         rec = {}
         for k, v in acc.items():
-            a = _host(v)
+            if self._sharded:
+                a = self.layout.local_shard(v)    # own rows, no collective
+            else:
+                a = _host(v)[: self.nx * self.ny]     # unpadded
             if ops[k] == "average":
                 a = a / cnt
-            if self.mask is not None:
+            if mask is not None:
                 a = a.copy()
-                a[self.mask, ...] = FILL_VALUE
+                a[mask, ...] = FILL_VALUE
             rec[k] = a
         return rec
 
@@ -287,6 +330,9 @@ class DiagnosticsManager:
             return
         self._records[s.name] = []
         split_idx = self._split_idx[s.name]
+        if self._multi and self.write_mode == "single" \
+                and self.layout.rank != 0:
+            return                 # the single writer is rank 0
         if self._writer is not None:
             self._pending.append(
                 self._writer.submit(self._encode, s, recs, split_idx))
@@ -303,16 +349,36 @@ class DiagnosticsManager:
         nzp1 = len(self.zm)
         attrs = {"reduction": s.reduction.encode(),
                  "fill_value": FILL_VALUE}
-        dims = {"time": nt, "z": nzp1, "y": self.ny, "x": self.nx}
+        suffix = ""
+        if self._sharded:
+            # this rank's rows [lo, hi) of the flattened (y, x) domain on a
+            # flat "points" dimension, recorded for merge_shard_files
+            lo, hi = self._shard_rows()
+            rank = self.layout.rank
+            suffix = f"_p{rank}"
+            dims = {"time": nt, "z": nzp1, "points": hi - lo}
+            attrs.update(shard_lo=lo, shard_hi=hi, shard_nx=self.nx,
+                         shard_ny=self.ny, shard_rank=rank,
+                         shard_count=self.layout.world)
+        else:
+            dims = {"time": nt, "z": nzp1, "y": self.ny, "x": self.nx}
         coords = {"time": ("time", times), "z": ("z", self.zm)}
         if self.lons is not None and self.lats is not None:
+            # shard files carry the whole (small) axes too, so each file
+            # describes itself and the merge passes them through
+            dims["x"], dims["y"] = self.nx, self.ny
             coords["longitude"] = ("x", self.lons)
             coords["latitude"] = ("y", self.lats)
         fields = {}
         for name in recs[0][1]:
             sample = recs[0][1][name]
             arr = np.stack([r[name] for _, r in recs])
-            if sample.ndim == 2:        # (ncol, nzp1)
+            if self._sharded:
+                fields[name] = ((("time", "z", "points"),
+                                 np.moveaxis(arr, -1, 1))
+                                if sample.ndim == 2
+                                else (("time", "points"), arr))
+            elif sample.ndim == 2:        # (ncol, nzp1)
                 arr = arr.reshape(nt, self.ny, self.nx, nzp1)
                 fields[name] = (("time", "z", "y", "x"),
                                 np.moveaxis(arr, -1, 1))
@@ -321,9 +387,9 @@ class DiagnosticsManager:
                                 arr.reshape(nt, self.ny, self.nx))
         if s.split_freq_days:
             split_start = self.start + split_idx * s.split_freq_days
-            fname = f"{s.name}_{split_start:09.3f}.nc"
+            fname = f"{s.name}_{split_start:09.3f}{suffix}.nc"
         else:
-            fname = f"{s.name}.nc"
+            fname = f"{s.name}{suffix}.nc"
         path = os.path.join(self.outdir, fname)
         os.makedirs(self.outdir, exist_ok=True)
         # self-describing time metadata: XIOS stamps a Gregorian calendar
@@ -364,9 +430,76 @@ class DiagnosticsManager:
 
 
 def merge_shard_files(shard_paths, out_path: str) -> str:
-    """The offline half of the XIOS multiple_file workflow: waits for the
-    shard write mode."""
-    raise _shard_not_ported("merge_shard_files")
+    """Reassemble the shard files of one stream window
+    (``<stream>[_<split>]_p<rank>.nc``, written by ``write_mode="shard"``)
+    into the single writer's ``(time, z, y, x)`` file, the offline half of
+    the XIOS multiple_file workflow.  The values are those the single
+    writer would write: the reductions are per column, so joining the
+    row slabs loses nothing."""
+    from scipy.io import netcdf_file
+
+    def iattr(nc, name):        # attrs may read back as float or array
+        return int(np.asarray(getattr(nc, name)).ravel()[0])
+
+    def attrs_of(obj):
+        return dict(obj._attributes)
+
+    ncs = [netcdf_file(str(p), "r", mmap=False) for p in shard_paths]
+    try:
+        ncs.sort(key=lambda nc: iattr(nc, "shard_lo"))
+        head = ncs[0]
+        nx, ny = iattr(head, "shard_nx"), iattr(head, "shard_ny")
+        npts = nx * ny
+        pos = 0
+        for nc in ncs:
+            lo, hi = iattr(nc, "shard_lo"), iattr(nc, "shard_hi")
+            if lo != pos:
+                raise ValueError(f"shard files do not tile the domain: gap "
+                                 f"at rows [{pos}, {lo})")
+            pos = hi
+        if pos != npts:
+            raise ValueError(f"shard files cover rows [0, {pos}) of {npts}")
+        # coordinates keep their on-disk precision (a float32 run writes
+        # z as float32), so the merge equals the single writer's file
+        coord = lambda v: np.array(v[:], v.data.dtype.newbyteorder("="))
+        times, zvals = coord(head.variables["time"]), coord(head.variables["z"])
+        nt, nzp1 = len(times), len(zvals)
+        dims = {"time": nt, "z": nzp1, "y": ny, "x": nx}
+        coords = {"time": ("time", times), "z": ("z", zvals)}
+        var_attrs = {"time": attrs_of(head.variables["time"]),
+                     "z": attrs_of(head.variables["z"])}
+        # the domain axes (whole in every shard) pass straight through
+        for axis, dim in (("longitude", "x"), ("latitude", "y")):
+            if axis in head.variables:
+                v = head.variables[axis]
+                coords[axis] = (dim, coord(v))
+                var_attrs[axis] = attrs_of(v)
+        fields = {}
+        for name, v in head.variables.items():
+            if name in ("time", "z", "longitude", "latitude"):
+                continue
+            depth = v.data.ndim == 3
+            # the shards' precision is kept: float32 stays float32 (the
+            # on-disk dtype is big-endian ">f4", which is not np.float32)
+            dt = v.data.dtype.newbyteorder("=")
+            full = np.empty((nt, nzp1, npts) if depth else (nt, npts), dt)
+            for nc in ncs:
+                lo, hi = iattr(nc, "shard_lo"), iattr(nc, "shard_hi")
+                full[..., lo:hi] = nc.variables[name][:]
+            fields[name] = ((("time", "z", "y", "x"),
+                             full.reshape(nt, nzp1, ny, nx)) if depth
+                            else (("time", "y", "x"),
+                                  full.reshape(nt, ny, nx)))
+            if v._attributes:
+                var_attrs[name] = attrs_of(v)
+        attrs = {k: val for k, val in attrs_of(head).items()
+                 if not k.startswith("shard_")}
+    finally:
+        for nc in ncs:
+            nc.close()
+    ncio.write_fields(out_path, dims, coords, fields, attrs=attrs,
+                      var_attrs=var_attrs)
+    return out_path
 
 
 def default_streams(dto_seconds: float = 1200.0,

@@ -1,7 +1,9 @@
 """NetCDF read/write wrapper (the reference's mckpp_netcdf_read.F90 layer;
-a copy of ``mckpp_tpu/io/ncio.py`` that writes through scipy's
-``netcdf_file`` only: the JAX package's C++ streaming encoder is not
-carried over yet).
+counterpart of ``mckpp_tpu/io/ncio.py``).  Files are written by the C++
+encoder of ``mckpp_torch/native`` unless ``MCKPP_NO_NATIVE=1`` chooses
+scipy's ``netcdf_file`` or the payload is one the encoder cannot express
+(an unlimited record dimension, an array-valued attribute); ``WRITES``
+counts the files each writer wrote.
 
 Reading is hyperslab-first, like the reference
 (mckpp_netcdf_read.F90:120-432): :func:`get_var` takes an ``index`` applied
@@ -27,10 +29,18 @@ Semantics preserved from the reference:
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import Optional
 
 import numpy as np
 from scipy.io import netcdf_file
+
+from .. import native
+
+# files written by each writer in this process (the writer threads of the
+# diagnostics and restarts add to it; callers read differences)
+WRITES = {"native": 0, "scipy": 0}
+_writes_lock = threading.Lock()
 
 
 class NetCDFError(RuntimeError):
@@ -143,34 +153,48 @@ def write_fields(path: str, dims: dict, coords: dict, fields: dict,
     coords {name: (dimname, values)}, fields {name: (dims-tuple, array)},
     var_attrs {varname: {attname: str|float}} per-variable attributes
     (e.g. time units/calendar, the XIOS calendar metadata analog of
-    mckpp_xios_io.F90:40-46)."""
+    mckpp_xios_io.F90:40-46).  Both writers write CDF-2 (64-bit offsets):
+    a full-width day of diagnostics passes 2 GiB."""
+    if native.enabled() and native.expressible(dims, coords, fields, attrs,
+                                               var_attrs):
+        native.write_fields_native(path, dims, coords, fields, attrs,
+                                   var_attrs)
+        writer = "native"
+    else:
+        _write_scipy(path, dims, coords, fields, attrs, var_attrs)
+        writer = "scipy"
+    with _writes_lock:
+        WRITES[writer] += 1
+
+
+def _write_scipy(path, dims, coords, fields, attrs, var_attrs):
+    """The native encoder's types, so that ``MCKPP_NO_NATIVE=1`` changes
+    the encoder and not the file: a float32 variable (coordinate or field)
+    is NC_FLOAT and every other one NC_DOUBLE; a scalar numeric attribute
+    is NC_DOUBLE (scipy would store an int as NC_INT and a Python float as
+    NC_FLOAT); text stays text and an array-valued attribute keeps its
+    type."""
     def att(val):
-        # scipy stores a Python float as a 4-byte NC_FLOAT: keep doubles
         if isinstance(val, str):
             return val.encode()
-        return np.float64(val) if isinstance(val, float) else val
+        if native.scalar_attr(val) and not isinstance(val, bytes):
+            return np.float64(np.asarray(val).reshape(-1)[0])
+        return val
 
-    # version 2 (64-bit offsets, magic CDF\x02), as the JAX package's
-    # native encoder writes: a full-width day of diagnostics passes 2 GiB
     with netcdf_file(path, "w", mmap=False, version=2) as nc:
-        def set_var_attrs(v, name):
+        def put(name, fdims, arr):
+            f32 = getattr(arr, "dtype", None) == np.float32
+            v = nc.createVariable(name, "f" if f32 else "d", tuple(fdims))
+            v[:] = np.asarray(arr, dtype=np.float32 if f32 else np.float64)
             for k, val in ((var_attrs or {}).get(name) or {}).items():
                 setattr(v, k, att(val))
 
         for name, size in dims.items():
             nc.createDimension(name, size)
         for name, (dim, vals) in coords.items():
-            v = nc.createVariable(name, "d", (dim,))
-            v[:] = np.asarray(vals, dtype=np.float64)
-            set_var_attrs(v, name)
+            put(name, (dim,), vals)
         for name, (fdims, arr) in fields.items():
-            # float32 payloads write as 4-byte NC_FLOAT (XIOS's default
-            # output precision); everything else as NC_DOUBLE
-            f32 = getattr(arr, "dtype", None) == np.float32
-            v = nc.createVariable(name, "f" if f32 else "d", tuple(fdims))
-            v[:] = np.asarray(arr,
-                              dtype=np.float32 if f32 else np.float64)
-            set_var_attrs(v, name)
+            put(name, fdims, arr)
         if attrs:
             for k, val in attrs.items():
                 setattr(nc, k, att(val))

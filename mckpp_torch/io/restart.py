@@ -9,7 +9,10 @@ bit-exactly to an ``.npz`` under the JAX package's key names
 ``meta_time_days``), so a restart written by either package resumes in
 the other.  :func:`export_reference_restart` also writes the reference's
 NetCDF field list.  Filenames carry the validity time of the next step
-(mckpp_xios_control.F90:61-83).
+(mckpp_xios_control.F90:61-83).  In a run over several processes rank 0
+writes from the gathered state and the other ranks write nothing; a run
+resuming under a column layout slices each rank's rows from the file
+(``setup.build``).
 """
 
 from __future__ import annotations
@@ -169,17 +172,21 @@ class RestartControl:
     state to a background thread, which fetches it to the host and encodes
     the .npz (and NetCDF) file.  The caller passes state that nothing
     overwrites afterwards (the model's steps and the chain return fresh
-    tensors)."""
+    tensors).  With a ``layout`` over several processes the state is
+    gathered to rank 0 first, synchronously on the calling (loop) thread,
+    since the gather is a collective; only rank 0 writes."""
 
     def __init__(self, outfile: str, ndt_per_restart: int, num_timesteps: int,
                  dto: float, start_days: float,
-                 netcdf_grid: Optional[Tuple[int, int]] = None):
+                 netcdf_grid: Optional[Tuple[int, int]] = None,
+                 layout=None):
         self.outfile = outfile
         self.cadence = ndt_per_restart
         self.last = num_timesteps
         self.dto = dto
         self.start = start_days
         self.netcdf_grid = netcdf_grid
+        self.layout = layout
         self.written = []
         self._writer = ThreadPoolExecutor(max_workers=1)
         self._pending = []
@@ -203,6 +210,11 @@ class RestartControl:
     def maybe_write(self, nt: int, st, prm, frc):
         if not self.due(nt):
             return
+        if self.layout is not None and self.layout.world > 1:
+            st, prm, frc = (self.layout.gather_tree(t, dst=0)
+                            for t in (st, prm, frc))
+            if self.layout.rank != 0:
+                return
         # fail fast: surface an already-failed detached write now
         still = []
         for fut in self._pending:

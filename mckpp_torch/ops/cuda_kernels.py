@@ -50,6 +50,7 @@ import numpy as np
 import torch
 
 from .. import constants as c
+from ..utils.files import tmp_name
 from . import fused_pass as fp
 
 # launches of each kernel since the last reset_counts(); a wrapper adds
@@ -108,24 +109,28 @@ def build(dtypes=(torch.float32, torch.float64), phases=False) -> dict:
     report} for the libraries built by this call.  ``phases`` builds the
     library with the stage clocks of ``csrc/fused_pass.cuh`` on
     (``-DKPP_PHASES``, for chip_phases.py) under its own name; the port
-    itself always loads the one without."""
+    itself always loads the one without.  Several processes (the ranks
+    of a distributed run) may build into one directory at once."""
     os.makedirs(_BUILD, exist_ok=True)
     procs = {}
     for dt in dtypes:
         out = _lib_path(dt, phases)
         if os.path.exists(out):
             continue
+        tmp = tmp_name(out)
         cmd = [_nvcc(), *NVCC_FLAGS, f"-DKPP_REAL={_REALS[dt]}",
                *(["-DKPP_PHASES"] if phases else []),
-               "-o", out + ".tmp", os.path.join(_CSRC, "fused_kernels.cu")]
-        procs[dt] = (out, subprocess.Popen(
+               "-o", tmp, os.path.join(_CSRC, "fused_kernels.cu")]
+        procs[dt] = (out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     reports = {}
-    for dt, (out, p) in procs.items():
+    for dt, (out, tmp, p) in procs.items():
         log, _ = p.communicate()
         if p.returncode != 0:
+            if os.path.exists(tmp):
+                os.remove(tmp)
             raise RuntimeError(f"nvcc failed for {_REALS[dt]}:\n{log}")
-        os.replace(out + ".tmp", out)
+        os.replace(tmp, out)
         reports[dt] = log
     return reports
 

@@ -11,6 +11,12 @@ interpolation and Kelvin autoconversion
 (mckpp_initialize_ocean_profiles_mod.F90), restart resume, and the initial
 ancillary reads.  The files are read on the host in numpy; the model and
 its state live on ``device``.
+
+Under a column layout (``parallel/distributed.py``) every process builds
+the whole domain, as the JAX package does before ``layout.shard_tree``,
+runs the initial mixing pass over it (a per-column pass, so the result
+is the single-process one), keeps its own slab, and from then on reads
+the forcing and ancillaries host-locally.
 """
 
 from __future__ import annotations
@@ -194,15 +200,21 @@ def relaxation_rates(cfg: KppConfig) -> Tuple[np.ndarray, np.ndarray, np.ndarray
             expand(b.relax_ocnt_in, b.l_relax_ocnt))
 
 
-def build(cfg: KppConfig, data_dir: str = ".", device=None):
+def build(cfg: KppConfig, data_dir: str = ".", device=None, layout=None):
     """Assemble (model, state, params, forcing, flux_provider,
     boundary_mgr) ready to run — the reference's initialization call stack
     (SURVEY.md section 3.1).  ``device``: as for :class:`KppModel` (the
-    card unless the caller asks for the CPU)."""
+    card unless the caller asks for the CPU).  ``layout``: a
+    ``ColumnLayout``; the state, parameters and forcing come back as this
+    process's slab (padding columns inactive), a restart is sliced to it
+    on the host, and the readers are set to read its rows only."""
     cfg.validate()
     d = cfg.domain
-    dlon, dlat, l_ocean, ocdepth = load_landsea(cfg, data_dir)
     dt, dev = model_dtype(cfg), resolve_device(device)
+    if layout is not None and layout.device != dev:
+        raise ValueError(f"the layout's slabs are on {layout.device} and the "
+                         f"model on {dev}: make both on one device")
+    dlon, dlat, l_ocean, ocdepth = load_landsea(cfg, data_dir)
     vgrid = load_vgrid(cfg, data_dir, dt, dev)
     model = KppModel(cfg, vgrid=vgrid, device=dev)
     nzp1 = model.grid.nzp1
@@ -233,8 +245,10 @@ def build(cfg: KppConfig, data_dir: str = ".", device=None):
     if cfg.init.l_restart:
         rpath = os.path.join(data_dir, cfg.init.restart_infile)
         if rpath.endswith(".npz"):
-            # native bit-exact checkpoint (either package's)
-            st, prm, frc, _, _ = restart_io.load_restart(rpath, device=dev)
+            # native bit-exact checkpoint (either package's); under a
+            # layout it stays on the host until sliced to the slab
+            st, prm, frc, _, _ = restart_io.load_restart(
+                rpath, device="cpu" if layout is not None else dev)
         else:
             # reference-format NetCDF restart (mckpp_xios_io.F90:436-465)
             st = init_state(d.npts, nzp1, dt, dev)
@@ -272,4 +286,9 @@ def build(cfg: KppConfig, data_dir: str = ".", device=None):
         flux_provider = FluxFileReader(cfg2, dlon[0], dlat[0], dtype=dt,
                                        device=dev)
 
+    if layout is not None:
+        st, prm, frc = (layout.shard_tree(t) for t in (st, prm, frc))
+        mgr.set_layout(layout)
+        if flux_provider is not None:
+            flux_provider.set_layout(layout)
     return model, st, prm, frc, flux_provider, mgr

@@ -142,12 +142,18 @@ def test_build_matches_jax(inputs):
                                           np.asarray(getattr(ref, k)))
 
 
-def test_cli_options_that_raise(tmp_path):
+def test_cli_options_that_raise(tmp_path, monkeypatch):
+    """What still raises: both process flags at once, a process count
+    without a coordinator, and the card when there is none.  (The flags
+    themselves run: tests/test_torch_distributed.py.)"""
     d = tmp_path
-    for extra in (["--multi-device"], ["--distributed"],
-                  ["--output-mode", "shard"]):
-        with pytest.raises(NotImplementedError, match="A13"):
-            port_cli(d, d / "out", *extra)
+    with pytest.raises(ValueError, match="pass one of the two"):
+        port_cli(d, d / "out", "--multi-device", "--distributed")
+    monkeypatch.setenv("KPP_NUM_PROCS", "2")
+    monkeypatch.delenv("KPP_COORDINATOR", raising=False)
+    monkeypatch.delenv("MASTER_ADDR", raising=False)
+    with pytest.raises(ValueError, match="KPP_COORDINATOR"):
+        port_cli(d, d / "out", "--distributed")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
             cli.main(["--namelist", str(d / "none.nml")])

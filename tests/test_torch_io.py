@@ -192,11 +192,36 @@ def test_diagnostics_files_match(tmp_path):
     assert tv["time"][1]["units"] == b"days since 0000-01-02 00:00:00"
 
 
-def test_shard_mode_not_ported():
-    with pytest.raises(NotImplementedError, match="A13"):
-        tdiag.DiagnosticsManager([], 1, 1, np.zeros(2), write_mode="shard")
-    with pytest.raises(NotImplementedError, match="A13"):
-        tdiag.merge_shard_files([], "x.nc")
+def test_shard_mode_not_ported(tmp_path):
+    """The shard mode is ported now (the name dates from when it raised):
+    a rank's shard file carries its rows and the slab attributes, an
+    unknown mode raises, and the merge refuses shard files that do not
+    tile the domain."""
+    from mckpp_torch.parallel.distributed import ColumnLayout
+    with pytest.raises(ValueError, match="write_mode"):
+        tdiag.DiagnosticsManager([], 1, 1, np.zeros(2), write_mode="both")
+    zm = np.linspace(-1.0, -60.0, NZ + 1)
+    lay = ColumnLayout(ncol=NCOL, ncol_unpadded=NCOL, rank=1, world=2,
+                       device="cpu")
+    tm = tdiag.DiagnosticsManager(
+        [tdiag.Stream("inst", "instant", 1, fields=("T", "hmix"))], NX, NY,
+        zm, outdir=str(tmp_path), write_mode="shard", l_ocean=np.ones(NCOL, bool))
+    tm.set_layout(lay)
+    (_, _, _), (ts, tp, tf) = _pair(1)
+    half = lambda tree: tree.replace(**{
+        f: getattr(tree, f)[lay.lo:lay.hi]
+        for f in tree.__dataclass_fields__})
+    tm.step(1, half(ts), half(tp), half(tf))
+    path = tm.flush()["inst"]
+    assert os.path.basename(path) == "inst_p1.nc"
+    dims, attrs, vs = _read(path)
+    assert dims["points"] == NCOL // 2 and tm.emit_gathers == 0
+    assert (attrs["shard_lo"], attrs["shard_hi"], attrs["shard_rank"]) \
+        == (NCOL // 2, NCOL, 1)
+    np.testing.assert_array_equal(
+        vs["T"][0][0], ts.x[lay.lo:lay.hi, :, 0].numpy().T)
+    with pytest.raises(ValueError, match="gap at rows"):
+        tdiag.merge_shard_files([path], str(tmp_path / "m.nc"))
 
 
 # ---------------------------------------------------------------------------
