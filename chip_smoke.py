@@ -27,7 +27,14 @@ Phases, each printing JSON lines; any breach raises, so the script exits
 6. a device trace (``torch.profiler``) of one full step and one
    prognostic step at the main-path width: device time by kernel name and
    the device-idle share;
-7. the CLI (``mckpp_torch.cli``) on the TerraMaris configuration at full
+7. the reference step (pass_impl "reference", plain torch, no kernel
+   launched): float64 at 2,048 columns, Thomas + wscale table on the card
+   against the CPU and PCR + nodal against "cuda_step", both within rtol
+   1e-9 with the integer fields equal; float32 at the main-path width,
+   Thomas + table against "cuda_step" with the nodal form, within
+   BASELINE.md's float32 budget with kmix differing in at most 0.1% of
+   the ocean columns; its ms per step beside "cuda_step"'s;
+8. the CLI (``mckpp_torch.cli``) on the TerraMaris configuration at full
    width (inputs written by ``mckpp_torch.io.benchmark_inputs``): 24 steps
    chained through CUDA graphs, timed, its outputs held (finite over
    ocean, land at the fill value, hmix in [0, dmax]); the same steps
@@ -37,17 +44,17 @@ Phases, each printing JSON lines; any breach raises, so the script exits
    against k steps, a restart and k more, equal bit for bit; a trace of
    one replayed segment against the same steps run per step; every file
    written by the C++ encoder;
-8. distributed: the same 24 steps as two ``--distributed`` processes
+9. distributed: the same 24 steps as two ``--distributed`` processes
    sharing the card (``KPP_*`` rendezvous, gloo), single writer and shard
    mode (merged by ``python -m mckpp_torch.tools.merge_shards``), each
-   equal bit for bit to phase 7's graph-chained run, every rank launching
+   equal bit for bit to phase 8's graph-chained run, every rank launching
    the step kernel and the full pass, gathers counted; ``--multi-device``
    (one worker a card) on the resume check's 12-step straight run, equal
    bit for bit to it; a 4-member ensemble (578,028 columns) stepped 3
    times, member 0 equal bit for bit to the single run; one full-width
    ``output_kpp_all`` window encoded by the C++ encoder and by scipy,
    timed;
-9. one model day (72 steps) of the CLI when the script has used less
+10. one model day (72 steps) of the CLI when the script has used less
    than ``CLI_DAY_BEFORE_S`` (so that the script ends within 8 minutes).
 
 Every phase line carries ``t_s``, the seconds since the script started.
@@ -128,9 +135,11 @@ def card_peaks(name):
 # ---------------------------------------------------------------------------
 
 def build(ncol, nz, dtype="float32", pass_impl="cuda_step", physics=None,
-          boundary=None, noise=0.0, seed=0, land=0.0, big=(), dmax=1000.0):
+          boundary=None, noise=0.0, seed=0, land=0.0, big=(), dmax=1000.0,
+          device=None):
     """``land``: a share of land columns drawn at random, or a tuple of
-    land column indices; ``big``: columns given large T and u noise."""
+    land column indices; ``big``: columns given large T and u noise;
+    ``device``: the model's (default cuda)."""
     import numpy as np
     import torch
     import mckpp_torch as T
@@ -144,7 +153,7 @@ def build(ncol, nz, dtype="float32", pass_impl="cuda_step", physics=None,
         physics=T.PhysicsFlags(pass_impl=pass_impl, **(physics or {})),
         boundary=T.BoundaryConfig(**(boundary or {})),
         dtype=dtype)
-    model = T.KppModel(cfg)                    # cuda
+    model = T.KppModel(cfg, device=device)     # cuda unless told
     dev, dt = model.device, model.dtype
     nzp1 = nz + 1
     zm = model.grid.zm.double().cpu().numpy()
@@ -750,6 +759,167 @@ def trace_stats(prof, top_n=12):
 
 
 # ---------------------------------------------------------------------------
+# the reference step (pass_impl "reference": plain torch, no kernel)
+# ---------------------------------------------------------------------------
+
+REF_NCOL_F64 = 2048     # the float64 checks' width
+REF_STEPS = 3
+REF_TOL = 1e-9          # scale-aware rtol, float64 (tests/test_fused_parity.py)
+# BASELINE.md's float32 budget after one model day (max abs over ocean
+# columns, physical units), and the share of ocean columns whose kmix may
+# differ
+F32_BUDGET = {"T": 3.1e-4, "S": 4.8e-6, "hmix": 1.5e-3}
+KMIX_MISMATCH_MAX = 1e-3
+THOMAS_TABLE = dict(solver="thomas", wscale_mode="table")
+PCR_NODAL = dict(solver="pcr", wscale_mode="nodal")
+
+
+def timed_run(model, st, prm, frc, n):
+    """Steps 1..n from the built state: step 1 warms up, each later step is
+    timed on the host clock between device syncs.  Returns (state, ms of
+    steps 2..n, the launch counts the run added)."""
+    from mckpp_torch.ops import cuda_kernels as ck
+    before = dict(ck.LAUNCHES)
+    st, frc = run_steps(model, st, prm, frc, 1, 1)
+    sync()
+    ms = []
+    for nt in range(2, n + 1):
+        t0 = time.perf_counter()
+        st, frc = run_steps(model, st, prm, frc, nt, 1)
+        sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    added = {k: ck.LAUNCHES[k] - before.get(k, 0) for k in ck.LAUNCHES}
+    return st, ms, {k: v for k, v in added.items() if v}
+
+
+def states_rel(a, b):
+    """Per field of two states: the max relative difference (max |a-b| over
+    max |b|) of a float field, the count of differing entries of an
+    integer field."""
+    import dataclasses
+    out = {}
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name).cpu(), getattr(b, f.name).cpu()
+        if x.dtype.is_floating_point:
+            d = float((x - y).abs().max())
+            out[f.name] = d / max(float(y.abs().max()), 1e-300) if d else 0.0
+        else:
+            out[f.name] = int((x != y).sum())
+    return out
+
+
+def rel_summary(rel):
+    """The largest float difference and the integer mismatches of
+    :func:`states_rel`, and the fields over the float64 bar."""
+    floats = {k: v for k, v in rel.items() if isinstance(v, float)}
+    ints = {k: v for k, v in rel.items() if isinstance(v, int)}
+    over = {k: v for k, v in floats.items() if v > REF_TOL}
+    over.update({k: v for k, v in ints.items() if v})
+    worst = max(floats, key=floats.get)
+    return dict(max_rel=floats[worst], max_rel_field=worst,
+                int_mismatch=ints), over
+
+
+def phase_reference(name, smi, device="cuda", ncol64=REF_NCOL_F64,
+                    ncol32=NCOL_MAIN, nz=NZ_MAIN):
+    """The reference step (ops/ocnstep.py) on the card: (a) thomas + table,
+    float64, against the same model on the CPU; (b) pcr + nodal, float64,
+    against the whole-step kernel; (c) thomas + table, float32 at the
+    TerraMaris width, against the whole-step kernel with the nodal form,
+    within BASELINE.md's float32 budget, both timed.  No kernel launches
+    in a reference run."""
+    res = {}
+    errors = []
+    # (a) float64, card against CPU
+    runs = {}
+    for dev in (device, "cpu"):
+        model, st, prm, frc = build(ncol64, nz, "float64", "reference",
+                                    physics=THOMAS_TABLE, land=LAND_SHARE,
+                                    device=dev)
+        runs[dev] = timed_run(model, st, prm, frc, REF_STEPS)
+    st_a, ms_a, launched_a = runs[device]
+    sum_a, over_a = rel_summary(states_rel(st_a, runs["cpu"][0]))
+    res["a_thomas_table_f64_vs_cpu"] = dict(
+        ncol=ncol64, **sum_a, step_ms=ms_a, cpu_step_ms=runs["cpu"][1],
+        launches=launched_a)
+    # (b) float64, reference (pcr, nodal) against the step kernel
+    model, st, prm, frc = build(ncol64, nz, "float64", "reference",
+                                physics=PCR_NODAL, land=LAND_SHARE,
+                                device=device)
+    st_b, ms_b, launched_b = timed_run(model, st, prm, frc, REF_STEPS)
+    model_k = build(ncol64, nz, "float64", "cuda_step", physics=PCR_NODAL,
+                    land=LAND_SHARE, device=device)[0]
+    st_k = timed_run(model_k, st, prm, frc, REF_STEPS)[0]
+    sum_b, over_b = rel_summary(states_rel(st_b, st_k))
+    res["b_pcr_nodal_f64_vs_cuda_step"] = dict(
+        ncol=ncol64, **sum_b, step_ms=ms_b, launches=launched_b)
+    # (c) float32 at the TerraMaris width, timed beside the step kernel
+    model, st, prm, frc = build(ncol32, nz, "float32", "reference",
+                                physics=THOMAS_TABLE, land=LAND_SHARE,
+                                device=device)
+    st_r, ms_r, launched_c = timed_run(model, st, prm, frc, REF_STEPS)
+    model_k = build(ncol32, nz, "float32", "cuda_step",
+                    physics=dict(wscale_mode="nodal"), land=LAND_SHARE,
+                    device=device)[0]
+    st_k, ms_k, _ = timed_run(model_k, st, prm, frc, REF_STEPS)
+    wet = prm.run_physics
+    n_wet = int(wet.sum())
+    kdiff = wet & (st_r.kmix != st_k.kmix)
+    n_kdiff = int(kdiff.sum())
+    same = wet & ~kdiff
+    fields = {"T": lambda s: s.x[..., 0], "S": lambda s: s.x[..., 1],
+              "hmix": lambda s: s.hmix}
+
+    def max_abs(mask):
+        return {k: float((f(st_r)[mask] - f(st_k)[mask]).abs().max())
+                for k, f in fields.items()}
+    ocean, agree = max_abs(wet), max_abs(same)
+    finite = bool(torch_all_finite(st_r))
+    ref_ms = sum(ms_r) / len(ms_r)
+    step_ms = sum(ms_k) / len(ms_k)
+    res["c_thomas_table_f32_vs_cuda_step_nodal"] = dict(
+        ncol=ncol32, active_columns=n_wet, max_abs_ocean=ocean,
+        max_abs_kmix_agree=agree, budget=F32_BUDGET, kmix_mismatch=n_kdiff,
+        kmix_mismatch_share=n_kdiff / n_wet, finite=finite,
+        launches=launched_c)
+    res["times"] = dict(
+        ncol=ncol32, dtype="float32", steps_timed=len(ms_r),
+        reference_step_ms=ms_r, cuda_step_step_ms=ms_k,
+        reference_ms_per_step=ref_ms, cuda_step_ms_per_step=step_ms,
+        reference_column_steps_per_s=ncol32 / (ref_ms / 1e3),
+        cuda_step_column_steps_per_s=ncol32 / (step_ms / 1e3))
+    emit({"phase": "reference", "card": name, "nvidia_smi": smi,
+          "nz": nz, **res})
+    # the gates, after the line that shows every number
+    for what, launched in (("a", launched_a), ("b", launched_b),
+                           ("c", launched_c)):
+        if launched:
+            errors.append(f"({what}) launched kernels: {launched}")
+    for what, over in (("(a) card vs cpu", over_a),
+                       ("(b) vs cuda_step", over_b)):
+        if over:
+            errors.append(f"{what} over rtol {REF_TOL}: {over}")
+    over = {k: v for k, v in ocean.items() if v > F32_BUDGET[k]}
+    if over:
+        errors.append(f"(c) over the float32 budget: {over}")
+    if n_kdiff > KMIX_MISMATCH_MAX * n_wet:
+        errors.append(f"(c) kmix differs in {n_kdiff} of {n_wet} columns")
+    if not finite:
+        errors.append("(c) non-finite reference state")
+    if errors:
+        raise AssertionError("; ".join(errors))
+    return res
+
+
+def torch_all_finite(st):
+    import dataclasses
+    import torch
+    return all(bool(torch.isfinite(getattr(st, f.name)).all())
+               for f in dataclasses.fields(st)
+               if getattr(st, f.name).dtype.is_floating_point)
+
+
+# ---------------------------------------------------------------------------
 # the CLI on the TerraMaris configuration
 # ---------------------------------------------------------------------------
 
@@ -1030,7 +1200,7 @@ def phase_cli(name, smi, work, device="cuda", shrink=1):
         land = ncio.get_var(nc, "lsm") == 1.0
     dmax = grid["dmax"]
     on_card = device == "cuda"
-    # a restart at the last of the CLI_STEPS, for phase 8 to compare
+    # a restart at the last of the CLI_STEPS, for phase 9 to compare
     nml = os.path.join(work, "cli.nml")
     edit_namelist(os.path.join(data, "3D_ocn.nml"), nml,
                   ndt_per_restart=CLI_STEPS)
@@ -1169,7 +1339,7 @@ def phase_day(name, t_start, work, data, land, dmax, device="cuda"):
 
 
 # ---------------------------------------------------------------------------
-# phase 8: the CLI over two processes on the one card, and an ensemble
+# phase 9: the CLI over two processes on the one card, and an ensemble
 # ---------------------------------------------------------------------------
 
 RANKS = 2
@@ -1378,9 +1548,9 @@ def ensemble_check(data_dir, nml, name, device="cuda"):
 
 def phase_distributed(name, smi, work, data, nml, g, straight,
                       device="cuda"):
-    """Phase 8: the CLI as RANKS processes on the one card, single and
+    """Phase 9: the CLI as RANKS processes on the one card, single and
     shard mode, merged with mckpp_torch.tools.merge_shards, each equal bit
-    for bit to phase 7's one-process graph-chained run; --multi-device
+    for bit to phase 8's one-process graph-chained run; --multi-device
     (one worker per card) on the resume check's straight run (2k steps,
     the light iodef: on a one-card host it is the plain path once more,
     so the shorter run does), equal bit for bit to it; an ensemble; one
@@ -1509,6 +1679,7 @@ def main():
     phase_trace(build(NCOL_MAIN, NZ_MAIN, land=LAND_SHARE)[0], st, prm, frc,
                 nt, name)
     del st, prm, frc, caps
+    phase_reference(name, smi)
     work = tempfile.mkdtemp(prefix="chip_smoke_cli_")
     try:
         data, nml, land, dmax, g, straight = phase_cli(name, smi, work)

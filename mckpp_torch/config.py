@@ -89,30 +89,35 @@ class PhysicsFlags:
                                       # (reference loops unboundedly at
                                       # mckpp_physics_ocnstep_mod.F90:176-181)
     solver: str = "pcr"               # tridiagonal solve: "pcr" (parallel
-                                      # cyclic reduction); "thomas" is not
-                                      # implemented in this package yet
-                                      # and raises NotImplementedError
+                                      # cyclic reduction) | "thomas" (the
+                                      # reference's sequential sweeps; the
+                                      # reference step only)
     wscale_mode: str = "auto"         # turbulent velocity scales:
                                       # "auto" -> "analytic" on CUDA
-                                      # float32 (exact LMD stability
-                                      # functions), "nodal" elsewhere;
-                                      # "nodal" = the reference's bilinear
-                                      # (zehat, ustar) interpolation
-                                      # computed gather-free from node
-                                      # formula evaluations; "table" is
-                                      # not implemented here and raises
-                                      # NotImplementedError
+                                      # float32 on the fused path (exact
+                                      # LMD stability functions), "nodal"
+                                      # elsewhere; "nodal" = the
+                                      # reference's bilinear (zehat,
+                                      # ustar) interpolation computed
+                                      # gather-free from node formula
+                                      # evaluations; "table" = the same
+                                      # lookup in resident tables (the
+                                      # reference step only); the
+                                      # reference step evaluates
+                                      # "analytic" in the nodal form
     pass_impl: str = "auto"           # per-pass implementation:
                                       # "eager" (plain torch pass body,
                                       # batch-level loops) | "eager_step"
                                       # (plain torch whole-step body) |
                                       # "cuda" (CUDA pass kernel,
                                       # batch-level loops) | "cuda_step"
-                                      # (CUDA whole-step kernel);
-                                      # "auto" -> "cuda_step" on a CUDA
-                                      # device, "eager_step" on the CPU;
-                                      # "reference" raises
-                                      # NotImplementedError
+                                      # (CUDA whole-step kernel) |
+                                      # "reference" (the unfused
+                                      # vmix -> ocnint step, plain torch);
+                                      # "auto" -> "reference" for the
+                                      # thomas solver or the wscale table,
+                                      # else "cuda_step" on a CUDA device,
+                                      # "eager_step" on the CPU
     pass_block: int = 256             # the JAX package's Pallas column
                                       # tile, kept so configs carry over;
                                       # the CUDA kernels do not read it

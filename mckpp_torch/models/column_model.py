@@ -4,7 +4,10 @@
 Columns are a batch axis; land columns are masked with ``torch.where``.
 The model runs on ``cuda`` unless the caller passes ``device="cpu"``; on
 the card the ocean step goes through the CUDA kernels (``pass_impl``
-"cuda_step"), on the CPU through their plain torch bodies.
+"cuda_step"), on the CPU through their plain torch bodies.  The reference
+step (``pass_impl`` "reference", ``ops/ocnstep.py``) is plain torch on
+either device; "auto" falls back to it for the options the fused step
+does not cover (the Thomas solver, the resident wscale table).
 """
 
 from __future__ import annotations
@@ -17,27 +20,17 @@ import torch
 from .. import forcing as forcing_mod
 from ..config import KppConfig
 from ..grid import VerticalGrid, make_vertical_grid
+from ..ops import wscale as wscale_mod
 from ..ops.eos import abk80, cpsw
+from ..ops.ocnstep import apply_vmix, interior_fluxes, ocnstep
 from ..ops.ocnstep_fused import make_ocnstep_fused
 from ..ops.overrides import bottomtemp, check_profile
 from ..ops.swfrac import swdk, swfrac_levels
 from ..ops.vmix import vmix
-from ..state import ColumnParams, Forcing, State, init_forcing, init_state, tree_map
+from ..state import (ColumnParams, Forcing, State, init_forcing,
+                     init_state, select, tree_map)
 
 _PASS_IMPLS = ("eager", "eager_step", "cuda", "cuda_step")
-
-
-def _select(mask, new, old):
-    """Per-column select over a state dataclass (mask: (ncol,) bool)."""
-    def sel(a, b):
-        return torch.where(mask.reshape(mask.shape + (1,) * (a.dim() - 1)),
-                           a, b)
-    return tree_map(sel, new, old)
-
-
-def _not_ported(what):
-    return NotImplementedError(
-        f"{what} is not implemented in mckpp_torch yet (ROADMAP A14)")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -69,38 +62,55 @@ class KppModel:
             raise NotImplementedError(
                 f"pass_layout={ph.pass_layout!r}: only 'col_lanes' is "
                 "carried over to mckpp_torch")
-        if ph.solver != "pcr":
-            raise _not_ported(f"solver={ph.solver!r}")
-        if ph.wscale_mode == "table":
-            raise _not_ported("wscale_mode='table'")
         on_cuda = self.device.type == "cuda"
+        self.pass_impl = self._resolve_pass_impl(ph, on_cuda)
         if ph.wscale_mode == "auto":
-            # exact LMD stability functions on the card in float32; the
-            # reference's interpolation semantics ("nodal") elsewhere
+            # exact LMD stability functions on the card in float32 on the
+            # fused path; the reference's interpolation semantics ("nodal")
+            # elsewhere, and always on the reference path
             mode = ("analytic" if on_cuda and self.dtype == torch.float32
-                    else "nodal")
+                    and self.pass_impl != "reference" else "nodal")
             cfg = cfg.replace(physics=dataclasses.replace(ph,
                                                           wscale_mode=mode))
         self.cfg = cfg
-        self.pass_impl = self._resolve_pass_impl(on_cuda)
         d = cfg.domain
         if vgrid is None:
             vgrid = make_vertical_grid(
                 d.nz, d.dmax, cfg.time.dto, stretch=d.l_stretchgrid,
                 dscale=d.dscale, dtype=self.dtype, device=self.device)
         self.grid = vgrid
-        self._fused_step = make_ocnstep_fused(self.grid, cfg, self.dtype,
-                                              impl=self.pass_impl)
+        # the resident (zehat, ustar) tables: built in float64, then cast
+        # to the model dtype on the model's device
+        self.tables = None
+        if cfg.physics.wscale_mode == "table":
+            self.tables = tuple(
+                t.to(dtype=self.dtype, device=self.device)
+                for t in wscale_mod.build_tables(vonk=cfg.constants.vonk))
+        self._fused_step = (None if self.pass_impl == "reference" else
+                            make_ocnstep_fused(self.grid, cfg, self.dtype,
+                                               impl=self.pass_impl))
 
-    def _resolve_pass_impl(self, on_cuda: bool) -> str:
-        choice = self.cfg.physics.pass_impl
+    @staticmethod
+    def _resolve_pass_impl(ph, on_cuda: bool) -> str:
+        """The fused step where it covers the configuration; the reference
+        step for the Thomas solver or the resident wscale table (what
+        ``supports_fused`` decides in the JAX package)."""
+        choice = ph.pass_impl
+        supported = ph.solver == "pcr" and ph.wscale_mode != "table"
         if choice == "reference":
-            raise _not_ported("pass_impl='reference'")
+            return choice
         if choice == "auto":
+            if not supported:
+                return "reference"
             return "cuda_step" if on_cuda else "eager_step"
         if choice not in _PASS_IMPLS:
             raise ValueError(f"pass_impl={choice!r}; mckpp_torch takes "
-                             f"'auto' or one of {_PASS_IMPLS}")
+                             f"'auto', 'reference' or one of {_PASS_IMPLS}")
+        if not supported:
+            raise ValueError(
+                f"pass_impl={choice!r} requested but the configuration "
+                "uses features the fused step does not cover (wscale "
+                "table / thomas solver); use 'reference' or 'auto'")
         return choice
 
     def _tensor(self, a):
@@ -142,43 +152,25 @@ class KppModel:
         initial diagnostic fluxes and the history seed."""
         grid, cfg = self.grid, self.cfg
         ph = cfg.physics
-        nz = grid.nz
         # cached shortwave fraction at levels (swfrac_opt with fact=1)
         st = st.replace(swfrac=swfrac_levels(1.0, grid.zm,
                                              prm.jerlov).to(grid.zm.dtype))
-        # the JAX package's initial pass evaluates the velocity scales in
-        # the nodal form whatever wscale_mode says (no table is built
-        # outside "table"), so this pass does too
+        # as in the JAX package, the initial pass looks the velocity
+        # scales up in the table under "table" and evaluates the nodal
+        # form under every other mode
         vm = vmix(st.u, st.x, frc.sflux, st.ssurf, prm.sref, prm.jerlov,
                   prm.f, prm.ocdepth, True, st.swdk_opt, st.swfrac, st.wxnt,
                   True, grid, lri=ph.lri, ldd=ph.ldd, lkpp=ph.lkpp,
-                  update_wxnt=False, cst=cfg.constants, wscale_mode="nodal")
-        wu, wx = st.wu.clone(), st.wx.clone()
-        wu[:, 0] = vm.wu0
-        wx[:, 0] = vm.wx0
+                  update_wxnt=False, cst=cfg.constants,
+                  wscale_mode="nodal" if self.tables is None else "table",
+                  tables=self.tables)
+        st_vm = apply_vmix(st, vm)
         # initial diagnostic fluxes (reference :66-81)
-        hm = grid.hm
-        deltaz = 0.5 * (hm[:nz] + hm[1:])
+        wu, wx = interior_fluxes(st_vm, grid, ph.ldd, cfg.constants.grav)
         x, u = st.x, st.u
-        dif_t = vm.dift if ph.ldd else vm.difs
-        wx1 = -dif_t[:, 1:nz + 1] * ((x[:, :nz, 0] - x[:, 1:, 0]) / deltaz
-                                     - vm.ghat[:, 1:] * wx[:, 0, 0:1])
-        wx2 = -vm.difs[:, 1:nz + 1] * ((x[:, :nz, 1] - x[:, 1:, 1]) / deltaz
-                                       - vm.ghat[:, 1:] * wx[:, 0, 1:2])
-        wxb = cfg.constants.grav * (vm.talpha[:, :nz] * wx1
-                                    - vm.sbeta[:, :nz] * wx2)
-        wu1 = -vm.difm[:, 1:nz + 1] * (u[:, :nz, 0] - u[:, 1:, 0]) / deltaz
-        wu2 = -vm.difm[:, 1:nz + 1] * (u[:, :nz, 1] - u[:, 1:, 1]) / deltaz
-        wx[:, 1:, 0], wx[:, 1:, 1], wx[:, 1:, 2] = wx1, wx2, wxb
-        wu[:, 1:, 0], wu[:, 1:, 1] = wu1, wu2
         ncol = x.shape[0]
-        new_st = st.replace(
-            rho=vm.rho, cp=vm.cp, talpha=vm.talpha, sbeta=vm.sbeta,
-            buoy=vm.buoy, rhoh2o=vm.rhoh2o, difm=vm.difm, difs=vm.difs,
-            dift=vm.dift, ghat=vm.ghat, rig=vm.rig, dbloc=vm.dbloc,
-            shsq=vm.shsq, wu=wu, wx=wx, wxnt=vm.wxnt, swdk_opt=vm.swdk_opt,
-            uref=vm.uref, vref=vm.vref, hmix=vm.hbl, kmix=vm.kbl,
-            tref=x[:, 0, 0],
+        new_st = st_vm.replace(
+            wu=wu, wx=wx, hmix=vm.hbl, kmix=vm.kbl, tref=x[:, 0, 0],
             # two-level history seed (reference :83-100)
             us=torch.stack([u, u], dim=-1), xs=torch.stack([x, x], dim=-1),
             hmixd=torch.stack([vm.hbl, vm.hbl], dim=-1),
@@ -187,7 +179,7 @@ class KppModel:
         # pin the declared dtypes (float64 constants must not promote a
         # float32 model's fields)
         new_st = tree_map(lambda a, b: a.to(b.dtype), new_st, st)
-        return _select(prm.run_physics, new_st, st)
+        return select(prm.run_physics, new_st, st)
 
     def warm_start(self, u0, t0, s0, prm: ColumnParams):
         """Fast initialization: seed the two-level history and the
@@ -225,14 +217,19 @@ class KppModel:
     # ------------------------------------------------------------------
     def _step(self, st: State, prm: ColumnParams, frc: Forcing, first_step,
               with_diags: bool = True):
-        """One ocean timestep.  ``with_diags=False`` skips the diagnostic
-        materialization pass: same prognostic trajectory, stale wide
-        diagnostic fields."""
+        """One ocean timestep.  ``with_diags=False`` (fused path only)
+        skips the diagnostic materialization pass: same prognostic
+        trajectory, stale wide diagnostic fields.  The reference path
+        always materializes."""
         grid, cfg = self.grid, self.cfg
-        new_st, comp = self._fused_step(st, prm, frc, first_step,
-                                        with_diags=with_diags)
+        if self.pass_impl == "reference":
+            new_st, comp = ocnstep(st, prm, frc, grid, cfg, first_step,
+                                   prm.run_physics, tables=self.tables)
+        else:
+            new_st, comp = self._fused_step(st, prm, frc, first_step,
+                                            with_diags=with_diags)
         new_st = check_profile(new_st, prm, frc, comp, grid, cfg)
-        out = _select(prm.run_physics, new_st, st)
+        out = select(prm.run_physics, new_st, st)
         if cfg.forcing.l_vary_bottom_temp:
             out = bottomtemp(out, frc, grid, cfg.time.dto)
         return out

@@ -188,7 +188,8 @@ def _params(kw: dict, ncol: int) -> PassParams:
     flags: fp.PassFlags = kw["flags"]
     if flags.wscale not in ("nodal", "analytic"):
         raise NotImplementedError(
-            f"wscale={flags.wscale!r} has no CUDA kernel (ROADMAP A14)")
+            f"wscale={flags.wscale!r} has no CUDA kernel; the resident "
+            "table runs on the reference step (pass_impl='reference')")
     nz = kw["nz"]
     p = PassParams()
     p.nz, p.wz, p.ncol = nz, nz + 2, ncol

@@ -5,9 +5,10 @@ mckpp_physics_verticalmixing_mod.F90:14-161,
 mckpp_physics_verticalmixing_kppmix_mod.F90:25-126).
 
 Batched over a leading column axis where the JAX package vmaps a
-per-column function.  It runs once per run, for the initial mixing pass
-(``KppModel.initial_state``), as plain torch on the model's device: in
-the JAX package too it is XLA, not a Pallas kernel.
+per-column function.  It runs for the initial mixing pass
+(``KppModel.initial_state``) and for every pass of the reference step
+(``ops/ocnstep.py``), as plain torch on the model's device: in the JAX
+package too it is XLA, not a Pallas kernel.
 """
 
 from __future__ import annotations
@@ -24,9 +25,10 @@ from .ddmix import ddmix
 from .eos import abk80, cpsw, sig80
 from .rimix import rimix
 from .swfrac import swdk
-from .wscale import wscale_analytic, wscale_nodal
+from .wscale import wscale_analytic, wscale_nodal, wscale_table
 
-_WSCALE = {"nodal": wscale_nodal, "analytic": wscale_analytic}
+_WSCALE = {"nodal": wscale_nodal, "analytic": wscale_analytic,
+           "table": wscale_table}
 
 
 class VmixResult(NamedTuple):
@@ -57,20 +59,22 @@ class VmixResult(NamedTuple):
 def vmix(u, x, sflux, ssurf, sref, jerlov, f, ocdepth, l_initflag: bool,
          swdk_opt_cached, swfrac_cached, wxnt_prev, first_step: bool, grid,
          *, lri=True, ldd=False, lkpp=True, update_wxnt=True,
-         cst=c.Constants(), wscale_mode="nodal"):
+         cst=c.Constants(), wscale_mode="nodal", tables=None):
     """One vertical-mixing evaluation for every column.
 
     u: (ncol, nzp1, 2); x: (ncol, nzp1, 2) with x[..., 0] = T,
     x[..., 1] = S - Sref; sflux: (ncol, 6) packed surface fluxes.  The
     flags lri/ldd/lkpp are the reference's LRI/LDD/LKPP switches;
-    ``wscale_mode`` picks the velocity-scale form ("nodal" or
-    "analytic").
+    ``wscale_mode`` picks the velocity-scale form ("nodal", "analytic",
+    or "table" with ``tables=(wmt, wst)`` from ``wscale.build_tables``).
     """
     if wscale_mode not in _WSCALE:
-        raise NotImplementedError(
-            f"wscale_mode={wscale_mode!r} is not implemented in mckpp_torch "
-            "yet (ROADMAP A14)")
-    ws_fn = partial(_WSCALE[wscale_mode], vonk=cst.vonk)
+        raise ValueError(f"unknown wscale_mode {wscale_mode!r}")
+    if (wscale_mode == "table") != (tables is not None):
+        raise ValueError("tables=(wmt, wst) go with wscale_mode='table' "
+                         "and only with it")
+    extra = dict(zip(("wmt", "wst"), tables)) if tables is not None else {}
+    ws_fn = partial(_WSCALE[wscale_mode], vonk=cst.vonk, **extra)
     zm, hm, dm = grid.zm, grid.hm, grid.dm
     nz = zm.shape[0] - 1
     ncol = u.shape[0]

@@ -2,16 +2,19 @@
 ``mckpp_tpu/ops/wscale.py``; reference: mckpp_physics_lookup_mod.F90:11-66,
 mckpp_physics_verticalmixing_wscale_mod.F90).
 
-Two gather-free forms are carried: :func:`wscale_nodal`, the reference's
-bilinear table interpolation computed from the four surrounding table nodes
-on the fly, and :func:`wscale_analytic`, the exact LMD stability functions
-the table discretizes.  The resident-table form is not carried yet.  The
-CUDA kernels hold the same formulas as device functions
-(``csrc/physics.cuh``).
+Three forms are carried: :func:`wscale_table`, the reference's bilinear
+lookup in the (zehat, ustar) tables that :func:`build_tables` makes once
+per model; :func:`wscale_nodal`, the same interpolation computed
+gather-free from the four surrounding table nodes on the fly; and
+:func:`wscale_analytic`, the exact LMD stability functions the table
+discretizes.  The CUDA kernels hold the nodal and analytic formulas as
+device functions (``csrc/physics.cuh``); the table form runs only on the
+reference step path, as plain torch.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import constants as c
@@ -24,6 +27,38 @@ def _cbrt(x):
     """Signed cube root through pow, as the JAX package computes it (the
     kernels use pow too, not cbrt, so kernel and plain body agree)."""
     return torch.sign(x) * torch.abs(x) ** (1.0 / 3.0)
+
+
+def build_tables(dtype=np.float64, vonk=c.VONK):
+    """The (wmt, wst) lookup tables, (892, 50) float64 tensors on the host.
+
+    Entry (i, j): zehat = zmin + i*deltaz, ustar = umin + j*deltau.
+    Stable (zehat >= 0): wm = ws = vonk*ustar/(1 + 5*zeta).  Unstable:
+    quartic/half-power branches above zetam/zetas, cube-root similarity
+    below (reference: mckpp_physics_lookup_mod.F90:42-64).  Built in numpy,
+    as the JAX package builds them, so the two agree bit for bit; the
+    model casts them to its dtype and moves them to its device.
+    """
+    ni, nj = c.WS_NI, c.WS_NJ
+    zehat = c.WS_ZMIN + _DELTAZ * np.arange(ni + 2, dtype=dtype)[:, None]
+    usta = c.WS_UMIN + _DELTAU * np.arange(nj + 2, dtype=dtype)[None, :]
+    zeta = zehat / (usta ** 3 + 1.0e-20)
+    wm_stable = vonk * usta / (1.0 + c.C1_WS * zeta)
+    # np.cbrt handles the (discarded) negative-argument entries of the
+    # deep-unstable branches without warnings; where selected, the
+    # arguments are positive (zeta <= zetam/zetas)
+    wm_unst = np.where(
+        zeta > c.ZETAM,
+        vonk * usta * np.abs(1.0 - c.C2_WS * zeta) ** 0.25,
+        vonk * np.cbrt(c.AM * usta ** 3 - c.CM * zehat))
+    ws_unst = np.where(
+        zeta > c.ZETAS,
+        vonk * usta * np.abs(1.0 - c.C3_WS * zeta) ** 0.5,
+        vonk * np.cbrt(c.AS_WS * usta ** 3 - c.CS * zehat))
+    stable = zehat >= 0.0
+    wmt = np.where(stable, wm_stable, wm_unst)
+    wst = np.where(stable, wm_stable, ws_unst)
+    return torch.from_numpy(wmt), torch.from_numpy(wst)
 
 
 def _quartic_root(x):
@@ -114,6 +149,37 @@ def wscale_nodal(sigma, hbl, ustar, bfsfc, *, vonk=c.VONK):
     wm_tab = (1.0 - ufrac) * wbm + ufrac * wam
     was = fzfrac * ws_lh + zfrac * ws_hh
     wbs = fzfrac * ws_ll + zfrac * ws_hl
+    ws_tab = (1.0 - ufrac) * wbs + ufrac * was
+
+    ucube = _cube(ustar)
+    wm_ana = vonk * ustar * ucube / (ucube + c.C1_WS * zehat)
+    use_table = zehat <= c.WS_ZMAX
+    return (torch.where(use_table, wm_tab, wm_ana),
+            torch.where(use_table, ws_tab, wm_ana))
+
+
+def wscale_table(sigma, hbl, ustar, bfsfc, wmt, wst, *, vonk=c.VONK):
+    """Bilinear lookup of (wm, ws) at (zehat, ustar) in the resident tables
+    of :func:`build_tables`, with the analytic stable formula above
+    zehat = zmax (reference: mckpp_physics_verticalmixing_wscale_mod.F90:57-95).
+    The arguments broadcast against each other; the cell indices are
+    clipped to the table, so outside it the lookup extrapolates linearly
+    from the edge cell."""
+    zehat = vonk * sigma * hbl * bfsfc
+    zdiff = zehat - c.WS_ZMIN
+    iz = _cell(zdiff, _DELTAZ, c.WS_NI)
+    udiff = ustar - c.WS_UMIN
+    ju = _cell(udiff, _DELTAU, c.WS_NJ)
+    zfrac = zdiff / _DELTAZ - iz.to(zdiff.dtype)
+    ufrac = udiff / _DELTAU - ju.to(udiff.dtype)
+    fzfrac = 1.0 - zfrac
+    iz, ju = iz.long(), ju.long()
+
+    wam = fzfrac * wmt[iz, ju + 1] + zfrac * wmt[iz + 1, ju + 1]
+    wbm = fzfrac * wmt[iz, ju] + zfrac * wmt[iz + 1, ju]
+    wm_tab = (1.0 - ufrac) * wbm + ufrac * wam
+    was = fzfrac * wst[iz, ju + 1] + zfrac * wst[iz + 1, ju + 1]
+    wbs = fzfrac * wst[iz, ju] + zfrac * wst[iz + 1, ju]
     ws_tab = (1.0 - ufrac) * wbs + ufrac * was
 
     ucube = _cube(ustar)

@@ -34,6 +34,15 @@ def tree_map(fn, *trees):
                   for f in dataclasses.fields(cls)})
 
 
+def select(mask, new, old):
+    """Per-column select (mask: (ncol,) bool) between two tensors, or two
+    dataclasses of tensors, with a leading column axis."""
+    if isinstance(new, torch.Tensor):
+        return torch.where(mask.reshape(mask.shape + (1,) * (new.dim() - 1)),
+                           new, old)
+    return tree_map(lambda a, b: select(mask, a, b), new, old)
+
+
 class _Tree:
     def to(self, device):
         return tree_map(lambda a: a.to(device), self)

@@ -57,11 +57,11 @@ def test_plan_segments_matches_jax(case):
     assert sum(k for _, k in got) == n
 
 
-def _setup(outdir, wide, ncol=3, nz=16):
+def _setup(outdir, wide, ncol=3, nz=16, physics=None):
     cfg = T.KppConfig(
         domain=T.DomainConfig(nx=ncol, ny=1, nz=nz, dmax=250.0),
         time=T.TimeConfig(dtsec=3600.0, ndtocn=3, startt=0.0, finalt=1.0),
-        dtype="float32")
+        physics=T.PhysicsFlags(**(physics or {})), dtype="float32")
     model = T.KppModel(cfg, device="cpu")
     nzp1 = nz + 1
     zm = model.grid.zm.double().cpu().numpy()
@@ -128,20 +128,36 @@ def _same_files(paths_a, paths_b):
                                               err_msg=f"{key}:{v}")
 
 
-@pytest.mark.parametrize("wide", [False, True])
-def test_chain_bitwise_vs_per_step(tmp_path, wide):
+def _chain_vs_per_step(tmp_path, wide, physics=None):
     n = 9
-    model, st, prm, frc, diag, cfg = _setup(str(tmp_path / "ref"), wide)
+    model, st, prm, frc, diag, cfg = _setup(str(tmp_path / "ref"), wide,
+                                            physics=physics)
     st_ref = _per_step(model, st, prm, frc, diag, n)
     paths_ref = diag.flush()
 
-    model2, st2, prm2, frc2, diag2, _ = _setup(str(tmp_path / "ch"), wide)
+    model2, st2, prm2, frc2, diag2, _ = _setup(str(tmp_path / "ch"), wide,
+                                               physics=physics)
     st_ch, stepper = _chained(model2, st2, prm2, frc2, diag2, cfg, n)
     assert stepper.wide_reducing == wide
     assert stepper.captures == 0               # eager on the CPU
     paths_ch = diag2.flush()
     _same_state(st_ref, st_ch)
     _same_files(paths_ref, paths_ch)
+    return model
+
+
+@pytest.mark.parametrize("wide", [False, True])
+def test_chain_bitwise_vs_per_step(tmp_path, wide):
+    _chain_vs_per_step(tmp_path, wide)
+
+
+@pytest.mark.parametrize("wide", [False, True])
+def test_chain_bitwise_vs_per_step_reference(tmp_path, wide):
+    """The same over the reference step (Thomas solver, wscale table),
+    which always materialises its diagnostics."""
+    model = _chain_vs_per_step(tmp_path, wide, dict(solver="thomas",
+                                                    wscale_mode="table"))
+    assert model.pass_impl == "reference"
 
 
 def test_chain_first_step_flag(tmp_path):

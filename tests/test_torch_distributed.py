@@ -617,7 +617,9 @@ bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "mckpp_tpu")]
 assert not bad, bad
 need = {"mckpp_torch.native", "mckpp_torch.parallel.distributed",
         "mckpp_torch.parallel.sharding", "mckpp_torch.ensemble",
-        "mckpp_torch.tools.merge_shards", "mckpp_torch.cli"}
+        "mckpp_torch.tools.merge_shards", "mckpp_torch.cli",
+        "mckpp_torch.ops.tridiag", "mckpp_torch.ops.ocnint",
+        "mckpp_torch.ops.ocnstep"}
 assert need <= set(names), need - set(names)
 print("imported", len(names))
 """

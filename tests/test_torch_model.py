@@ -10,7 +10,8 @@ trap (hurricane stress on column 0), an inactive land column and current
 damping at once, because the JAX model's compile dominates the cost.
 Then properties of the port alone: land pass-through, the lazy
 (with_diags=False) prognostics, per-pass loops == whole-step body,
-float32 purity, the numpy round trip and the options that raise.
+float32 purity, the numpy round trip, the options that raise and the
+resolution of "auto".
 """
 
 import dataclasses
@@ -226,15 +227,21 @@ def test_model_without_cuda_raises():
 
 
 @pytest.mark.parametrize("physics,exc", [
-    ({"pass_impl": "reference"}, NotImplementedError),
-    ({"solver": "thomas"}, NotImplementedError),
-    ({"wscale_mode": "table"}, NotImplementedError),
+    ({"pass_impl": "reference"}, None),
+    ({"solver": "thomas"}, ValueError),
+    ({"wscale_mode": "table"}, ValueError),
     ({"pass_layout": "z_lanes"}, NotImplementedError),
     ({"pass_impl": "fused_xla"}, ValueError),
 ])
 def test_unported_options_raise(physics, exc):
+    """The options the port refuses under pass_impl "eager_step": the
+    Thomas solver and the wscale table belong to the reference step, as
+    in the JAX package; the reference step itself constructs."""
     cfg = configs(T, "eager_step")
     cfg = cfg.replace(physics=dataclasses.replace(cfg.physics, **physics))
+    if exc is None:
+        assert T.KppModel(cfg, device="cpu").pass_impl == "reference"
+        return
     with pytest.raises(exc):
         T.KppModel(cfg, device="cpu")
 
@@ -246,3 +253,25 @@ def test_auto_resolution_on_cpu():
     model = T.KppModel(cfg, device="cpu")
     assert model.pass_impl == "eager_step"
     assert model.cfg.physics.wscale_mode == "nodal"
+
+
+@pytest.mark.parametrize("physics,impl,wscale", [
+    ({"solver": "thomas"}, "reference", "nodal"),
+    ({"wscale_mode": "table"}, "reference", "table"),
+    ({"pass_impl": "reference"}, "reference", "nodal"),
+    ({"pass_impl": "reference", "wscale_mode": "analytic"}, "reference",
+     "analytic"),
+    ({"solver": "pcr", "wscale_mode": "nodal"}, "eager_step", "nodal"),
+], ids=["thomas", "table", "reference", "reference_analytic", "fused"])
+def test_reference_resolution_on_cpu(physics, impl, wscale):
+    """"auto" resolves to the reference step exactly where the fused step
+    does not cover the options (the JAX package's supports_fused), and
+    auto wscale is then "nodal"; the reference step evaluates an explicit
+    "analytic" in the nodal form, with no table."""
+    cfg = configs(T, "auto")
+    cfg = cfg.replace(physics=dataclasses.replace(
+        cfg.physics, **{"wscale_mode": "auto", **physics}))
+    model = T.KppModel(cfg, device="cpu")
+    assert model.pass_impl == impl
+    assert model.cfg.physics.wscale_mode == wscale
+    assert (model.tables is not None) == (wscale == "table")
