@@ -51,8 +51,8 @@ def main():
         with cs.Capture() as cap:
             cs.run_steps(m, st, prm, frc, 3, 1)
         caps[kname] = cap.first(kname)
-    lib = ck.load(torch.float32, phases=True)
-    ck._libs[torch.float32] = lib          # the wrappers launch it from here
+    lib = ck.load(torch.float32, 3, phases=True)
+    ck._libs[torch.float32, 3] = lib       # the wrappers launch it from here
     for kname, (w, a) in caps.items():
         w.launch(*a)
         torch.cuda.synchronize()

@@ -7,12 +7,20 @@ their plain versions.
 Phases, each printing JSON lines; any breach raises, so the script exits
 0 only when every phase passed:
 
-1. device: card name, power limit, versions; build the CUDA kernels;
+1. device: card name, power limit, versions; build the CUDA kernels (one
+   library per dtype and number of level slots a lane carries: 3 for
+   nz + 2 <= 96, 4 for <= 128) and print each one's ptxas table;
 2. kernel gate: each kernel against its plain torch version on the same
    float32 inputs at several (ncol, nz) shapes and flag sets (ragged last
    blocks, and one block mixing a land column, a column the instability
    trap retries and columns whose pass counts differ; columns mixing
-   below level 32), plus one float64 instantiation;
+   below level 32), plus one float64 instantiation; then the 4-slot
+   kernels: nz = 100 in float32 and float64 at 37 columns with the
+   default flags and with double diffusion, nz = 126 (WZ = 128) in
+   float32, a deep-mixing case at nz = 100 whose kmix reaches below
+   level 64, float64 at nz = 100 with aref kept whole (a block of 4
+   warps), each at the same bar; nz = 127 raises ValueError naming the
+   128 limit, and nz = 100 under pass_impl "auto" runs the step kernel;
 3. main path: the production ocean step (``KppModel.step``, pass_impl
    "cuda_step", with the full diagnostics pass on with_diags steps) at the
    TerraMaris width, ncol = 144,507 (453 x 319), nz = 69, ~12% land, with
@@ -54,8 +62,24 @@ Phases, each printing JSON lines; any breach raises, so the script exits
    times, member 0 equal bit for bit to the single run; one full-width
    ``output_kpp_all`` window encoded by the C++ encoder and by scipy,
    timed;
-10. one model day (72 steps) of the CLI when the script has used less
-   than ``CLI_DAY_BEFORE_S`` (so that the script ends within 8 minutes).
+10. configs: the other four BASELINE.json configurations at full width
+   in float32, 9 steps each (one 3-h ``output_kpp_all`` window), through
+   the runner ``mckpp_torch.tools.run_baseline_benchmarks``:
+   single_column (nz = 100, the 4-slot kernels), regional_64x64 and
+   global_1deg through the CLI, ensemble10_dd as 10 members (648,000
+   columns); each with its five stream files, outputs held as in phase
+   8, the step kernel launched, rates, timers and peak memory printed,
+   and each kernel the run launched held to its plain version on the
+   inputs of its first launch in that run (the phase-2 bar), timed
+   beside it and its bound, with that run's launch counts;
+   global_1deg once more under ``--profile``, its trace digested by
+   ``mckpp_torch.tools.summarize_trace`` (idle share, kpp ms, the step
+   kernel named); ``mckpp_torch.tools.bench_scaling`` at 1 and 2 ranks
+   of 64,800 columns on the card (labelled time-shared); then the 4-slot
+   kernels timed at nz = 100 on 16,384 columns against their plain
+   versions and bounds;
+11. one model day (72 steps) of the CLI when the script has used less
+   than ``CLI_DAY_BEFORE_S`` (the script ends within 8 minutes).
 
 Every phase line carries ``t_s``, the seconds since the script started.
 
@@ -226,7 +250,9 @@ def run_steps(model, st, prm, frc, nt0, n, with_diags=True):
 
 class Capture:
     """Records the arguments of the first launch of each kernel while
-    active (the inputs the main path gives each kernel)."""
+    active (the inputs the main path gives each kernel); a launch inside
+    a CUDA graph capture is passed over (its inputs are not yet
+    written), as is any later launch of a kernel already recorded."""
 
     def __init__(self):
         from mckpp_torch.ops import cuda_kernels as ck
@@ -237,10 +263,12 @@ class Capture:
         ck = self.ck
         self.orig = (ck.FusedPass.launch, ck.FusedStep.launch)
         calls = self.calls
+        import torch
 
         def wrap(fn):
             def launch(w, *a):
-                if all(c[0].name != w.name for c in calls):
+                if all(c[0].name != w.name for c in calls) and \
+                        not torch.cuda.is_current_stream_capturing():
                     calls.append((w, tuple(x.clone() for x in a)))
                 return fn(w, *a)
             return launch
@@ -327,8 +355,10 @@ def phase_device():
     t0 = time.perf_counter()
     reports = ck.build()
     build_s = time.perf_counter() - t0
-    ptxas = {str(dt).replace("torch.", ""): ptxas_table(log)
-             for dt, log in reports.items()}
+    # one library per dtype and level slots: "float32/ns3" (nz + 2 <= 96)
+    # and "float32/ns4" (<= 128), the same in float64
+    ptxas = {f"{str(dt).replace('torch.', '')}/ns{ns}": ptxas_table(log)
+             for (dt, ns), log in reports.items()}
     emit({"phase": "build", "seconds": build_s, "ptxas": ptxas})
     return name, smi, ptxas
 
@@ -444,19 +474,21 @@ def deepened(w, a, stratified):
     return tuple(a)
 
 
-def gate_deep():
-    """Columns whose boundary layer reaches below level 32, so bldepth
-    searches past the first lane slot (nz = 94 over 120 m), on the first
-    step's inputs made to mix deep (:func:`deepened`), stratified and
-    neutral.  On both, each kernel is held to the plain version with
+def gate_deep(nz=94, dmax=120.0, below=32, plain_cases=("stratified",)):
+    """Columns whose boundary layer reaches below level ``below``, so
+    bldepth searches past the first lane slot (nz = 94 over 120 m: kmix
+    past 32; nz = 100 over 60 m, the 4-slot kernels: kmix past 64), on
+    the first step's inputs made to mix deep (:func:`deepened`),
+    stratified and neutral.  On both, each kernel is held to the plain version with
     serially summed reference averages (:func:`plain_serial`); on the
-    stratified one, to the plain version itself too.  Rib at the neutral
+    ``plain_cases``, to the plain version itself too.  Rib at the neutral
     columns turns on the last ulp of the reference averages, which cuBLAS
     rounds otherwise, so there the distance to the plain version is
-    reported, not held."""
+    reported, not held; at nz = 100 over 60 m (0.6 m levels, 0.003 C a
+    level) the stratified columns turn on it too."""
     out, kmix = {}, {}
     for impl in ("cuda", "cuda_step"):
-        model, st, prm, frc = build(16, 94, "float32", impl, dmax=120.0)
+        model, st, prm, frc = build(16, nz, "float32", impl, dmax=dmax)
         with Capture() as cap:
             run_steps(model, st, prm, frc, 1, 1)
         names = (("fused_pass_fast", "fused_pass_full") if impl == "cuda"
@@ -477,18 +509,109 @@ def gate_deep():
                 out[(name, case)] = res
                 if name == "fused_step":
                     kmix[case] = ser[8][1].tolist()
-    emit({"phase": "gate", "ncol": 16, "nz": 94, "flags": "deep_mixing",
+    emit({"phase": "gate", "ncol": 16, "nz": nz, "flags": "deep_mixing",
           "dtype": "float32", "kmix": kmix,
           "max_rel": {f"{n}/{c}": r for (n, c), r in out.items()}})
     for (name, case), r in out.items():
-        for key in (("plain", "plain_serial") if case == "stratified"
+        for key in (("plain", "plain_serial") if case in plain_cases
                     else ("plain_serial",)):
             if isinstance(r[key], str):
                 raise AssertionError(f"deep {case}: {r[key]} against {key}")
-    if not any(k > 32 for k in kmix["stratified"]):
-        raise AssertionError("deep case: no kmix below level 32")
-    return {n: max(r["plain"], r["plain_serial"])
+    if not any(k > below for k in kmix["stratified"]):
+        raise AssertionError(f"deep case: no kmix below level {below}")
+    return {n: max(r[k] for k in ("plain", "plain_serial")
+                   if not isinstance(r[k], str))
             for (n, c), r in out.items() if c == "stratified"}
+
+
+# the 4-slot kernels (nz + 2 > 96): single_column's nz = 100 at a ragged
+# column count, default flags and double diffusion, both dtypes; and the
+# most levels they take, nz = 126 (WZ = 128)
+GATE_NS4 = [(37, 100, "float32", "default_analytic"), (37, 100, "float32", "ldd"),
+            (37, 100, "float64", "default_analytic"), (37, 100, "float64", "ldd"),
+            (37, 126, "float32", "default_analytic")]
+
+
+def dense_aref(a):
+    """A step's or pass's inputs with aref made a running mean over every
+    level above (row n averages levels 0..n, rows from nz on zero), so
+    the reference averages keep aref's widest prefix in shared memory."""
+    import torch
+    a = list(a)
+    wz = a[-1].shape[0]
+    nz = wz - 2
+    n = torch.arange(wz, dtype=a[-1].dtype, device=a[-1].device)
+    rows = torch.tril(torch.ones_like(a[-1])) / (n[:, None] + 1.0)
+    rows[nz:] = 0.0
+    a[-1] = rows.contiguous()
+    return tuple(a)
+
+
+def gate_wide_aref():
+    """float64 at nz = 100 with aref kept whole (:func:`dense_aref`): the
+    shared memory of 8 warps does not fit, so the launch takes a block of
+    4; each kernel held to the plain version with the reference averages
+    summed serially (:func:`plain_serial`: a dense aref is where cuBLAS's
+    order of the sums shows), and the distance to the plain version
+    reported."""
+    from mckpp_torch.ops import cuda_kernels as ck
+    out, warps = {}, None
+    for impl in ("cuda", "cuda_step"):
+        model, st, prm, frc = build(37, 100, "float64", impl, noise=0.05,
+                                    seed=7, land=0.1)
+        with Capture() as cap:
+            run_steps(model, st, prm, frc, 1, 1)
+        names = (("fused_pass_fast", "fused_pass_full") if impl == "cuda"
+                 else ("fused_step",))
+        for kname in names:
+            w, a = cap.first(kname)
+            x = dense_aref(a)
+            warps = ck.launch_geometry(100, x[0].dtype, 37,
+                                       ck._ref_extents(x[-1])[1]).warps
+            got = w.launch(*x)
+            ser, ref = plain_serial(w, x), plain_of(w, x)
+            sync()
+            out[kname] = compare(w, got, ser, TOL_F64)
+            try:
+                out[kname + "/plain"] = compare(w, got, ref, TOL_F64)
+            except AssertionError as e:
+                out[kname + "/plain"] = str(e)
+    if warps != 4:
+        raise AssertionError(f"the wide-aref case launched {warps} warps a "
+                             "block, not 4")
+    emit({"phase": "gate", "ncol": 37, "nz": 100, "flags": "wide_aref",
+          "dtype": "float64", "warps_per_block": warps, "max_rel": out})
+    return {k: v for k, v in out.items() if "/" not in k}
+
+
+def gate_level_limit():
+    """nz = 127 (WZ = 129) is past the kernels: the geometry, the launch
+    wrapper and a model step raise ValueError naming the 128 limit."""
+    import torch
+    from mckpp_torch.ops import cuda_kernels as ck
+    raised = []
+    try:
+        ck.launch_geometry(127, torch.float32, 37)
+    except ValueError as e:
+        raised.append(str(e))
+    model, st, prm, frc = build(37, 127, "float32", "cuda_step")
+    try:
+        run_steps(model, st, prm, frc, 1, 1)
+    except ValueError as e:
+        raised.append(str(e))
+    if len(raised) != 2 or not all("128" in r for r in raised):
+        raise AssertionError(f"nz = 127 did not raise naming 128: {raised}")
+    # nz = 100 under pass_impl "auto": the whole-step kernel, 4 slots
+    model, st, prm, frc = build(37, 100, "float32", "auto")
+    ck.reset_counts()
+    st, frc = run_steps(model, st, prm, frc, 1, 1)
+    sync()
+    if model.pass_impl != "cuda_step" or ck.LAUNCHES["fused_step"] != 1 \
+            or not torch_all_finite(st):
+        raise AssertionError(f"nz = 100, auto: {model.pass_impl}, "
+                             f"{ck.LAUNCHES}")
+    emit({"phase": "gate", "nz": 127, "raises": raised,
+          "nz100_auto": model.pass_impl})
 
 
 def phase_gate():
@@ -506,13 +629,27 @@ def phase_gate():
             for k, v in res.items():
                 worst[k] = max(worst.get(k, 0.0), v)
             n += 1
-    for res in (gate_mixed_block(), gate_deep()):
+    for res in (gate_mixed_block(), gate_deep(),
+                gate_deep(100, 60.0, 64, plain_cases=())):
         for k, v in res.items():
             worst[k] = max(worst.get(k, 0.0), v)
     res = gate_case(300, 33, "float64", GATE_FLAGS["nodal"], TOL_F64, 99)[0]
     emit({"phase": "gate", "ncol": 300, "nz": 33, "flags": "nodal",
           "dtype": "float64", "max_rel": res})
-    emit({"phase": "gate_ok", "cases": n + 3, "worst_f32": worst})
+    worst64 = dict(res)
+    for i, (ncol, nz, dtype, fname) in enumerate(GATE_NS4):
+        tol = TOL_F32 if dtype == "float32" else TOL_F64
+        res = gate_case(ncol, nz, dtype, GATE_FLAGS[fname], tol, 50 + i)[0]
+        emit({"phase": "gate", "ncol": ncol, "nz": nz, "flags": fname,
+              "dtype": dtype, "max_rel": res})
+        tgt = worst if dtype == "float32" else worst64
+        for k, v in res.items():
+            tgt[k] = max(tgt.get(k, 0.0), v)
+    for k, v in gate_wide_aref().items():
+        worst64[k] = max(worst64.get(k, 0.0), v)
+    gate_level_limit()
+    emit({"phase": "gate_ok", "cases": n + 5 + len(GATE_NS4),
+          "worst_f32": worst, "worst_f64": worst64})
     return worst
 
 
@@ -645,68 +782,112 @@ def time_cuda(fn, reps):
     return e0.elapsed_time(e1) / reps
 
 
-def phase_times(caps, counts, name, ptxas):
+def kernel_row(kname, w, a, name, ptxas, launches):
+    """One kernel at one shape, on the inputs ``a`` the path gave it: held
+    to its plain version (the phase-2 bar), timed beside it and beside
+    the card's bound; ``ptxas``: every library's table, by dtype and
+    level slots ({"float32/ns3": {kernel: registers, spills}, ...})."""
     import torch
     from mckpp_torch.ops import cuda_kernels as ck
     flops_peak, bytes_peak = card_peaks(name)
+    got = w.launch(*a)
+    ref = plain_of(w, a)
+    sync()
+    err = max(float((x - y).abs().max()) for x, y in zip(got, ref))
+    rel = compare(w, got, ref, TOL_F32)
+    ms = time_cuda(lambda: w.launch(*a), 5 if kname != "fused_step" else 3)
+    plain_ms = time_cuda(lambda: plain_of(w, a), 2)
+    nz = w.kw["nz"]
+    ncol = a[0].shape[1]
+    aref, ldd = a[-1], w.kw["flags"].ldd
+    geom = ck.launch_geometry(nz, a[0].dtype, ncol, ck._ref_extents(aref)[1])
+    # bytes: every input read once, every output written once
+    nbytes = sum(x.numel() * x.element_size() for x in a) + \
+        sum(x.numel() * x.element_size() for x in got)
+    # operations over aref's nonzeros (ck.pass_ops); the step counts
+    # this run's passes per column (colstep row 7), each with the
+    # bldepth/blmix levels above the column's kmix
+    extra = {}
+    if kname == "fused_step":
+        kmix, npass = got[8][1].double(), got[8][7].double()
+        ops = float((npass * ck.pass_ops(nz, aref, kmix, ldd)).sum())
+        # a block holds its SM share until its slowest column is done:
+        # passes run over passes the blocks' warps were held for
+        wb = geom.warps
+        pad = torch.nn.functional.pad(npass, (0, (-ncol) % wb))
+        held = float(pad.view(-1, wb).amax(dim=1).sum()) * wb
+        extra = {"npass_mean_active": float(npass[npass > 0].mean()),
+                 "npass_max": float(npass.max()),
+                 "warp_pass_share_of_block_hold": float(npass.sum())
+                 / held}
+    else:
+        kbl = got[8 if kname == "fused_pass_fast" else 4][1].double()
+        ops = float(ck.pass_ops(nz, aref, kbl, ldd).sum())
+    dt = str(a[0].dtype).replace("torch.", "")
+    table = ptxas.get(f"{dt}/ns{geom.ns}", {}).get(kname, {})
+    regs = table.get("registers")
+    bound_bytes_ms = nbytes / bytes_peak * 1e3
+    bound_ops_ms = ops / flops_peak * 1e3
+    return {
+        "name": kname, "route": "cuda", "source": SOURCE,
+        "replaces": REPLACES[kname], "launches": launches,
+        "max_abs_err": err, "max_rel_err": rel, "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(bound_bytes_ms, bound_ops_ms),
+        "bound_by": "bytes" if bound_bytes_ms > bound_ops_ms
+        else "operations",
+        "library_ms": None, "bytes": nbytes, "ops": ops,
+        "bound_bytes_ms": bound_bytes_ms, "bound_ops_ms": bound_ops_ms,
+        "shape": [nz + 2, ncol], "level_slots": geom.ns,
+        "warps_per_block": geom.warps, "smem_bytes": geom.smem,
+        "kref": geom.kref, "registers": regs,
+        "spill_stores": table.get("spill_stores"),
+        "spill_loads": table.get("spill_loads"),
+        "warps_per_sm": (None if regs is None
+                         else warps_per_sm(regs, geom.warps, geom.smem)),
+        **extra}
+
+
+def phase_times(caps, counts, name, ptxas):
     sources = {"fused_pass_fast": caps["cuda"], "fused_pass_full":
                caps["cuda_step"], "fused_step": caps["cuda_step"]}
     rows = []
     for kname in ("fused_pass_fast", "fused_pass_full", "fused_step"):
         w, a = sources[kname].first(kname)
-        got = w.launch(*a)
-        ref = plain_of(w, a)
-        sync()
-        err = max(float((x - y).abs().max()) for x, y in zip(got, ref))
-        rel = compare(w, got, ref, TOL_F32)
-        ms = time_cuda(lambda: w.launch(*a), 5 if kname != "fused_step" else 3)
-        plain_ms = time_cuda(lambda: plain_of(w, a), 2)
-        nz = w.kw["nz"]
-        ncol = a[0].shape[1]
-        aref, ldd = a[-1], w.kw["flags"].ldd
-        # bytes: every input read once, every output written once
-        nbytes = sum(x.numel() * x.element_size() for x in a) + \
-            sum(x.numel() * x.element_size() for x in got)
-        # operations over aref's nonzeros (ck.pass_ops); the step counts
-        # this run's passes per column (colstep row 7), each with the
-        # bldepth/blmix levels above the column's kmix
-        extra = {}
-        if kname == "fused_step":
-            kmix, npass = got[8][1].double(), got[8][7].double()
-            ops = float((npass * ck.pass_ops(nz, aref, kmix, ldd)).sum())
-            # a block holds its SM share until its slowest column is done:
-            # passes run over passes the blocks' warps were held for
-            w8 = ck.WARPS
-            pad = torch.nn.functional.pad(npass, (0, (-ncol) % w8))
-            held = float(pad.view(-1, w8).amax(dim=1).sum()) * w8
-            extra = {"npass_mean_active": float(npass[npass > 0].mean()),
-                     "npass_max": float(npass.max()),
-                     "warp_pass_share_of_block_hold": float(npass.sum())
-                     / held}
-        else:
-            kbl = got[8 if kname == "fused_pass_fast" else 4][1].double()
-            ops = float(ck.pass_ops(nz, aref, kbl, ldd).sum())
-        geom = ck.launch_geometry(nz, a[0].dtype, ncol,
-                                  ck._ref_extents(aref)[1])
-        regs = ptxas.get("float32", {}).get(kname, {}).get("registers")
-        bound_bytes_ms = nbytes / bytes_peak * 1e3
-        bound_ops_ms = ops / flops_peak * 1e3
-        rows.append({
-            "name": kname, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[kname], "launches": counts[kname],
-            "max_abs_err": err, "max_rel_err": rel, "ms": ms,
-            "plain_ms": plain_ms,
-            "bound_ms": max(bound_bytes_ms, bound_ops_ms),
-            "bound_by": "bytes" if bound_bytes_ms > bound_ops_ms
-            else "operations",
-            "library_ms": None, "bytes": nbytes, "ops": ops,
-            "bound_bytes_ms": bound_bytes_ms, "bound_ops_ms": bound_ops_ms,
-            "shape": [nz + 2, ncol], "warps_per_block": geom.warps,
-            "smem_bytes": geom.smem, "kref": geom.kref, "registers": regs,
-            "warps_per_sm": (None if regs is None
-                             else warps_per_sm(regs, geom.warps, geom.smem)),
-            **extra})
+        rows.append(kernel_row(kname, w, a, name, ptxas, counts[kname]))
     emit({"phase": "kernel_times", "card": name, "rows": rows})
+    return rows
+
+
+NS4_SHAPES = (16_384,)     # a wide nz = 100 (single_column's one column
+                           # is timed on its own inputs in phase 10)
+
+
+def phase_times_ns4(name, ptxas):
+    """The 4-slot kernels at nz = 100 (single_column's levels over its
+    2000 m) at ``NS4_SHAPES`` columns, on the inputs of a model's third
+    step: each held to its plain version and timed, as in phase 5 (no
+    path's launches: these shapes are this phase's own)."""
+    rows = []
+    for ncol in NS4_SHAPES:
+        caps = {}
+        for impl in ("cuda", "cuda_step"):
+            model, st, prm, frc = build(ncol, 100, dmax=2000.0,
+                                        pass_impl=impl, noise=0.05)
+            st, frc = run_steps(model, st, prm, frc, 1, 2)
+            with Capture() as cap:
+                run_steps(model, st, prm, frc, 3, 1)
+            caps[impl] = cap
+        for kname, impl in (("fused_pass_fast", "cuda"),
+                            ("fused_pass_full", "cuda_step"),
+                            ("fused_step", "cuda_step")):
+            w, a = caps[impl].first(kname)
+            row = kernel_row(kname, w, a, name, ptxas, None)
+            if row["level_slots"] != 4:
+                raise AssertionError(f"nz = 100 launched {row['level_slots']}"
+                                     " level slots")
+            rows.append(row)
+    emit({"phase": "kernel_times_ns4", "card": name, "rows": rows})
     return rows
 
 
@@ -727,35 +908,15 @@ def phase_trace(model, st, prm, frc, nt, name):
 
 
 def trace_stats(prof, top_n=12):
-    """Device time of a torch.profiler run: the window (first host event
-    to last device event), the device's busy time and idle share, kpp
-    kernel and other kernel ms, launches, and ms by kernel name."""
-    import torch
-    evs = prof.events()
-    cuda = torch.autograd.DeviceType.CUDA
-    dev = [(e.time_range.start, e.time_range.end, e.name) for e in evs
-           if e.device_type == cuda]
-    if not dev:
+    """Device time of a torch.profiler run (``mckpp_torch.tools.
+    summarize_trace.stats``): the window (first host event to last device
+    event), the device's busy time and idle share, kpp kernel and other
+    kernel ms, launches, and ms by kernel name."""
+    from mckpp_torch.tools import summarize_trace
+    st = summarize_trace.stats(summarize_trace.from_profiler(prof), top_n)
+    if not st["device_events"]:
         raise AssertionError("the profiler recorded no device time")
-    host = [e.time_range.start for e in evs if e.device_type != cuda]
-    t0 = min(host + [d[0] for d in dev])
-    t1 = max(d[1] for d in dev)
-    busy, end = 0.0, t0
-    for a, b, _ in sorted(dev):
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    by_name = {}
-    for a, b, n in dev:
-        n = n[:120]
-        by_name[n] = by_name.get(n, 0.0) + (b - a) / 1e3
-    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:top_n])
-    kpp_ms = sum(v for k, v in by_name.items() if "kpp::" in k)
-    return {"window_ms": (t1 - t0) / 1e3, "device_busy_ms": busy / 1e3,
-            "device_idle_share": 1.0 - busy / (t1 - t0),
-            "kernel_ms_kpp": kpp_ms,
-            "kernel_ms_other": sum(by_name.values()) - kpp_ms,
-            "device_launches": len(dev), "device_ms_by_kernel": top}
+    return st
 
 
 # ---------------------------------------------------------------------------
@@ -1339,6 +1500,160 @@ def phase_day(name, t_start, work, data, land, dmax, device="cuda"):
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the other four baseline configurations, the scaling harness
+# ---------------------------------------------------------------------------
+
+CONFIG_STEPS = 9        # one 3-h output_kpp_all window: every stream emits
+CONFIG_MEMBERS = 10
+SCALING_COLS = 64_800   # columns a rank (the global grid's)
+SCALING_STEPS = 6
+
+
+def hold_dir(path, land, dmax):
+    """:func:`hold_outputs` over every .nc file of ``path``, one file at a
+    time (the ensemble's window is 3.7 GB); returns (files, fields
+    held)."""
+    import os
+    from scipy.io import netcdf_file
+    files = sorted(f for f in os.listdir(path) if f.endswith(".nc"))
+    n = 0
+    for fn in files:
+        nc = netcdf_file(os.path.join(path, fn), "r", mmap=False)
+        try:
+            for name, v in nc.variables.items():
+                if len(v.shape) >= 3:
+                    n += hold_outputs({fn: {name: v[:]}}, land, dmax)
+        finally:
+            nc.close()
+    return len(files), n
+
+
+def config_land(data_dir, members=1):
+    """The (ny * members, nx) land mask of a configuration's inputs."""
+    import os
+    import numpy as np
+    from mckpp_torch.io import ncio
+    with ncio.open_nc(os.path.join(data_dir, "lsm.nc")) as nc:
+        land = ncio.get_var(nc, "lsm") == 1.0
+    return np.tile(land, (members, 1))
+
+
+def hold_config(res, work, members=1, on_card=True):
+    """A runner line's outputs: the five stream files, every field finite
+    over ocean, land at the fill value, hmix in [0, dmax]; the step
+    kernel launched; the card's name and power limit on the line."""
+    import os
+    import shutil
+    data = os.path.join(work, res["config"])
+    dmax = {"single_column": 2000.0, "regional_64x64": 500.0}.get(
+        res["config"], 1000.0)
+    files, fields = hold_dir(os.path.join(data, "out"),
+                             config_land(data, members), dmax)
+    if files != 5:
+        raise AssertionError(f"{res['config']}: {files} stream files")
+    if on_card and not res["launches"].get("fused_step"):
+        raise AssertionError(f"{res['config']}: no fused_step launch")
+    shutil.rmtree(data)
+    return fields
+
+
+def config_kernel_rows(config, cap, launches, name, ptxas):
+    """:func:`kernel_row` for every kernel a configuration's run launched,
+    on the inputs of its first launch there, with the run's counts; every
+    launched kernel must have been captured."""
+    rows = [{"config": config, **kernel_row(w.name, w, a, name, ptxas,
+                                            launches[w.name])}
+            for w, a in cap.calls]
+    if {r["name"] for r in rows} != {k for k, v in launches.items() if v}:
+        raise AssertionError(f"{config}: kernels captured "
+                             f"{[r['name'] for r in rows]}, launched "
+                             f"{launches}")
+    return rows
+
+
+def phase_configs(name, smi, work, ptxas=None, device="cuda", toy=False,
+                  members=CONFIG_MEMBERS, scaling_cols=SCALING_COLS):
+    """single_column, regional_64x64 and global_1deg through the CLI
+    (``mckpp_torch.tools.run_baseline_benchmarks.run_cli_config``) and
+    ensemble10_dd (``run_ensemble``, 10 members: 648,000 columns at
+    nz = 40) at full width in float32, CONFIG_STEPS steps each, their
+    outputs held; on the card, each kernel a configuration launched held
+    to its plain version on the inputs of its first launch in that run
+    and timed (:func:`kernel_row`, with the run's own launch counts);
+    global_1deg once more under ``--profile``, its trace through
+    ``mckpp_torch.tools.summarize_trace``; the scaling harness at 1 and 2
+    ranks on the card (``tools.bench_scaling``).  Returns the kernel
+    rows.  (Rehearse on the CPU with ``device="cpu", toy=True`` and a few
+    members and scaling columns.)"""
+    import os
+    from mckpp_torch.ops import cuda_kernels as ck
+    from mckpp_torch.tools import bench_scaling, summarize_trace
+    from mckpp_torch.tools import run_baseline_benchmarks as rb
+    keys = ("ncol", "nz", "steps", "wall_s", "model_loop_s", "physics_s",
+            "diag_s", "flux_s", "init_s", "col_steps_per_s_steady",
+            "col_steps_per_s_wall", "output_bytes", "output_files",
+            "members",
+            "peak_memory_bytes", "launches", "timers", "inputs_s")
+    lines, seconds, rows = {}, {}, []
+    for config in ("single_column", "regional_64x64", "global_1deg",
+                   "ensemble10_dd"):
+        t0 = time.perf_counter()
+        ck.reset_counts()             # this configuration's run starts here
+        with Capture() as cap:
+            if config == "ensemble10_dd":
+                res = rb.run_ensemble(work, CONFIG_STEPS, members, device,
+                                      toy)
+            else:
+                res = rb.run_cli_config(config, work, CONFIG_STEPS, device,
+                                        toy)
+        res["launches_read"] = dict(ck.LAUNCHES)      # ... and is read here
+        if res["launches_read"] != res["launches"]:
+            raise AssertionError(f"{config}: counts {res['launches_read']} "
+                                 f"!= the run's {res['launches']}")
+        res["fields_held"] = hold_config(
+            res, work, members if config == "ensemble10_dd" else 1,
+            device == "cuda")
+        seconds[config] = time.perf_counter() - t0
+        krows = (config_kernel_rows(config, cap, res["launches_read"], name,
+                                    ptxas) if device == "cuda" else [])
+        del cap
+        rows += krows
+        lines[config] = {k: res.get(k) for k in keys + ("launches_read",
+                                                        "fields_held")}
+        seconds[config + "_kernels"] = time.perf_counter() - t0 - \
+            seconds[config]
+        emit({"phase": "config", "config": config, "card": name,
+              "nvidia_smi": smi, **lines[config], "kernels": krows})
+    t0 = time.perf_counter()
+    tdir = os.path.join(work, "trace")
+    rb.run_cli_config("global_1deg", work, 4, device, toy,
+                      extra=("--profile", tdir, "--profile-steps", "2"))
+    digest = summarize_trace.stats(summarize_trace.load(
+        os.path.join(tdir, "trace.json")))
+    if device == "cuda" and not any("fused_step_kernel" in k for k in
+                                    digest.get("device_ms_by_kernel", {})):
+        raise AssertionError(f"the trace digest names no step kernel: "
+                             f"{digest}")
+    seconds["global_1deg_trace"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scaling = bench_scaling.run(
+        ["--ranks", "1,2", "--cols-per-rank", str(scaling_cols),
+         "--steps", str(SCALING_STEPS), "--device", device])
+    if scaling[-1]["metric"] != "split_cost" or \
+            not scaling[-1]["time_shared"]:
+        raise AssertionError(f"scaling summary: {scaling[-1]}")
+    seconds["scaling"] = time.perf_counter() - t0
+    emit({"phase": "configs", "card": name, "nvidia_smi": smi,
+          "steps": CONFIG_STEPS,
+          "trace_global_1deg": {k: digest.get(k) for k in (
+              "device_idle_share", "kernel_ms_kpp", "kernel_ms_other",
+              "kpp_share", "device_launches", "window_ms",
+              "device_ms_by_kernel")},
+          "scaling": scaling, "seconds": seconds})
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # phase 9: the CLI over two processes on the one card, and an ensemble
 # ---------------------------------------------------------------------------
 
@@ -1664,6 +1979,7 @@ def main():
         print("chip_smoke: run from the repository root (mckpp_torch not "
               "found)", file=sys.stderr)
         return 2
+    import os
     import shutil
     import tempfile
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1684,6 +2000,8 @@ def main():
     try:
         data, nml, land, dmax, g, straight = phase_cli(name, smi, work)
         phase_distributed(name, smi, work, data, nml, g, straight)
+        phase_configs(name, smi, os.path.join(work, "cfg"), ptxas)
+        phase_times_ns4(name, ptxas)
         phase_day(name, t_start, work, data, land, dmax)
     finally:
         shutil.rmtree(work, ignore_errors=True)

@@ -406,15 +406,20 @@ def run(argv=None) -> dict:
     writes = {k: ncio.WRITES[k] - writes0[k] for k in writes0}
     mckpp_print(ROUTINE, f"NetCDF files written: {writes['native']} native, "
                 f"{writes['scipy']} scipy")
+    launches = {k: ck.LAUNCHES[k] - launches0[k] for k in launches0}
+    mckpp_print(ROUTINE, "kernel launches: " + " ".join(
+        f"{k}={v}" for k, v in launches.items()))
+    peak = (torch.cuda.max_memory_allocated(device)
+            if device.type == "cuda" else None)
+    mckpp_print(ROUTINE, f"peak device memory: "
+                f"{'none (CPU run)' if peak is None else f'{peak} bytes'}")
     report = timers.report()
     print(report)
-    summary.update(launches={k: ck.LAUNCHES[k] - launches0[k]
-                             for k in launches0}, paths=dict(paths),
+    summary.update(launches=launches, paths=dict(paths),
                    restarts=list(written), bytes_written=diag.bytes_written,
                    timers=report, ncol=ncol, num_steps=num_steps,
                    emit_gathers=diag.emit_gathers, writes=writes,
-                   peak_memory_bytes=(torch.cuda.max_memory_allocated(device)
-                                      if device.type == "cuda" else None))
+                   peak_memory_bytes=peak)
     if args.distributed:
         dist.shutdown()
     return summary

@@ -17,9 +17,10 @@
 // on paper and the step, ~6 passes per active column on data that stays on
 // chip, is bound by operations.  What the design does about it
 // (fused_pass.cuh has the details):
-// * one warp per column, levels on lanes (three slots of 32 levels), so a
-//   column's profiles live in registers and a small per-warp shared-memory
-//   area, not in per-thread local memory (L2/HBM);
+// * one warp per column, levels on lanes (NS slots of 32 levels: NS = 3
+//   for WZ <= 96, NS = 4 for WZ <= 128), so a column's profiles live in
+//   registers and a small per-warp shared-memory area, not in per-thread
+//   local memory (L2/HBM);
 // * each warp runs its own column's convergence and trap loops, so a warp
 //   never waits for a slower column, and a land column's warp skips them;
 // * a block of W >= 8 warps takes W consecutive columns and stages their
@@ -27,10 +28,11 @@
 //   profile moves as whole 32-byte sectors;
 // * the reference averages run over each aref row's nonzero prefix.
 // The launch geometry (warps per block, blocks, aref columns kept, dynamic
-// shared-memory bytes) comes from the wrapper; the launcher checks the
-// bytes against smem_bytes().  Build:
+// shared-memory bytes, level slots) comes from the wrapper; the launcher
+// checks the bytes against smem_bytes().  One library holds the three
+// kernels of one type and one number of level slots.  Build:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
-//        -shared -Xcompiler -fPIC -DKPP_REAL=float|double
+//        -shared -Xcompiler -fPIC -DKPP_REAL=float|double -DKPP_NS=3|4
 // -fmad=false keeps each multiply and add rounded on its own, as the
 // unfused eager torch ops that the kernels are held against round them.
 #include <cuda_runtime.h>
@@ -40,35 +42,46 @@
 #ifndef KPP_REAL
 #define KPP_REAL float
 #endif
+#ifndef KPP_NS
+#define KPP_NS 3
+#endif
 
 namespace kpp {
 
 constexpr int MAX_WARPS = 8;
 constexpr int SMEM_MAX = 232448;   // dynamic shared memory one block may use
 // blocks per SM the register budget aims at: 2 x 8 warps (128 registers a
-// thread) in float, 1 in double
-template <typename T> struct MinBlocks { static constexpr int value = 2; };
-template <> struct MinBlocks<double> { static constexpr int value = 1; };
+// thread) in float at NS = 3, 1 block otherwise (in double, and at NS = 4,
+// whose third more profile registers would spill under 128; its shared
+// memory holds one block of 8 warps at the worst kref)
+template <typename T, int NS> struct MinBlocks {
+  static constexpr int value = 1;
+};
+template <> struct MinBlocks<float, 3> { static constexpr int value = 2; };
 
-template <typename T, bool FULL>
-__global__ void __launch_bounds__(MAX_WARPS * 32, MinBlocks<T>::value)
+template <typename T, bool FULL, int NS>
+__global__ void __launch_bounds__(MAX_WARPS * 32, MinBlocks<T, NS>::value)
 fused_pass_kernel(PassParams P, Geometry G, Inputs<T> in, Outputs<T> out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  pass_block<T, FULL>(P, G, in, out, smem_raw);
+  pass_block<T, FULL, NS>(P, G, in, out, smem_raw);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(MAX_WARPS * 32, MinBlocks<T>::value)
+template <typename T, int NS>
+__global__ void __launch_bounds__(MAX_WARPS * 32, MinBlocks<T, NS>::value)
 fused_step_kernel(PassParams P, Geometry G, Inputs<T> in, Outputs<T> out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  step_block<T>(P, G, in, out, smem_raw);
+  step_block<T, NS>(P, G, in, out, smem_raw);
 }
 
+// A block of fewer than MAX_WARPS warps is taken where the shared memory
+// of 8 would not fit (float64 at NS = 4 with a deep aref prefix).
 template <typename K>
 int launch(K kern, const PassParams& P, const Geometry& G, cudaStream_t stream,
            const Inputs<KPP_REAL>& in, const Outputs<KPP_REAL>& out) {
-  const size_t need = smem_bytes(G.kref, G.warps, int(sizeof(KPP_REAL)));
-  if (G.warps < 1 || G.warps > MAX_WARPS || G.kref < 0 || G.kref > P.wz
+  const size_t need = smem_bytes(KPP_NS, G.kref, G.warps,
+                                 int(sizeof(KPP_REAL)));
+  if (G.ns != KPP_NS || P.wz > 32 * KPP_NS
+      || G.warps < 1 || G.warps > MAX_WARPS || G.kref < 0 || G.kref > P.wz
       || size_t(G.smem) != need || G.smem > SMEM_MAX
       || size_t(G.blocks) * G.warps < size_t(P.ncol))
     return int(cudaErrorInvalidValue);
@@ -87,6 +100,7 @@ using kpp::Inputs;
 using kpp::Outputs;
 using kpp::PassParams;
 using Real = KPP_REAL;
+constexpr int NSL = KPP_NS;   // the level slots of this library's kernels
 
 static void unpack(const void* ins, const void* outs, int n_out,
                    Inputs<Real>* in, Outputs<Real>* out) {
@@ -103,7 +117,8 @@ extern "C" {
 // element size of the build, for the wrapper's dtype check
 int kpp_real_bytes() { return int(sizeof(Real)); }
 
-int kpp_max_wz() { return kpp::MAXWZ; }
+// the levels this library's kernels cover (32 x its level slots)
+int kpp_max_wz() { return 32 * NSL; }
 
 #ifdef KPP_PHASES
 // the stage clocks of fused_pass.cuh: copy the 16 sums out, or zero them
@@ -128,8 +143,10 @@ int kpp_fused_pass(int full, const void* ins, const void* outs,
   Outputs<Real> out;
   unpack(ins, outs, full ? 23 : 9, &in, &out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return full ? kpp::launch(kpp::fused_pass_kernel<Real, true>, P, G, st, in, out)
-              : kpp::launch(kpp::fused_pass_kernel<Real, false>, P, G, st, in, out);
+  return full ? kpp::launch(kpp::fused_pass_kernel<Real, true, NSL>, P, G, st,
+                            in, out)
+              : kpp::launch(kpp::fused_pass_kernel<Real, false, NSL>, P, G,
+                            st, in, out);
 }
 
 // ins: the step's 21 inputs placed in the pass slots (ux..sx repeat
@@ -142,7 +159,7 @@ int kpp_fused_step(const void* ins, const void* outs, const void* params,
   Inputs<Real> in;
   Outputs<Real> out;
   unpack(ins, outs, 9, &in, &out);
-  return kpp::launch(kpp::fused_step_kernel<Real>, P, G,
+  return kpp::launch(kpp::fused_step_kernel<Real, NSL>, P, G,
                      static_cast<cudaStream_t>(stream), in, out);
 }
 

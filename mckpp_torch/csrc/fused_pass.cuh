@@ -9,9 +9,13 @@
 // written whole), and its outputs the same way back.
 //
 // Levels on lanes: level k of the warp's column sits on lane k % 32, slot
-// k / 32; NS = 3 slots cover WZ <= 96 (KPP_MAXWZ).  A live profile is an
-// array T x[NS] in registers whose every index is a compile-time constant
-// after unrolling, so no profile lives in local memory.  Level-parallel
+// k / 32.  The number of slots NS is a template parameter of every
+// function below: NS = 3 covers WZ <= 96 (the production TerraMaris shape,
+// nz = 69), NS = 4 covers WZ <= 128 (MAXWZ; nz = 100 of the single-column
+// configuration); cuda_kernels.launch_geometry picks the smallest that
+// covers WZ.  A live profile is an array T x[NS] in registers whose every
+// index is a compile-time constant after unrolling, so no profile lives in
+// local memory.  Level-parallel
 // work runs per lane (relaxation, EOS, solar terms, shear and dbloc, rimix
 // with z121, ddmix, bldepth's per-level terms, blmix, tridcof and tridrhs,
 // the T/S increments).  A stage that needs another level reads it from the
@@ -38,10 +42,6 @@
 #include <stddef.h>
 
 #include "physics.cuh"
-
-#ifndef KPP_MAXWZ
-#define KPP_MAXWZ 96
-#endif
 
 #ifdef __CUDACC__
 #define KPP_HD __host__ __device__ inline
@@ -73,10 +73,10 @@ __device__ unsigned long long kpp_phase[16];
 
 namespace kpp {
 
-constexpr int MAXWZ = KPP_MAXWZ;
-constexpr int NS = 3;             // level slots per lane
-constexpr int LZ = 32 * NS;       // levels per profile row in shared memory
-static_assert(LZ == MAXWZ, "one warp per column covers 32 * NS levels");
+constexpr int NS_MAX = 4;         // level slots per lane, at most
+constexpr int MAXWZ = 32 * NS_MAX; // levels one warp covers, at most
+// In each function templated on NS, LZ = 32 * NS is the number of levels
+// of a profile row in shared memory.
 constexpr unsigned FULLMASK = 0xffffffffu;
 constexpr double BIG = 1.0e30;    // the plain scan's -inf stand-in
 
@@ -104,9 +104,10 @@ struct PassParams {
 
 // Launch geometry, computed by the wrapper (cuda_kernels.launch_geometry):
 // warps (= columns) per block, blocks, aref columns kept in shared memory,
-// dynamic shared-memory bytes (smem_bytes below, checked by the launcher).
+// dynamic shared-memory bytes (smem_bytes below, checked by the launcher),
+// level slots per lane (the NS of the kernels launched).
 struct Geometry {
-  int warps, blocks, kref, smem;
+  int warps, blocks, kref, smem, ns;
 };
 
 // the 25 pass inputs in the order of make_fused_pass plus the depth prefix
@@ -125,7 +126,7 @@ constexpr int N_OUT_MAX = 23;
 template <typename T> struct Inputs { const T* p[N_IN]; const int* ref_hi; };
 template <typename T> struct Outputs { T* p[N_OUT_MAX]; };
 
-// Per-warp profile slots in shared memory, LZ values each.  Slots 0..17
+// Per-warp profile slots in shared memory, 32 * NS values each.  Slots 0..17
 // receive the staged profile inputs of the same IN_* index; X0..X4 are the
 // warp's exchange rows.  The full pass reuses input slots for its outputs
 // once their inputs are dead (full_slot below).
@@ -136,18 +137,21 @@ enum {
 };
 constexpr int NCV = NSC + 16;     // colscal rows, then the column outputs
 
-// per-warp stride in elements: padded to 4 (mod 32) so that the staging
-// accesses of 8 warps x 4 levels fall on 32 different banks
-KPP_HD int warp_stride() {
-  int pw = NB * LZ + NCV;
+// per-warp stride in elements at ns level slots: padded to 4 (mod 32) so
+// that the staging accesses of 8 warps x 4 levels fall on 32 different
+// banks
+KPP_HD int warp_stride(int ns) {
+  int pw = NB * 32 * ns + NCV;
   return pw + ((4 - pw % 32) + 32) % 32;
 }
 
-// dynamic shared memory of one block: grid rows (6 x LZ), aref transposed
-// (kref x LZ), the warps' slots and column values, then hi (LZ ints)
-KPP_HD size_t smem_bytes(int kref, int warps, int tsize) {
-  return size_t((6 + kref) * LZ + warps * warp_stride()) * tsize
-         + size_t(LZ) * sizeof(int);
+// dynamic shared memory of one block at ns level slots (LZ = 32 ns): grid
+// rows (6 x LZ), aref transposed (kref x LZ), the warps' slots and column
+// values, then hi (LZ ints)
+KPP_HD size_t smem_bytes(int ns, int kref, int warps, int tsize) {
+  const int lz = 32 * ns;
+  return size_t((6 + kref) * lz + warps * warp_stride(ns)) * tsize
+         + size_t(lz) * sizeof(int);
 }
 
 // full-pass diagnostic outputs (ops/fused_pass.py full tuple, after u..s)
@@ -176,7 +180,8 @@ template <typename T> struct Grid {
 };
 
 // one warp's column in shared memory
-template <typename T> struct Warp {
+template <typename T, int NS> struct Warp {
+  static constexpr int LZ = 32 * NS;
   T* b;     // NB slots of LZ
   T* cv;    // colscal [0, NSC), column outputs [NSC, NSC + 16)
   int lane;
@@ -186,12 +191,16 @@ template <typename T> struct Warp {
 #define KPP_FOR_Q _Pragma("unroll") for (int q = 0; q < NS; ++q)
 
 // level k of x on every lane (k warp-uniform, 0 <= k < LZ)
-template <typename T> KPP_DEV T lvl(const T (&x)[NS], int k) {
-  T v = k < 32 ? x[0] : (k < 64 ? x[1] : x[2]);
+template <typename T, int NS> KPP_DEV T lvl(const T (&x)[NS], int k) {
+  T v = x[0];
+#pragma unroll
+  for (int q = 1; q < NS; ++q)
+    if (k >= 32 * q) v = x[q];
   return __shfl_sync(FULLMASK, v, k & 31);
 }
 // the plain one-hot gather: 0 outside 0..wz-1 (k warp-uniform)
-template <typename T> KPP_DEV T ext_l(const T (&x)[NS], int k, int wz) {
+template <typename T, int NS>
+KPP_DEV T ext_l(const T (&x)[NS], int k, int wz) {
   return (k >= 0 && k < wz) ? lvl(x, k) : T(0);
 }
 template <typename T> KPP_DEV T ext(const T* a, int idx, int wz) {
@@ -199,7 +208,8 @@ template <typename T> KPP_DEV T ext(const T* a, int idx, int wz) {
 }
 // publish this lane's levels of x to an exchange row (callers bracket a
 // group of puts with __syncwarp)
-template <typename T> KPP_DEV void put(T* xb, const T (&x)[NS], int lane) {
+template <typename T, int NS>
+KPP_DEV void put(T* xb, const T (&x)[NS], int lane) {
   KPP_FOR_Q xb[lane + 32 * q] = x[q];
 }
 
@@ -211,24 +221,37 @@ KPP_DEV void ws_fn(const PassParams& P, T sig, T h, T us, T bf, T* wm, T* ws) {
     wscale_nodal(sig, h, us, bf, T(P.vonk), wm, ws);
 }
 
-// x at level j - s (dn) or j + s (up) for s = 32 or 64: whole slots move
-// within each lane, no other lane is read; fill outside 0..LZ-1
-template <typename T>
+// x at level j - s (dn) or j + s (up) for s = 32 or 64 (the stages of
+// WZ <= 128): whole slots move within each lane, no other lane is read;
+// fill outside 0..LZ-1
+template <typename T, int NS>
 KPP_DEV void slot_dn(const T (&x)[NS], int s, T fill, T (&out)[NS]) {
-  out[0] = fill;
-  out[1] = s == 32 ? x[0] : fill;
-  out[2] = s == 32 ? x[1] : x[0];
+  const int d = s >> 5;
+#pragma unroll
+  for (int q = 0; q < NS; ++q) {
+    T v = fill;
+#pragma unroll
+    for (int p = 0; p < q; ++p)
+      if (q - p == d) v = x[p];
+    out[q] = v;
+  }
 }
-template <typename T>
+template <typename T, int NS>
 KPP_DEV void slot_up(const T (&x)[NS], int s, T fill, T (&out)[NS]) {
-  out[0] = s == 32 ? x[1] : x[2];
-  out[1] = s == 32 ? x[2] : fill;
-  out[2] = fill;
+  const int d = s >> 5;
+#pragma unroll
+  for (int q = 0; q < NS; ++q) {
+    T v = fill;
+#pragma unroll
+    for (int p = q + 1; p < NS; ++p)
+      if (p - q == d) v = x[p];
+    out[q] = v;
+  }
 }
 
 // tridiagonal coefficients on rows (solvers.F90:14-44); leaves diff
 // published in xd
-template <typename T>
+template <typename T, int NS>
 KPP_DEV void tridcof(const T (&diff)[NS], const Grid<T>& g, int nz, int wz,
                      int lane, T* xd, T (&cu)[NS], T (&cc)[NS], T (&cl)[NS]) {
   __syncwarp();
@@ -248,7 +271,7 @@ KPP_DEV void tridcof(const T (&diff)[NS], const Grid<T>& g, int nz, int wz,
 
 // scalar RHS on rows (solvers.F90:53-107); xd, xg, xn hold diff, ghat and
 // the non-turbulent flux published (xn == nullptr means zero flux)
-template <typename T>
+template <typename T, int NS>
 KPP_DEV void tridrhs(const Grid<T>& g, const T* yo, const T* xn,
                      const T (&diff)[NS], const T* xd, const T (&ghat)[NS],
                      const T* xg, T sturflux, T ghatflux, T dto, int nz,
@@ -273,10 +296,11 @@ KPP_DEV void tridrhs(const Grid<T>& g, const T* yo, const T* xn,
 // systems that share one matrix, one warp; the solutions overwrite rhs0
 // (and rhs1 with NR = 2).  Stages s < 32 exchange through the five
 // consecutive exchange rows x5; stages 32 and 64 move whole slots.
-template <typename T, int NR>
+template <typename T, int NR, int NS>
 KPP_DEV void pcr_solve(const T (&cu)[NS], const T (&cc)[NS],
                        const T (&cl)[NS], T (&rhs0)[NS], T (&rhs1)[NS],
                        int nz, int wz, int lane, T* x5) {
+  constexpr int LZ = 32 * NS;
   T* xa = x5;
   T* xc = x5 + LZ;
   T* xb = x5 + 2 * LZ;
@@ -371,11 +395,13 @@ KPP_DEV void band(const T* pfx, T sub, T depth_off, T target, int lo, int nz,
 // the Coriolis parameter this pass uses.  With FULL, the diagnostic
 // profiles go to their full_slot slots and colout16 to the column values
 // (the input slots they overwrite are dead by then).
-template <typename T, bool FULL>
-KPP_DEV void pass_warp(const PassParams& P, const Grid<T>& g, const Warp<T>& w,
+template <typename T, bool FULL, int NS>
+KPP_DEV void pass_warp(const PassParams& P, const Grid<T>& g,
+                       const Warp<T, NS>& w,
                        T (&u)[NS], T (&v)[NS], T (&t)[NS], T (&s)[NS],
                        T (&ux)[NS], T (&vx)[NS], T (&tx)[NS], T (&sx)[NS],
                        T f_cor, ColOut<T>* co) {
+  constexpr int LZ = 32 * NS;
   const int nz = P.nz, wz = P.wz, lane = w.lane;
   const T dto = T(P.dto), grav = T(P.grav), zbot = T(P.zbot);
   const T lam = T(LAMBDA_SMOOTH), oml = T(1.0 - LAMBDA_SMOOTH);
@@ -607,7 +633,7 @@ KPP_DEV void pass_warp(const PassParams& P, const Grid<T>& g, const Warp<T>& w,
     __syncwarp();
     // The first crossing is usually in slot 0 (levels < 32), and the
     // doubling scan's values there are final after its stages < 32, so
-    // slot 0 goes first; slots 1 and 2 only when it has no crossing
+    // slot 0 goes first; slots 1..NS-1 only when it has no crossing
     // (levels past the first crossing never change hbl or kbl).
     T hmin_l[NS];
     int firstx = -1;
@@ -855,8 +881,9 @@ KPP_DEV void pass_warp(const PassParams& P, const Grid<T>& g, const Warp<T>& w,
   // diffusion dift and difs are equal on every level, and the two
   // systems share one matrix: one PCR then solves both (same arithmetic
   // per system as two solves).
-  const bool same_ts = __all_sync(
-      FULLMASK, difs[0] == dift[0] && difs[1] == dift[1] && difs[2] == dift[2]);
+  bool ts_eq = true;
+  KPP_FOR_Q ts_eq = ts_eq && difs[q] == dift[q];
+  const bool same_ts = __all_sync(FULLMASK, ts_eq);
   tridcof(dift, g, nz, wz, lane, X0, cu, cc, cl);
   __syncwarp();
   put(X1, ghat, lane);
@@ -1002,10 +1029,12 @@ KPP_DEV void pass_warp(const PassParams& P, const Grid<T>& g, const Warp<T>& w,
 // ---- the whole step for one column (ops/fused_pass.py _step_body) ----------
 // The convergence and trap loops run per warp: a column's updates depend
 // only on that column, so the result equals the plain batch-masked loops.
-template <typename T>
+template <typename T, int NS>
 KPP_DEV bool instability(const PassParams& P, const Grid<T>& g,
-                         const Warp<T>& w, const T (&u)[NS], const T (&v)[NS],
-                         const T (&t)[NS], const T (&s)[NS], T* fmul) {
+                         const Warp<T, NS>& w, const T (&u)[NS],
+                         const T (&v)[NS], const T (&t)[NS], const T (&s)[NS],
+                         T* fmul) {
+  constexpr int LZ = 32 * NS;
   const int nz = P.nz, wz = P.wz, lane = w.lane;
   T* X0 = w.slot(B_X0);
   T* X1 = w.slot(B_X1);   // X1..X4: the four RMSD term rows, consecutive
@@ -1054,9 +1083,9 @@ KPP_DEV bool instability(const PassParams& P, const Grid<T>& g,
 // The step's 8 output profiles go to slots 0..7 and colstep to the column
 // values (rows 0=hmix, 1=kmix, 2=rho0, 3=cp0, 4=comp_flag, 5=reset_flag,
 // 6=f_used, 7=npass, the passes the column ran).
-template <typename T>
+template <typename T, int NS>
 KPP_DEV void step_warp(const PassParams& P, const Grid<T>& g,
-                       const Warp<T>& w) {
+                       const Warp<T, NS>& w) {
   const int nz = P.nz, lane = w.lane;
   const T* cv = w.cv;
   const T* U0 = w.slot(B_U);
@@ -1156,15 +1185,16 @@ KPP_DEV void step_warp(const PassParams& P, const Grid<T>& g,
 // ---- the block: stage the W columns' inputs, run one warp per column,
 // ---- write the outputs back (coalesced by level rows) ----------------------
 
-template <typename T> struct Block {
+template <typename T, int NS> struct Block {
   Grid<T> g;
-  T* warps;      // W x warp_stride()
+  T* warps;      // W x warp_stride(NS)
 };
 
-template <typename T>
-KPP_DEV Block<T> block_view(const Geometry& G, unsigned char* raw) {
+template <typename T, int NS>
+KPP_DEV Block<T, NS> block_view(const Geometry& G, unsigned char* raw) {
+  constexpr int LZ = 32 * NS;
   T* sm = reinterpret_cast<T*>(raw);
-  Block<T> b;
+  Block<T, NS> b;
   b.g.zm = sm;
   b.g.hm = sm + LZ;
   b.g.dm = sm + 2 * LZ;
@@ -1173,12 +1203,12 @@ KPP_DEV Block<T> block_view(const Geometry& G, unsigned char* raw) {
   b.g.pfx = sm + 5 * LZ;
   b.g.arefT = sm + 6 * LZ;
   b.warps = sm + (6 + G.kref) * LZ;
-  b.g.hi = reinterpret_cast<const int*>(b.warps + G.warps * warp_stride());
+  b.g.hi = reinterpret_cast<const int*>(b.warps + G.warps * warp_stride(NS));
   return b;
 }
 
 // This thread's place in the staging loops: column j of the block and
-// level rows k0, k0 + 32, k0 + 64 (a block has 32 threads per column)
+// level rows k0 + 32 q, q < NS (a block has 32 threads per column)
 struct Stager {
   int j, k0;
   bool col_ok;
@@ -1186,7 +1216,7 @@ struct Stager {
 };
 
 // rows k0 + 32 m of one input profile, through the read-only path
-template <typename T>
+template <typename T, int NS>
 KPP_DEV void fetch(const Stager& st, const T* src, int rows, int ncol,
                    T (&v)[NS]) {
   KPP_FOR_Q {
@@ -1196,7 +1226,7 @@ KPP_DEV void fetch(const Stager& st, const T* src, int rows, int ncol,
   }
 }
 
-template <typename T>
+template <typename T, int NS>
 KPP_DEV void stash(const Stager& st, T* dst, int rows, const T (&v)[NS]) {
   KPP_FOR_Q {
     const int k = st.k0 + 32 * q;
@@ -1204,7 +1234,7 @@ KPP_DEV void stash(const Stager& st, T* dst, int rows, const T (&v)[NS]) {
   }
 }
 
-template <typename T>
+template <int NS, typename T>
 KPP_DEV void stage_out(const Stager& st, T* dst, const T* src, int rows,
                        int ncol) {
   KPP_FOR_Q {
@@ -1217,11 +1247,12 @@ KPP_DEV void stage_out(const Stager& st, T* dst, const T* src, int rows,
 // (profiles into their slots, colscal into the column values).  The loads
 // of the profiles every launch stages are all issued before their stores
 // to shared memory, so they are in flight together.
-template <typename T, bool STEP>
-KPP_DEV Block<T> load_block(const PassParams& P, const Geometry& G,
-                            const Inputs<T>& in, unsigned char* raw,
-                            Stager* st_out) {
-  Block<T> b = block_view<T>(G, raw);
+template <typename T, bool STEP, int NS>
+KPP_DEV Block<T, NS> load_block(const PassParams& P, const Geometry& G,
+                                const Inputs<T>& in, unsigned char* raw,
+                                Stager* st_out) {
+  constexpr int LZ = 32 * NS;
+  Block<T, NS> b = block_view<T, NS>(G, raw);
   const int tid = threadIdx.x, nt = blockDim.x, W = G.warps;
   const int wz = P.wz, nc = P.ncol;
   T* sm = reinterpret_cast<T*>(raw);
@@ -1245,7 +1276,7 @@ KPP_DEV Block<T> load_block(const PassParams& P, const Geometry& G,
   st.k0 = tid / W;
   st.col = size_t(blockIdx.x) * W + st.j;
   st.col_ok = st.col < size_t(nc);
-  T* wb = b.warps + st.j * warp_stride();
+  T* wb = b.warps + st.j * warp_stride(NS);
   // u..sx (pass) or u0..s0 (step), then uo..so, swdk, swfrac: input i
   // goes to slot i, and slots 0..13 match IN_U..IN_SWFRAC
   constexpr int NFIRST = STEP ? 4 : 8, NPROF = NFIRST + 6;
@@ -1276,28 +1307,29 @@ KPP_DEV Block<T> load_block(const PassParams& P, const Geometry& G,
   return b;
 }
 
-template <typename T>
-KPP_DEV Warp<T> warp_of(const Block<T>& b, int wi, int lane) {
-  Warp<T> w;
-  w.b = b.warps + wi * warp_stride();
-  w.cv = w.b + NB * LZ;
+template <typename T, int NS>
+KPP_DEV Warp<T, NS> warp_of(const Block<T, NS>& b, int wi, int lane) {
+  Warp<T, NS> w;
+  w.b = b.warps + wi * warp_stride(NS);
+  w.cv = w.b + NB * Warp<T, NS>::LZ;
   w.lane = lane;
   return w;
 }
 
 // fused pass over one block of columns (the body of fused_pass_kernel)
-template <typename T, bool FULL>
+template <typename T, bool FULL, int NS>
 KPP_DEV void pass_block(const PassParams& P, const Geometry& G,
                         const Inputs<T>& in, const Outputs<T>& out,
                         unsigned char* raw) {
+  constexpr int LZ = 32 * NS;
   KPP_CLOCK(kpp_b0);
   Stager st;
-  const Block<T> b = load_block<T, false>(P, G, in, raw, &st);
+  const Block<T, NS> b = load_block<T, false, NS>(P, G, in, raw, &st);
   __syncthreads();
   KPP_BMARK(10);   // staging in
   const int wi = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (size_t(blockIdx.x) * G.warps + wi < size_t(P.ncol)) {
-    const Warp<T> w = warp_of(b, wi, lane);
+    const Warp<T, NS> w = warp_of(b, wi, lane);
     T u[NS], v[NS], t[NS], s[NS], ux[NS], vx[NS], tx[NS], sx[NS];
     KPP_FOR_Q {
       const int k = lane + 32 * q;
@@ -1338,48 +1370,49 @@ KPP_DEV void pass_block(const PassParams& P, const Geometry& G,
   __syncthreads();
   KPP_BMARK(12);   // waiting for the block's slowest warp
   const int wz = P.wz, nc = P.ncol;
-  const T* wb = b.warps + st.j * warp_stride();
+  const T* wb = b.warps + st.j * warp_stride(NS);
   if (FULL) {
 #pragma unroll
     for (int i = 0; i < 4 + N_FO; ++i) {
       if (i == 4 + FO_COLOUT)
-        stage_out(st, out.p[i], wb + NB * LZ + NSC, 16, nc);
+        stage_out<NS>(st, out.p[i], wb + NB * LZ + NSC, 16, nc);
       else
-        stage_out(st, out.p[i], wb + full_slot(i) * LZ, wz, nc);
+        stage_out<NS>(st, out.p[i], wb + full_slot(i) * LZ, wz, nc);
     }
   } else {
 #pragma unroll
     for (int i = 0; i < 8; ++i)
-      stage_out(st, out.p[i], wb + (B_U + i) * LZ, wz, nc);
-    stage_out(st, out.p[8], wb + NB * LZ + NSC, 8, nc);
+      stage_out<NS>(st, out.p[i], wb + (B_U + i) * LZ, wz, nc);
+    stage_out<NS>(st, out.p[8], wb + NB * LZ + NSC, 8, nc);
   }
   KPP_BMARK(13);   // write-back
 }
 
 // whole step over one block of columns (the body of fused_step_kernel)
-template <typename T>
+template <typename T, int NS>
 KPP_DEV void step_block(const PassParams& P, const Geometry& G,
                         const Inputs<T>& in, const Outputs<T>& out,
                         unsigned char* raw) {
+  constexpr int LZ = 32 * NS;
   KPP_CLOCK(kpp_b0);
   Stager st;
-  const Block<T> b = load_block<T, true>(P, G, in, raw, &st);
+  const Block<T, NS> b = load_block<T, true, NS>(P, G, in, raw, &st);
   __syncthreads();
   KPP_BMARK(10);   // staging in
   const int wi = threadIdx.x >> 5, lane = threadIdx.x & 31;
   // a land column's warp goes straight to the write-back (step_warp skips
   // its loops); a warp past ncol has no column
   if (size_t(blockIdx.x) * G.warps + wi < size_t(P.ncol))
-    step_warp<T>(P, b.g, warp_of(b, wi, lane));
+    step_warp<T, NS>(P, b.g, warp_of(b, wi, lane));
   KPP_BMARK(11);   // the warp's column
   __syncthreads();
   KPP_BMARK(12);   // waiting for the block's slowest warp
   const int wz = P.wz, nc = P.ncol;
-  const T* wb = b.warps + st.j * warp_stride();
+  const T* wb = b.warps + st.j * warp_stride(NS);
 #pragma unroll
   for (int i = 0; i < 8; ++i)
-    stage_out(st, out.p[i], wb + (B_U + i) * LZ, wz, nc);
-  stage_out(st, out.p[8], wb + NB * LZ + NSC, 8, nc);
+    stage_out<NS>(st, out.p[i], wb + (B_U + i) * LZ, wz, nc);
+  stage_out<NS>(st, out.p[8], wb + NB * LZ + NSC, 8, nc);
   KPP_BMARK(13);   // write-back
 }
 

@@ -1,13 +1,29 @@
-"""Input sets for the TerraMaris configuration, written through the
-port's own NetCDF writer (a copy of the ``terramaris`` branch of
-``tools/make_benchmark_configs.py``, whose module imports the JAX
-package and so cannot run where the port runs alone).
+"""Input sets for the five BASELINE.json benchmark configurations,
+written through the port's own NetCDF writer (a copy of
+``tools/make_benchmark_configs.py``, whose module imports the JAX package
+and so cannot run where the port runs alone).
 
 Synthetic data on the reference's file formats, since the TerraMaris
-ancillaries are not redistributable: 453 x 319 columns, nz = 69 over
-dmax = 1000 m, 12% islands drawn from ``numpy.random.default_rng(0)``, a
-flux file, the SST climatology with relaxation, the five-stream iodef
-and a restart every 72 steps.  ``shrink`` divides the horizontal grid.
+ancillaries are not redistributable:
+
+1. ``single_column``: 1 column x 100 levels over 2000 m, constant
+   analytic fluxes (``L_FLUXDATA=.F.``);
+2. ``regional_64x64``: 64 x 64 columns, nz = 40 over 500 m, a flux file
+   and SST relaxation to ``sst.nc``;
+3. ``terramaris``: 453 x 319 columns, nz = 69 over 1000 m, 12% islands
+   drawn from ``numpy.random.default_rng(0)``, a flux file, the SST
+   climatology with relaxation and a restart every 72 steps (the
+   reference test job's shape);
+4. ``global_1deg``: 360 x 180 columns, nz = 40 over 1000 m, a land-sea
+   mask from ``default_rng(1)`` (about 70% wet), a flux file;
+5. ``ensemble10_dd``: the global set with ``LKPP/LRI/LDD=.T.`` (the
+   members are replicated columns, made by the runner).
+
+Every set has the five-stream iodef.  ``--toy`` (``toy=True``) shrinks
+the horizontal grid by 8 (the regional grid to ``max(8, 64 // 8)``, the
+global grid to 45 x 22 from 45 S in 2-degree rows).
+
+    python -m mckpp_torch.tools.make_benchmark_configs CONFIG OUTDIR [--toy]
 """
 
 from __future__ import annotations
@@ -87,6 +103,8 @@ def _write_fluxes(d, lons, lats, ntimes, dtsec):
 
 
 def _write_sst_sal(d, lons, lats, ndt, dto):
+    """The SST climatology (the tool's ``_write_sst_sal`` without its 3-D
+    variant, which no configuration writes)."""
     nx, ny = len(lons), len(lats)
     period = ndt * dto / SPD
     times = (np.arange(400) + 0.5) * period
@@ -167,21 +185,31 @@ IODEF = """<?xml version="1.0"?>
 """
 
 
-def _namelist(d, nx, ny, nz, dmax, lon0, lat0):
-    """The namelist of the TerraMaris branch: hourly flux records, the
-    ocean step every 1200 s (ndtocn=3), one model day, the SST
-    climatology with a 5-day relaxation on every row, a restart every 72
-    steps."""
-    couple = (" L_CLIMSST=.T., L_UPD_CLIMSST=.T., sstin_file='sst.nc',"
-              " ndtupdsst=3,")
-    advec = (" L_ADVECT=.F., L_RELAX_SST=.T., relax_sst_in="
-             + ",".join(["5.0"] * ny) + ",")
+def _namelist(d, nx, ny, nz, dmax, lon0, lat0, dtsec=3600.0, ndtocn=3,
+              finalt=1.0, fluxdata=True, relax=False, ldd=False,
+              restart_every=0):
+    """``3D_ocn.nml`` and ``iodef.xml``: hourly flux records (or analytic
+    fluxes without ``fluxdata``), the ocean step every dtsec / ndtocn
+    seconds, ``finalt`` model days; ``relax``: the SST climatology with a
+    5-day relaxation on every row; ``ldd``: KPP, the Richardson-number
+    mixing and double diffusion on; ``restart_every``: steps between
+    restarts (0: at the end only)."""
+    couple = ""
+    advec = " L_ADVECT=.F.,"
+    if relax:
+        couple = (" L_CLIMSST=.T., L_UPD_CLIMSST=.T., sstin_file='sst.nc',"
+                  " ndtupdsst=3,")
+        advec = (" L_ADVECT=.F., L_RELAX_SST=.T., relax_sst_in="
+                 + ",".join(["5.0"] * ny) + ",")
+    procswit = " LKPP=.T., LRI=.T., LDD=.T." if ldd else ""
+    forcing = ("L_FLUXDATA=.T., forcing_file='fluxes.nc'" if fluxdata
+               else "L_FLUXDATA=.F.")
     text = f"""
  &NAME_PARAMETERS
  nz={nz}, nx={nx}, ny={ny}, ngrid={nz}, nztmax={nz + 15}
  &END
  &NAME_CONSTANTS &END
- &NAME_PROCSWIT &END
+ &NAME_PROCSWIT{procswit} &END
  &NAME_DOMAIN
  dmax={dmax}, L_REGGRID=.F., L_VGRID_FILE=.T., vgrid_file='vgrid.nc',
  alon={lon0}, alat={lat0}
@@ -193,7 +221,7 @@ def _namelist(d, nx, ny, nz, dmax, lon0, lat0):
  L_INITDATA=.T., initdata_file='init.nc', L_RESTART=.F., L_INTERPINIT=.T.
  &END
  &NAME_TIMES
- dtsec=3600.0, startt=0.0, finalt=1.0, ndtocn=3
+ dtsec={dtsec}, startt=0.0, finalt={finalt}, ndtocn={ndtocn}
  &END
  &NAME_COUPLE L_COUPLE=.F.,{couple} &END
  &NAME_ADVEC{advec} &END
@@ -201,10 +229,10 @@ def _namelist(d, nx, ny, nz, dmax, lon0, lat0):
  paras_file='paras.nc', L_JERLOV=.T.
  &END
  &NAME_FORCING
- L_FLUXDATA=.T., forcing_file='fluxes.nc'
+ {forcing}
  &END
  &NAME_OUTPUT
- L_RESTARTW=.T., restart_outfile='restart_out', ndt_per_restart=72,
+ L_RESTARTW=.T., restart_outfile='restart_out', ndt_per_restart={restart_every},
  IODEF_FILE='iodef.xml'
  &END
 """
@@ -214,20 +242,75 @@ def _namelist(d, nx, ny, nz, dmax, lon0, lat0):
         f.write(IODEF)
 
 
-def write_terramaris(outdir: str, shrink: int = 1) -> dict:
-    """Write the TerraMaris inputs (``3D_ocn.nml``, ``iodef.xml`` and the
-    NetCDF files they name) into ``outdir``; returns the grid sizes."""
+CONFIGS = ("single_column", "regional_64x64", "terramaris", "global_1deg",
+           "ensemble10_dd")
+
+
+def generate(config: str, outdir: str, toy: bool = False,
+             shrink: int | None = None) -> dict:
+    """Write the inputs of ``config`` (one of ``CONFIGS``) into
+    ``outdir``: ``3D_ocn.nml``, ``iodef.xml`` and the NetCDF files they
+    name.  ``toy`` shrinks the horizontal grid as the tool's ``--toy``
+    does; ``shrink`` sets the divisor alone (default 8 with ``toy``, else
+    1).  Returns the grid sizes and the land share."""
     os.makedirs(outdir, exist_ok=True)
-    nx, ny = 453 // shrink, 319 // shrink
-    nz, dmax = 69, 1000.0
-    lons, lats, h, zf, dd = _grids(nx, ny, nz, dmax, lon0=90.0,
-                                   lat0=-15.0, dlon=0.066, dlat=0.066)
-    rng = np.random.default_rng(0)
-    lsm = (rng.uniform(size=(ny, nx)) < 0.12).astype(float)  # islands
-    _write_common(outdir, lons, lats, h, zf, dd, lsm,
-                  np.full((ny, nx), -dmax))
-    _write_fluxes(outdir, lons, lats, 30, 3600.0)
-    _write_sst_sal(outdir, lons, lats, 3, 1200.0)
-    _namelist(outdir, nx, ny, nz, dmax, lons[0], lats[0])
-    return {"nx": nx, "ny": ny, "nz": nz, "dmax": dmax,
+    if shrink is None:
+        shrink = 8 if toy else 1
+    if config == "single_column":
+        nx, ny, nz, dmax = 1, 1, 100, 2000.0
+        lons, lats, h, zf, dd = _grids(nx, ny, nz, dmax, 90.0, -20.0,
+                                       0.5, 0.25)
+        lsm = np.zeros((ny, nx))
+        _write_common(outdir, lons, lats, h, zf, dd, lsm,
+                      np.full((ny, nx), -dmax))
+        _namelist(outdir, nx, ny, nz, dmax, lons[0], lats[0],
+                  fluxdata=False, finalt=1.0)
+    elif config == "regional_64x64":
+        nx = ny = max(8, 64 // shrink)
+        nz, dmax = 40, 500.0
+        lons, lats, h, zf, dd = _grids(nx, ny, nz, dmax, 90.0, -20.0,
+                                       0.5, 0.25)
+        lsm = np.zeros((ny, nx))
+        _write_common(outdir, lons, lats, h, zf, dd, lsm,
+                      np.full((ny, nx), -dmax))
+        _write_fluxes(outdir, lons, lats, 30, 3600.0)
+        _write_sst_sal(outdir, lons, lats, 3, 1200.0)
+        _namelist(outdir, nx, ny, nz, dmax, lons[0], lats[0],
+                  relax=True, finalt=1.0)
+    elif config == "terramaris":
+        nx, ny = 453 // shrink, 319 // shrink
+        nz, dmax = 69, 1000.0
+        lons, lats, h, zf, dd = _grids(nx, ny, nz, dmax, lon0=90.0,
+                                       lat0=-15.0, dlon=0.066, dlat=0.066)
+        rng = np.random.default_rng(0)
+        lsm = (rng.uniform(size=(ny, nx)) < 0.12).astype(float)  # islands
+        _write_common(outdir, lons, lats, h, zf, dd, lsm,
+                      np.full((ny, nx), -dmax))
+        _write_fluxes(outdir, lons, lats, 30, 3600.0)
+        _write_sst_sal(outdir, lons, lats, 3, 1200.0)
+        _namelist(outdir, nx, ny, nz, dmax, lons[0], lats[0],
+                  relax=True, finalt=1.0, restart_every=72)
+    elif config in ("global_1deg", "ensemble10_dd"):
+        nx, ny = 360 // shrink, 180 // shrink
+        nz, dmax = 40, 1000.0
+        lons, lats, h, zf, dd = _grids(nx, ny, nz, dmax, lon0=0.0,
+                                       lat0=-89.5 if not toy else -45.0,
+                                       dlon=360.0 / nx, dlat=180.0 / ny
+                                       if not toy else 2.0)
+        rng = np.random.default_rng(1)
+        lsm = (rng.uniform(size=(ny, nx)) < 0.3).astype(float)  # ~70% wet
+        _write_common(outdir, lons, lats, h, zf, dd, lsm,
+                      np.full((ny, nx), -dmax))
+        _write_fluxes(outdir, lons, lats, 30, 3600.0)
+        _namelist(outdir, nx, ny, nz, dmax, lons[0], lats[0],
+                  ldd=(config == "ensemble10_dd"), finalt=1.0)
+    else:
+        raise ValueError(f"unknown config {config!r}; one of {CONFIGS}")
+    return {"config": config, "nx": nx, "ny": ny, "nz": nz, "dmax": dmax,
             "land_share": float(lsm.mean())}
+
+
+def write_terramaris(outdir: str, shrink: int = 1) -> dict:
+    """Write the TerraMaris inputs into ``outdir`` with the horizontal
+    grid divided by ``shrink``; returns the grid sizes."""
+    return generate("terramaris", outdir, shrink=shrink)

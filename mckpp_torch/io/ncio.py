@@ -24,13 +24,15 @@ Semantics preserved from the reference:
 * every failure raises with file/variable context (the reference's
   ``check()`` + abort, :421-432).
 
+``READ_BYTES`` counts the bytes materialized by :func:`get_var`, so a
+caller can check that a record read stays O(record).
 """
 
 from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 from scipy.io import netcdf_file
@@ -41,6 +43,8 @@ from .. import native
 # diagnostics and restarts add to it; callers read differences)
 WRITES = {"native": 0, "scipy": 0}
 _writes_lock = threading.Lock()
+READ_BYTES = 0          # bytes materialized by get_var since process start
+_reads_lock = threading.Lock()
 
 
 class NetCDFError(RuntimeError):
@@ -108,16 +112,33 @@ def get_coord(nc, name: str):
     return v, len(v)
 
 
-def get_var(nc, name: str, index=None) -> np.ndarray:
-    """Read a variable or a hyperslab of it: ``index`` (a tuple of
-    ints/slices) is applied BEFORE materialization — the reference's
-    start/count hyperslab read (mckpp_netcdf_read.F90:120-432)."""
+def get_var(nc, name: str, start: Optional[Sequence[int]] = None,
+            count: Optional[Sequence[int]] = None,
+            index=None) -> np.ndarray:
+    """Read a variable or a hyperslab of it.
+
+    ``index`` (a tuple of ints/slices) is applied BEFORE materialization —
+    the reference's start/count hyperslab read
+    (mckpp_netcdf_read.F90:120-432).  ``start``/``count`` are the older
+    0-based offset form and materialize lazily too.
+    """
+    global READ_BYTES
     if name not in nc.variables:
         raise NetCDFError(f"variable {name} not found")
     v = nc.variables[name]
-    data = v[index] if index is not None else v[:]
+    if index is not None:
+        data = v[index]
+    elif start is not None:
+        sl = tuple(slice(s, (s + c) if count is not None else None)
+                   for s, c in zip(start, count or [None] * len(start)))
+        data = v[sl]
+    else:
+        data = v[:]
     out = np.asarray(data, dtype=np.float64)
-    return out.copy() if not out.flags.owndata else out
+    out = out.copy() if not out.flags.owndata else out
+    with _reads_lock:       # the prefetch threads read too
+        READ_BYTES += out.nbytes
+    return out
 
 
 def determine_boundaries(nc, lon0: float, lat0: float,

@@ -168,18 +168,20 @@ class RestartControl:
     mckpp_xios_control.F90:61-83): every ndt_per_restart steps and at the
     final step.
 
-    Writes are detached from the step loop: ``maybe_write`` hands the
-    state to a background thread, which fetches it to the host and encodes
-    the .npz (and NetCDF) file.  The caller passes state that nothing
-    overwrites afterwards (the model's steps and the chain return fresh
-    tensors).  With a ``layout`` over several processes the state is
-    gathered to rank 0 first, synchronously on the calling (loop) thread,
-    since the gather is a collective; only rank 0 writes."""
+    Writes are detached from the step loop (``async_write``, the default):
+    ``maybe_write`` hands the state to a background thread, which fetches
+    it to the host and encodes the .npz (and NetCDF) file.  The caller
+    passes state that nothing overwrites afterwards (the model's steps and
+    the chain return fresh tensors).  With ``async_write=False`` the write
+    runs on the caller's thread and ``maybe_write`` returns the .npz path.
+    With a ``layout`` over several processes the state is gathered to rank
+    0 first, synchronously on the calling (loop) thread, since the gather
+    is a collective; only rank 0 writes."""
 
     def __init__(self, outfile: str, ndt_per_restart: int, num_timesteps: int,
                  dto: float, start_days: float,
                  netcdf_grid: Optional[Tuple[int, int]] = None,
-                 layout=None):
+                 layout=None, async_write: bool = True):
         self.outfile = outfile
         self.cadence = ndt_per_restart
         self.last = num_timesteps
@@ -188,7 +190,8 @@ class RestartControl:
         self.netcdf_grid = netcdf_grid
         self.layout = layout
         self.written = []
-        self._writer = ThreadPoolExecutor(max_workers=1)
+        self._writer = (ThreadPoolExecutor(max_workers=1) if async_write
+                        else None)
         self._pending = []
 
     def due(self, nt: int) -> bool:
@@ -215,6 +218,8 @@ class RestartControl:
                             for t in (st, prm, frc))
             if self.layout.rank != 0:
                 return
+        if self._writer is None:
+            return self._write(nt, st, prm, frc)
         # fail fast: surface an already-failed detached write now
         still = []
         for fut in self._pending:

@@ -27,12 +27,16 @@ a block of ``WARPS`` warps takes that many consecutive columns and stages
 their inputs and outputs through shared memory, so global traffic moves
 whole 32-byte sectors; the reference averages run over each ``aref`` row's
 nonzero prefix (:func:`row_extents`, computed once per ``aref`` tensor).
-:func:`launch_geometry` computes the launch geometry the C side is given.
+:func:`launch_geometry` computes the launch geometry the C side is given,
+with the number of level slots a lane carries: each kernel is a template
+on it, built for ``SLOTS`` = 3 (``nz + 2 <= 96``) and 4 (``<= 128``), and
+a launch takes the smallest that covers its levels.
 
 A wrapper called with CPU tensors runs the plain torch body
 (``ops/fused_pass.py``); with CUDA tensors it launches its kernel or
 raises.  The kernels are built by ``nvcc`` from the sources in ``csrc/``
-on first use, into ``mckpp_torch/_build/``.
+on first use, into ``mckpp_torch/_build/``: one library for each dtype
+and number of level slots.
 """
 
 from __future__ import annotations
@@ -68,8 +72,9 @@ _libs: dict = {}
 _lock = threading.Lock()
 
 # launch geometry (the constants of csrc/fused_pass.cuh and fused_kernels.cu)
-WARPS = 8              # columns per block, one warp each
-LZ = 96                # levels per profile row in shared memory (KPP_MAXWZ)
+WARPS = 8              # columns per block, one warp each (MAX_WARPS)
+SLOTS = (3, 4)         # level slots per lane of the built kernels (NS)
+MAXWZ = 32 * SLOTS[-1]  # the most levels (nz + 2) a kernel takes
 N_SLOTS = 23           # per-warp profile slots (NB)
 N_COLV = 48            # per-warp column values: colscal rows + 16 outputs
 SMEM_MAX = 232_448     # dynamic shared memory one block may use (H100)
@@ -97,59 +102,67 @@ def _source_hash() -> str:
     return h.hexdigest()[:16]
 
 
-def _lib_path(dtype, phases=False) -> str:
+def _lib_path(dtype, ns, phases=False) -> str:
     tag = "_phases" if phases else ""
-    return os.path.join(_BUILD,
-                        f"libkpp_{_REALS[dtype]}{tag}_{_source_hash()}.so")
+    return os.path.join(
+        _BUILD, f"libkpp_{_REALS[dtype]}_ns{ns}{tag}_{_source_hash()}.so")
 
 
-def build(dtypes=(torch.float32, torch.float64), phases=False) -> dict:
-    """Compile the kernels for ``dtypes`` (one nvcc process per dtype, run
-    together) unless an up-to-date library exists.  Returns {dtype: ptxas
-    report} for the libraries built by this call.  ``phases`` builds the
-    library with the stage clocks of ``csrc/fused_pass.cuh`` on
-    (``-DKPP_PHASES``, for chip_phases.py) under its own name; the port
-    itself always loads the one without.  Several processes (the ranks
-    of a distributed run) may build into one directory at once."""
+def build(dtypes=(torch.float32, torch.float64), phases=False,
+          slots=SLOTS) -> dict:
+    """Compile the kernels for ``dtypes`` and level ``slots`` (one nvcc
+    process per library, all run together) unless an up-to-date library
+    exists.  Returns {(dtype, ns): ptxas report} for the libraries built
+    by this call.  ``phases`` builds the library with the stage clocks of
+    ``csrc/fused_pass.cuh`` on (``-DKPP_PHASES``, for chip_phases.py)
+    under its own name; the port itself always loads the one without.
+    Several processes (the ranks of a distributed run) may build into one
+    directory at once."""
     os.makedirs(_BUILD, exist_ok=True)
     procs = {}
     for dt in dtypes:
-        out = _lib_path(dt, phases)
-        if os.path.exists(out):
-            continue
-        tmp = tmp_name(out)
-        cmd = [_nvcc(), *NVCC_FLAGS, f"-DKPP_REAL={_REALS[dt]}",
-               *(["-DKPP_PHASES"] if phases else []),
-               "-o", tmp, os.path.join(_CSRC, "fused_kernels.cu")]
-        procs[dt] = (out, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    reports = {}
-    for dt, (out, tmp, p) in procs.items():
+        for ns in slots:
+            out = _lib_path(dt, ns, phases)
+            if os.path.exists(out):
+                continue
+            tmp = tmp_name(out)
+            cmd = [_nvcc(), *NVCC_FLAGS, f"-DKPP_REAL={_REALS[dt]}",
+                   f"-DKPP_NS={ns}", *(["-DKPP_PHASES"] if phases else []),
+                   "-o", tmp, os.path.join(_CSRC, "fused_kernels.cu")]
+            procs[dt, ns] = (out, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+    reports, failed = {}, []
+    for key, (out, tmp, p) in procs.items():
         log, _ = p.communicate()
         if p.returncode != 0:
             if os.path.exists(tmp):
                 os.remove(tmp)
-            raise RuntimeError(f"nvcc failed for {_REALS[dt]}:\n{log}")
+            failed.append(f"nvcc failed for {_REALS[key[0]]}, NS={key[1]}:"
+                          f"\n{log}")
+            continue
         os.replace(tmp, out)
-        reports[dt] = log
+        reports[key] = log
+    if failed:
+        raise RuntimeError("\n".join(failed))
     return reports
 
 
-def _lib(dtype):
+def _lib(dtype, ns):
     with _lock:
-        lib = _libs.get(dtype)
+        lib = _libs.get((dtype, ns))
         if lib is None:
-            lib = load(dtype)
-            _libs[dtype] = lib
+            lib = load(dtype, ns)
+            _libs[dtype, ns] = lib
         return lib
 
 
-def load(dtype, phases=False):
-    """The kernel library for ``dtype``, built if missing (``phases``: see
-    :func:`build`)."""
-    path = _lib_path(dtype, phases)
+def load(dtype, ns, phases=False):
+    """The kernel library for ``dtype`` at ``ns`` level slots, built if
+    missing (``phases``: see :func:`build`)."""
+    path = _lib_path(dtype, ns, phases)
     if not os.path.exists(path):
-        build((dtype,), phases)
+        build((dtype,), phases, slots=(ns,))
     lib = ctypes.CDLL(path)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.kpp_fused_pass.argtypes = [ci, vp, vp, vp, vp, vp]
@@ -164,8 +177,9 @@ def load(dtype, phases=False):
         lib.kpp_phase_zero.restype = ci
     if lib.kpp_real_bytes() != torch.empty((), dtype=dtype).element_size():
         raise RuntimeError(f"{path} was built for another dtype")
-    if lib.kpp_max_wz() != LZ:
-        raise RuntimeError(f"{path}: MAXWZ {lib.kpp_max_wz()} != {LZ}")
+    if lib.kpp_max_wz() != 32 * ns:
+        raise RuntimeError(f"{path}: {lib.kpp_max_wz()} levels, expected "
+                           f"{32 * ns}")
     return lib
 
 
@@ -261,39 +275,56 @@ def _check(arrays, kw, n_prof):
 class Geometry(ctypes.Structure):
     """Field for field the C struct kpp::Geometry (csrc/fused_pass.cuh)."""
     _fields_ = [("warps", ctypes.c_int), ("blocks", ctypes.c_int),
-                ("kref", ctypes.c_int), ("smem", ctypes.c_int)]
+                ("kref", ctypes.c_int), ("smem", ctypes.c_int),
+                ("ns", ctypes.c_int)]
 
     @property
     def cols_per_block(self) -> int:
         return self.warps            # one warp per column
 
 
-def _warp_stride() -> int:
-    """Elements of one warp's shared-memory area, padded to 4 (mod 32)
-    (csrc/fused_pass.cuh warp_stride)."""
-    pw = N_SLOTS * LZ + N_COLV
+def _warp_stride(ns: int) -> int:
+    """Elements of one warp's shared-memory area at ``ns`` level slots,
+    padded to 4 (mod 32) (csrc/fused_pass.cuh warp_stride)."""
+    pw = N_SLOTS * 32 * ns + N_COLV
     return pw + (4 - pw % 32) % 32
+
+
+def smem_bytes(ns: int, kref: int, warps: int, esize: int) -> int:
+    """Dynamic shared memory of one block (csrc/fused_pass.cuh
+    smem_bytes): the grid rows, aref's kept columns, the warps' areas and
+    the row extents, at ``32 * ns`` levels a row."""
+    lz = 32 * ns
+    return ((6 + kref) * lz + warps * _warp_stride(ns)) * esize + lz * 4
 
 
 def launch_geometry(nz: int, dtype, ncol: int, kref: int | None = None
                     ) -> Geometry:
     """Warps (= columns) per block, blocks, aref columns kept in shared
-    memory and dynamic shared-memory bytes of one launch at ``nz`` levels
-    over ``ncol`` columns.  ``kref`` is the number of ``aref`` columns the
-    reference averages read (:func:`row_extents`); the default is the
-    worst case, all ``nz + 2``."""
+    memory, dynamic shared-memory bytes and level slots of one launch at
+    ``nz`` levels over ``ncol`` columns.  ``kref`` is the number of
+    ``aref`` columns the reference averages read (:func:`row_extents`);
+    the default is the worst case, all ``nz + 2``.  The level slots are
+    the fewest of ``SLOTS`` that cover ``nz + 2``; a block takes
+    ``WARPS`` warps, or half as many until its shared memory fits (float64
+    at 4 slots with a deep aref prefix)."""
     wz = nz + 2
-    if wz > LZ:
-        raise ValueError(f"nz+2={wz} exceeds the kernels' MAXWZ={LZ}")
+    if wz > MAXWZ:
+        raise ValueError(f"nz+2={wz} exceeds the kernels' limit of "
+                         f"{MAXWZ} levels (nz <= {MAXWZ - 2})")
+    ns = next(n for n in SLOTS if 32 * n >= wz)
     kref = wz if kref is None else kref
     if not 0 <= kref <= wz:
         raise ValueError(f"kref={kref} outside 0..{wz}")
     esize = torch.empty((), dtype=dtype).element_size()
-    smem = ((6 + kref) * LZ + WARPS * _warp_stride()) * esize + LZ * 4
+    warps = WARPS
+    while warps > 1 and smem_bytes(ns, kref, warps, esize) > SMEM_MAX:
+        warps //= 2
+    smem = smem_bytes(ns, kref, warps, esize)
     if smem > SMEM_MAX:
         raise ValueError(f"{smem} bytes of shared memory exceed {SMEM_MAX}")
-    return Geometry(warps=WARPS, blocks=-(-ncol // WARPS), kref=kref,
-                    smem=smem)
+    return Geometry(warps=warps, blocks=-(-ncol // warps), kref=kref,
+                    smem=smem, ns=ns)
 
 
 def row_extents(aref) -> np.ndarray:
@@ -366,7 +397,7 @@ def _launch_args(arrays, kw, ncol, dtype):
     nz = kw["nz"]
     hi, kref = _ref_extents(arrays[-1])
     geom = launch_geometry(nz, dtype, ncol, kref)
-    lib = _lib(dtype)
+    lib = _lib(dtype, geom.ns)
     hm = arrays[-5]
     pfx = (fp._depth_prefix(hm, nz).contiguous()
            if kw["flags"].l_advect else hm)

@@ -35,6 +35,18 @@ class Timers:
             self._count[name] += 1
         self._meta += time.perf_counter() - t0
 
+    def section(self, name: str):
+        """A context manager that times its block under ``name``."""
+        timers = self
+
+        class _Ctx:
+            def __enter__(self):
+                timers.start(name)
+
+            def __exit__(self, *a):
+                timers.stop(name)
+        return _Ctx()
+
     def report(self) -> str:
         self.stop("Total")
         lines = [f"{'Timer':<40s} {'calls':>8s} {'seconds':>12s}"]

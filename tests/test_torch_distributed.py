@@ -576,12 +576,13 @@ def test_concurrent_kernel_builds_leave_whole_libraries(tmp_path,
     cc = _fake_compiler(tmp_path)
     monkeypatch.setattr(ck, "_nvcc", lambda: cc)
     _concurrently(lambda: ck.build((torch.float32, torch.float64)))
-    for dt in (torch.float32, torch.float64):
-        with open(ck._lib_path(dt), "rb") as f:
+    libs = [ck._lib_path(dt, ns) for dt in (torch.float32, torch.float64)
+            for ns in ck.SLOTS]          # one a dtype and level-slot count
+    for path in libs:
+        with open(path, "rb") as f:
             assert f.read() == WHOLE
     assert sorted(os.listdir(tmp_path / "build")) == sorted(
-        os.path.basename(ck._lib_path(dt))
-        for dt in (torch.float32, torch.float64))
+        os.path.basename(p) for p in libs)
 
 
 def test_concurrent_encoder_builds_leave_a_whole_library(tmp_path,
@@ -619,8 +620,19 @@ need = {"mckpp_torch.native", "mckpp_torch.parallel.distributed",
         "mckpp_torch.parallel.sharding", "mckpp_torch.ensemble",
         "mckpp_torch.tools.merge_shards", "mckpp_torch.cli",
         "mckpp_torch.ops.tridiag", "mckpp_torch.ops.ocnint",
-        "mckpp_torch.ops.ocnstep"}
+        "mckpp_torch.ops.ocnstep", "mckpp_torch.tools.make_benchmark_configs",
+        "mckpp_torch.tools.run_baseline_benchmarks",
+        "mckpp_torch.tools.bench_scaling", "mckpp_torch.tools.summarize_trace",
+        "mckpp_torch.launch", "mckpp_torch.io.benchmark_inputs"}
 assert need <= set(names), need - set(names)
+# chip_smoke.py imports the port only, inside its functions: no line of
+# it imports jax or the JAX package
+import os, re
+with open(os.path.join(sys.argv[1], "chip_smoke.py")) as f:
+    src = f.read()
+bad = re.findall(r"^\s*(?:import|from)\s+(?:jax|jaxlib|mckpp_tpu)\b", src, re.M)
+assert not bad, bad
+import chip_smoke
 print("imported", len(names))
 """
 

@@ -33,19 +33,19 @@ def cuda():
     return torch.device("cuda")
 
 
-def model(ncol, pass_impl, device, dtype="float32", **boundary):
+def model(ncol, pass_impl, device, dtype="float32", nz=NZ, **boundary):
     cfg = T.KppConfig(
-        domain=T.DomainConfig(nx=ncol, ny=1, nz=NZ, dmax=120.0),
+        domain=T.DomainConfig(nx=ncol, ny=1, nz=nz, dmax=120.0),
         time=T.TimeConfig(dtsec=1200.0, ndtocn=1, startt=0.0, finalt=1.0),
         physics=T.PhysicsFlags(pass_impl=pass_impl, wscale_mode="nodal"),
         boundary=T.BoundaryConfig(**boundary), dtype=dtype)
     m = T.KppModel(cfg, device=device)
     zm = m.grid.zm.double().cpu().numpy()
     rng = np.random.default_rng(1)
-    t0 = 20.0 + 5.0 * np.exp(zm / 40.0) + 0.05 * rng.standard_normal((ncol, NZ + 1))
-    s0 = 35.0 - 0.3 * np.exp(zm / 60.0) + 0.01 * rng.standard_normal((ncol, NZ + 1))
-    u0 = 0.02 * rng.standard_normal((ncol, NZ + 1, 2))
-    prm = init_params(ncol, NZ + 1, dtype=m.dtype, device=m.device)
+    t0 = 20.0 + 5.0 * np.exp(zm / 40.0) + 0.05 * rng.standard_normal((ncol, nz + 1))
+    s0 = 35.0 - 0.3 * np.exp(zm / 60.0) + 0.01 * rng.standard_normal((ncol, nz + 1))
+    u0 = 0.02 * rng.standard_normal((ncol, nz + 1, 2))
+    prm = init_params(ncol, nz + 1, dtype=m.dtype, device=m.device)
     lat = torch.linspace(-40.0, 40.0, ncol, dtype=m.dtype, device=m.device)
     prm = prm.replace(f=coriolis(lat))
     st, prm, frc = m.warm_start(u0, t0, s0, prm)
@@ -95,20 +95,27 @@ INT_ROWS = {"fused_pass_fast": (8, (1,)), "fused_pass_full": (4, (1,)),
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-5), ("float64", 1e-10)])
-@pytest.mark.parametrize("ncol", [5, 130, 13, "mixed_block"])
-def test_kernels_match_plain(cuda, monkeypatch, dtype, tol, ncol):
+@pytest.mark.parametrize("ncol,nz", [(5, NZ), (130, NZ), (13, NZ),
+                                     ("mixed_block", NZ), (37, 100),
+                                     (1, 100), (13, 126)])
+def test_kernels_match_plain(cuda, monkeypatch, dtype, tol, ncol, nz):
     """5, 130 and 13 leave a ragged last 8-column block; "mixed_block" is
-    one block of a land column, a trap column and uneven pass counts."""
+    one block of a land column, a trap column and uneven pass counts;
+    nz = 100 and 126 run the kernels at 4 level slots (single_column's
+    levels, and the most they take)."""
     names = set()
     for impl in ("cuda", "cuda_step"):
         if ncol == "mixed_block":
             m, st, prm, frc = mixed_block(cuda, dtype)
             m = model(8, impl, cuda, dtype)[0]
         else:
-            m, st, prm, frc = model(ncol, impl, cuda, dtype, l_advect=False)
+            m, st, prm, frc = model(ncol, impl, cuda, dtype, nz=nz,
+                                    l_advect=False)
         rec = Recorder(monkeypatch)
         m.step(st, prm, frc, first_step=True)
         for w, a in rec.calls:
+            assert ck.launch_geometry(
+                nz, a[0].dtype, a[0].shape[1]).ns == (3 if nz <= 94 else 4)
             got = w.launch(*a)
             body = fp._pass_body if isinstance(w, ck.FusedPass) else fp._step_body
             ref = body(*a, **w.kw)
@@ -256,34 +263,73 @@ def test_ref_extents_and_pass_ops(nz, dmax, stretch):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_launch_geometry(dtype):
     """Every nz the kernels take fits one block's shared memory with aref
-    kept whole (the worst case), a block takes >= 8 columns, and the grid
-    covers every ncol exactly."""
-    for nz in range(1, 95):
+    kept whole (the worst case), on the fewest level slots that cover
+    nz + 2, and the grid covers every ncol exactly; past 128 levels the
+    geometry raises."""
+    for nz in range(1, 127):
         for kref in (None, 0, 9):
             if kref is not None and kref > nz + 2:
                 continue
             for ncol in (1, 7, 37, 129, 144_507):
                 g = ck.launch_geometry(nz, dtype, ncol, kref)
+                assert g.ns == (3 if nz + 2 <= 96 else 4)
                 assert g.smem <= 232_448
-                assert g.cols_per_block >= 8 and g.warps == g.cols_per_block
+                assert g.smem == ck.smem_bytes(g.ns, g.kref, g.warps,
+                                               dtype.itemsize)
+                assert 1 <= g.warps <= 8 and g.warps == g.cols_per_block
                 assert g.blocks * g.cols_per_block >= ncol
                 assert (g.blocks - 1) * g.cols_per_block < ncol
-    with pytest.raises(ValueError):
-        ck.launch_geometry(95, dtype, 8)
+    with pytest.raises(ValueError, match="128 levels"):
+        ck.launch_geometry(127, dtype, 8)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nz", [69, 94, 95, 100, 126, 127])
+def test_level_slots(dtype, nz):
+    """The slots, warps and shared memory a launch takes at the levels of
+    the five configurations and at the edges of each instantiation: 3
+    slots up to nz 94 (WZ 96), 4 up to nz 126 (WZ 128), a raise naming
+    the limit at 127.  With aref's real prefix (kref of the grid) a block
+    keeps 8 warps; float64 at 4 slots with aref kept whole takes fewer."""
+    if nz == 127:
+        with pytest.raises(ValueError, match=r"nz\+2=129 .*128 levels"):
+            ck.launch_geometry(nz, dtype, 37)
+        return
+    esize = dtype.itemsize
+    kref = int(ck.row_extents(_aref(nz, 1000.0, False)).max()) + 1
+    g = ck.launch_geometry(nz, dtype, 37, kref)
+    assert g.ns == (3 if nz <= 94 else 4)
+    assert (g.warps, g.blocks) == (8, 5)
+    assert g.smem == ck.smem_bytes(g.ns, kref, 8, esize) <= ck.SMEM_MAX
+    worst = ck.launch_geometry(nz, dtype, 37)
+    if dtype == torch.float64 and g.ns == 4:
+        assert worst.warps == (4 if nz + 2 <= 102 else 2)
+        assert ck.smem_bytes(4, nz + 2, 8, esize) > ck.SMEM_MAX
+    else:
+        assert worst.warps == 8
+    assert worst.smem <= ck.SMEM_MAX
 
 
 def test_geometry_constants_match_the_source():
     """launch_geometry mirrors csrc/fused_pass.cuh's shared-memory layout:
-    the slot count, the column values and the level rows."""
+    the slot count, the column values, the level slots and the most
+    warps a block takes."""
     with open(ck._CSRC + "/fused_pass.cuh") as f:
         src = f.read()
     slots = src[src.index("  B_U = 0,"):src.index(", NB\n")]
     assert len(re.findall(r"B_\w+", slots)) == ck.N_SLOTS
     assert "constexpr int NCV = NSC + 16;" in src and ck.N_COLV == 32 + 16
-    assert "#define KPP_MAXWZ 96" in src and ck.LZ == 96
+    assert "constexpr int NS_MAX = 4;" in src and ck.SLOTS[-1] == 4
+    assert ck.MAXWZ == 128
+    assert "int warps, blocks, kref, smem, ns;" in src
+    assert [f[0] for f in ck.Geometry._fields_] == \
+        ["warps", "blocks", "kref", "smem", "ns"]
     with open(ck._CSRC + "/fused_kernels.cu") as f:
-        assert "constexpr int MAX_WARPS = 8;" in f.read()
+        ker = f.read()
+    assert "constexpr int MAX_WARPS = 8;" in ker
     assert ck.WARPS == 8
+    assert "constexpr int SMEM_MAX = 232448;" in ker and \
+        ck.SMEM_MAX == 232_448
 
 
 def test_stage_marks_match_chip_phases():
