@@ -9,7 +9,8 @@ Phases, each printing JSON lines; any breach raises, so the script exits
 
 1. device: card name, power limit, versions; build the CUDA kernels (one
    library per dtype and number of level slots a lane carries: 3 for
-   nz + 2 <= 96, 4 for <= 128) and print each one's ptxas table;
+   nz + 2 <= 96, 4 for <= 128, 6 for <= 192, 8 for <= 256; eight nvcc
+   processes at once) and print each one's ptxas table;
 2. kernel gate: each kernel against its plain torch version on the same
    float32 inputs at several (ncol, nz) shapes and flag sets (ragged last
    blocks, and one block mixing a land column, a column the instability
@@ -19,8 +20,14 @@ Phases, each printing JSON lines; any breach raises, so the script exits
    default flags and with double diffusion, nz = 126 (WZ = 128) in
    float32, a deep-mixing case at nz = 100 whose kmix reaches below
    level 64, float64 at nz = 100 with aref kept whole (a block of 4
-   warps), each at the same bar; nz = 127 raises ValueError naming the
-   128 limit, and nz = 100 under pass_impl "auto" runs the step kernel;
+   warps), each at the same bar; then past 126 levels (6 and 8 slots):
+   nz = 127, 190 and 254 in float32 and float64 on a uniform and a
+   stretched grid (dscale 5) at 37 columns with land, double diffusion
+   in one case, float64 at 254 stretched with aref read from device
+   memory, a mixed block at nz = 127 (land, a trap column, uneven pass
+   counts), a deep-mixing case at nz = 254 whose kmix reaches below level
+   128, each at the same bar; nz = 255 raises ValueError naming the 256
+   limit, and nz = 190 under pass_impl "auto" runs the step kernel;
 3. main path: the production ocean step (``KppModel.step``, pass_impl
    "cuda_step", with the full diagnostics pass on with_diags steps) at the
    TerraMaris width, ncol = 144,507 (453 x 319), nz = 69, ~12% land, with
@@ -78,8 +85,15 @@ Phases, each printing JSON lines; any breach raises, so the script exits
    of 64,800 columns on the card (labelled time-shared); then the 4-slot
    kernels timed at nz = 100 on 16,384 columns against their plain
    versions and bounds;
-11. one model day (72 steps) of the CLI when the script has used less
-   than ``CLI_DAY_BEFORE_S`` (the script ends within 8 minutes).
+11. deep main path: the step alone at the TerraMaris width at nz = 150
+   (6 slots) and 254 (8 slots), float32, counts from 0 over a few steps
+   of both paths, each kernel held to its plain version and timed beside
+   its bound; then a deep single column (250 levels of 1 m) through the
+   CLI for a model day in float32, outputs held, and 9 steps in float64
+   with the kernels against the plain step body on the same card (1e-10
+   of each field's scale, kmix equal), the CPU's run reported beside;
+12. one model day (72 steps) of the CLI when the script has used less
+   than ``CLI_DAY_BEFORE_S``.
 
 Every phase line carries ``t_s``, the seconds since the script started.
 
@@ -87,6 +101,7 @@ The last line is {"ok": true, "device": {...}}.  Without CUDA, or without
 the mckpp_torch package beside it, the script exits non-zero.
 """
 
+import contextlib
 import json
 import re
 import statistics
@@ -160,10 +175,13 @@ def card_peaks(name):
 
 def build(ncol, nz, dtype="float32", pass_impl="cuda_step", physics=None,
           boundary=None, noise=0.0, seed=0, land=0.0, big=(), dmax=1000.0,
-          device=None):
+          device=None, dscale=0.0, cold=()):
     """``land``: a share of land columns drawn at random, or a tuple of
     land column indices; ``big``: columns given large T and u noise;
-    ``device``: the model's (default cuda)."""
+    ``cold``: columns 15 C colder below level nz // 2, a jump the
+    instability trap flags on every attempt (a stable one, so each
+    attempt's passes converge); ``device``: the model's (default cuda);
+    ``dscale`` > 0: a stretched vertical grid."""
     import numpy as np
     import torch
     import mckpp_torch as T
@@ -172,7 +190,8 @@ def build(ncol, nz, dtype="float32", pass_impl="cuda_step", physics=None,
     from mckpp_torch.state import init_params
 
     cfg = T.KppConfig(
-        domain=T.DomainConfig(nx=ncol, ny=1, nz=nz, dmax=dmax),
+        domain=T.DomainConfig(nx=ncol, ny=1, nz=nz, dmax=dmax,
+                              l_stretchgrid=dscale > 0, dscale=dscale),
         time=T.TimeConfig(dtsec=3600.0, ndtocn=3, startt=0.0, finalt=1.0),
         physics=T.PhysicsFlags(pass_impl=pass_impl, **(physics or {})),
         boundary=T.BoundaryConfig(**(boundary or {})),
@@ -192,6 +211,8 @@ def build(ncol, nz, dtype="float32", pass_impl="cuda_step", physics=None,
     for col in big:
         t0[col] += 3.0 * rng.standard_normal(nzp1)
         u0[col] += 2.0 * rng.standard_normal((nzp1, 2))
+    for col in cold:
+        t0[col, nz // 2:] -= 15.0
     prm = init_params(ncol, nzp1, dtype=dt, device=dev)
     lat = torch.linspace(-30.0, 30.0, ncol, dtype=dt, device=dev)
     prm = prm.replace(f=coriolis(lat), dlat=lat)
@@ -379,13 +400,17 @@ GATE_SHAPES = [(512, 69), (256, 40), (300, 33), (37, 69), (129, 65), (64, 94),
                (61, 69)]
 
 
-def gate_case(ncol, nz, dtype, flags, tol, seed, land=0.1, big=(), warm=2):
+def gate_case(ncol, nz, dtype, flags, tol, seed, land=0.1, big=(), warm=2,
+              cold=()):
     """Each kernel against its plain version on the inputs of step
-    warm+1; returns ({kernel: max rel}, the plain step's colstep)."""
-    out, colstep = {}, None
+    warm+1 (``cold``: see :func:`build`); returns ({kernel: max rel}, the
+    plain step's colstep, the step launch's geometry)."""
+    from mckpp_torch.ops import cuda_kernels as ck
+    out, colstep, geom = {}, None, None
     for impl in ("cuda", "cuda_step"):
         model, st, prm, frc = build(ncol, nz, dtype, impl, noise=0.05,
-                                    seed=seed, land=land, big=big, **flags)
+                                    seed=seed, land=land, big=big, cold=cold,
+                                    **flags)
         st, frc = run_steps(model, st, prm, frc, 1, warm)
         with Capture() as cap:
             run_steps(model, st, prm, frc, warm + 1, 1)
@@ -399,7 +424,9 @@ def gate_case(ncol, nz, dtype, flags, tol, seed, land=0.1, big=(), warm=2):
             out[name] = compare(w, got, ref, tol)
             if name == "fused_step":
                 colstep = ref[8]
-    return out, colstep
+                geom = ck.launch_geometry(nz, a[0].dtype, ncol,
+                                          ck._ref_extents(a[-1])[1])
+    return out, colstep, geom
 
 
 def gate_mixed_block():
@@ -408,8 +435,19 @@ def gate_mixed_block():
     and columns whose pass counts differ by >= 3 (large T and u noise on
     columns 1 and 6)."""
     import torch
-    res, cs = gate_case(8, 69, "float32", GATE_FLAGS["default_analytic"],
-                        TOL_F32, 0, land=(3,), big=(1, 6), warm=0)
+    res, cs, _ = gate_case(8, 69, "float32", GATE_FLAGS["default_analytic"],
+                           TOL_F32, 0, land=(3,), big=(1, 6), warm=0)
+    hold_mixed_block(cs)
+    emit({"phase": "gate", "ncol": 8, "nz": 69, "flags": "mixed_block",
+          "dtype": "float32", "max_rel": res, "npass": cs[7].tolist(),
+          "comp_flag": cs[4].tolist(), "reset": cs[5].tolist()})
+    return res
+
+
+def hold_mixed_block(cs):
+    """The mixed block's plain colstep has its cases: column 3 land (no
+    pass), a column the trap retried, pass counts apart by >= 3."""
+    import torch
     active = torch.ones(8, dtype=torch.bool, device=cs.device)
     active[3] = False
     npass = cs[7][active]
@@ -419,31 +457,41 @@ def gate_mixed_block():
         raise AssertionError(f"mixed block lacks its cases: npass "
                              f"{cs[7].tolist()}, comp {cs[4].tolist()}, "
                              f"reset {cs[5].tolist()}")
-    emit({"phase": "gate", "ncol": 8, "nz": 69, "flags": "mixed_block",
-          "dtype": "float32", "max_rel": res, "npass": cs[7].tolist(),
-          "comp_flag": cs[4].tolist(), "reset": cs[5].tolist()})
-    return res
+
+
+class serial_matmul:
+    """Within it, ``torch.matmul`` (the plain versions' one matmul, the
+    reference averages ``aref @ prof``) sums as the kernels sum: term by
+    term in k order, each product and each sum rounded on its own
+    (cuBLAS fuses and orders them its own way).  The terms past aref's
+    last nonzero column are exact zeros and are skipped, as the kernels
+    skip them."""
+
+    def __enter__(self):
+        import torch
+        self.matmul = torch.matmul
+
+        def serial(a, b):
+            acc = torch.zeros((a.shape[0], b.shape[1]), dtype=b.dtype,
+                              device=b.device)
+            nonzero = (a != 0).any(dim=0).nonzero()
+            kref = int(nonzero.max()) + 1 if len(nonzero) else 0
+            for k in range(kref):
+                acc = acc + a[:, k:k + 1] * b[k:k + 1]
+            return acc
+        torch.matmul = serial
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        torch.matmul = self.matmul
 
 
 def plain_serial(w, args):
-    """The plain version with its one matmul, the reference averages
-    ``aref @ prof``, summed as the kernels sum them: term by term in k
-    order, each product and each sum rounded on its own.  (cuBLAS fuses
-    and orders them its own way.)"""
-    import torch
-    matmul = torch.matmul
-
-    def serial(a, b):
-        acc = torch.zeros((a.shape[0], b.shape[1]), dtype=b.dtype,
-                          device=b.device)
-        for k in range(a.shape[1]):
-            acc = acc + a[:, k:k + 1] * b[k:k + 1]
-        return acc
-    torch.matmul = serial
-    try:
+    """The plain version with the reference averages summed as the
+    kernels sum them (:class:`serial_matmul`)."""
+    with serial_matmul():
         return plain_of(w, args)
-    finally:
-        torch.matmul = matmul
 
 
 def deepened(w, a, stratified):
@@ -584,34 +632,88 @@ def gate_wide_aref():
     return {k: v for k, v in out.items() if "/" not in k}
 
 
-def gate_level_limit():
-    """nz = 127 (WZ = 129) is past the kernels: the geometry, the launch
-    wrapper and a model step raise ValueError naming the 128 limit."""
+# past 126 levels, the 6- and 8-slot kernels: nz = 127, 190 and 254 in
+# float32 and float64 on a uniform grid and a stretched one (dscale 5), 37
+# columns with ~10% land; double diffusion at (190, float64, stretched);
+# float64 at 254 on the stretched grid reads aref from device memory
+DEEP_DSCALE = 5.0
+GATE_DEEP = [(nz, dt, ds) for nz in (127, 190, 254)
+             for dt in ("float32", "float64") for ds in (0.0, DEEP_DSCALE)]
+MAXNZ = 254             # the most levels the kernels take (WZ = 256)
+
+
+def gate_levels():
+    """The kernels past 126 levels, each case held at the phase-2 bar on
+    the first step's inputs, with the level slots, warps and aref
+    placement its step launch took; the mixed block (a land column, a
+    column the trap retries and uneven pass counts) at nz = 127; the
+    deep-mixing inputs at nz = 254 over 100 m (kmix past level 128)
+    against the serial-sum plain version; then
+    nz = 255 raising ValueError naming 256 from the geometry, the pass
+    wrapper and a model step, and ``auto`` at nz = 190 running the step
+    kernel once.  Returns ({kernel: worst f32}, {kernel: worst f64}, the
+    number of cases)."""
     import torch
     from mckpp_torch.ops import cuda_kernels as ck
+    worst = {"float32": {}, "float64": {}}
+
+    def take(dtype, res):
+        for k, v in res.items():
+            worst[dtype][k] = max(worst[dtype].get(k, 0.0), v)
+
+    for i, (nz, dtype, dscale) in enumerate(GATE_DEEP):
+        fname = "ldd" if (nz, dtype, dscale) == (190, "float64",
+                                                 DEEP_DSCALE) \
+            else "default_analytic"
+        flags = dict(GATE_FLAGS[fname], dscale=dscale)
+        tol = TOL_F32 if dtype == "float32" else TOL_F64
+        res, _, g = gate_case(37, nz, dtype, flags, tol, 70 + i, warm=0)
+        want_dev = int(dtype == "float64" and nz == 254 and dscale > 0)
+        if g.ns != (6 if nz <= 190 else 8) or g.aref_dev != want_dev:
+            raise AssertionError(f"nz = {nz} {dtype} dscale {dscale}: "
+                                 f"{g.ns} slots, aref_dev {g.aref_dev}")
+        emit({"phase": "gate", "ncol": 37, "nz": nz, "flags": fname,
+              "dtype": dtype, "dscale": dscale, "level_slots": g.ns,
+              "warps_per_block": g.warps, "kref": g.kref,
+              "aref": "device" if g.aref_dev else "shared",
+              "max_rel": res})
+        take(dtype, res)
+    res, cs, g = gate_case(8, 127, "float32", GATE_FLAGS["default_analytic"],
+                           TOL_F32, 1, land=(3,), big=(6,), cold=(1,),
+                           warm=0)
+    hold_mixed_block(cs)
+    emit({"phase": "gate", "ncol": 8, "nz": 127, "flags": "mixed_block",
+          "dtype": "float32", "level_slots": g.ns, "max_rel": res,
+          "npass": cs[7].tolist(), "comp_flag": cs[4].tolist(),
+          "reset": cs[5].tolist()})
+    take("float32", res)
+    take("float32", gate_deep(MAXNZ, 100.0, 128, plain_cases=()))
     raised = []
     try:
-        ck.launch_geometry(127, torch.float32, 37)
+        ck.launch_geometry(MAXNZ + 1, torch.float32, 37)
     except ValueError as e:
         raised.append(str(e))
-    model, st, prm, frc = build(37, 127, "float32", "cuda_step")
-    try:
-        run_steps(model, st, prm, frc, 1, 1)
-    except ValueError as e:
-        raised.append(str(e))
-    if len(raised) != 2 or not all("128" in r for r in raised):
-        raise AssertionError(f"nz = 127 did not raise naming 128: {raised}")
-    # nz = 100 under pass_impl "auto": the whole-step kernel, 4 slots
-    model, st, prm, frc = build(37, 100, "float32", "auto")
+    for impl in ("cuda", "cuda_step"):      # the pass wrapper, the step
+        model, st, prm, frc = build(37, MAXNZ + 1, "float32", impl)
+        try:
+            run_steps(model, st, prm, frc, 1, 1)
+        except ValueError as e:
+            raised.append(str(e))
+    if len(raised) != 3 or not all("256" in r for r in raised):
+        raise AssertionError(f"nz = 255 did not raise naming 256: {raised}")
+    # nz = 190 under pass_impl "auto": the whole-step kernel, 6 slots
+    model, st, prm, frc = build(37, 190, "float32", "auto")
     ck.reset_counts()
-    st, frc = run_steps(model, st, prm, frc, 1, 1)
+    st, frc = run_steps(model, st, prm, frc, 1, 1, with_diags=False)
     sync()
     if model.pass_impl != "cuda_step" or ck.LAUNCHES["fused_step"] != 1 \
             or not torch_all_finite(st):
-        raise AssertionError(f"nz = 100, auto: {model.pass_impl}, "
+        raise AssertionError(f"nz = 190, auto: {model.pass_impl}, "
                              f"{ck.LAUNCHES}")
-    emit({"phase": "gate", "nz": 127, "raises": raised,
-          "nz100_auto": model.pass_impl})
+    emit({"phase": "gate", "nz": MAXNZ + 1, "raises": raised,
+          "nz190_auto": model.pass_impl, "nz190_auto_launches":
+              dict(ck.LAUNCHES)})
+    return worst["float32"], worst["float64"], len(GATE_DEEP) + 2
 
 
 def phase_gate():
@@ -647,8 +749,11 @@ def phase_gate():
             tgt[k] = max(tgt.get(k, 0.0), v)
     for k, v in gate_wide_aref().items():
         worst64[k] = max(worst64.get(k, 0.0), v)
-    gate_level_limit()
-    emit({"phase": "gate_ok", "cases": n + 5 + len(GATE_NS4),
+    deep32, deep64, n_deep = gate_levels()
+    for tgt, res in ((worst, deep32), (worst64, deep64)):
+        for k, v in res.items():
+            tgt[k] = max(tgt.get(k, 0.0), v)
+    emit({"phase": "gate_ok", "cases": n + 5 + len(GATE_NS4) + n_deep,
           "worst_f32": worst, "worst_f64": worst64})
     return worst
 
@@ -782,21 +887,27 @@ def time_cuda(fn, reps):
     return e0.elapsed_time(e1) / reps
 
 
-def kernel_row(kname, w, a, name, ptxas, launches):
+def kernel_row(kname, w, a, name, ptxas, launches, plain_reps=2):
     """One kernel at one shape, on the inputs ``a`` the path gave it: held
     to its plain version (the phase-2 bar), timed beside it and beside
     the card's bound; ``ptxas``: every library's table, by dtype and
-    level slots ({"float32/ns3": {kernel: registers, spills}, ...})."""
+    level slots ({"float32/ns3": {kernel: registers, spills}, ...}).
+    ``plain_reps`` 0: the plain version's time is that of the one call
+    the comparison makes (the deep shapes, where a call takes seconds)."""
     import torch
     from mckpp_torch.ops import cuda_kernels as ck
     flops_peak, bytes_peak = card_peaks(name)
     got = w.launch(*a)
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
     ref = plain_of(w, a)
+    e1.record()
     sync()
     err = max(float((x - y).abs().max()) for x, y in zip(got, ref))
     rel = compare(w, got, ref, TOL_F32)
     ms = time_cuda(lambda: w.launch(*a), 5 if kname != "fused_step" else 3)
-    plain_ms = time_cuda(lambda: plain_of(w, a), 2)
+    plain_ms = (time_cuda(lambda: plain_of(w, a), plain_reps) if plain_reps
+                else e0.elapsed_time(e1))
     nz = w.kw["nz"]
     ncol = a[0].shape[1]
     aref, ldd = a[-1], w.kw["flags"].ldd
@@ -840,7 +951,8 @@ def kernel_row(kname, w, a, name, ptxas, launches):
         "bound_bytes_ms": bound_bytes_ms, "bound_ops_ms": bound_ops_ms,
         "shape": [nz + 2, ncol], "level_slots": geom.ns,
         "warps_per_block": geom.warps, "smem_bytes": geom.smem,
-        "kref": geom.kref, "registers": regs,
+        "kref": geom.kref, "aref": "device" if geom.aref_dev else "shared",
+        "registers": regs,
         "spill_stores": table.get("spill_stores"),
         "spill_loads": table.get("spill_loads"),
         "warps_per_sm": (None if regs is None
@@ -889,6 +1001,181 @@ def phase_times_ns4(name, ptxas):
             rows.append(row)
     emit({"phase": "kernel_times_ns4", "card": name, "rows": rows})
     return rows
+
+
+# the step alone at the TerraMaris width past 126 levels: 6 slots at
+# nz = 150, 8 at nz = 254 (~6 GB of device memory), float32
+DEEP_MAIN_NZ = (150, MAXNZ)
+
+
+def phase_deep_main(name, smi, ptxas):
+    """The main path past 126 levels: at each of ``DEEP_MAIN_NZ``, the
+    production step (``KppModel.step``, "cuda_step", the full pass on
+    with_diags steps) at the TerraMaris width with ~12% land from
+    ``warm_start``, 2 steps to warm up, then the counts set to 0, 3 timed
+    steps and one step of the per-pass path ("cuda"), the counts read;
+    outputs finite with hmix in (0, dmax] on active columns; each kernel
+    held to its plain version on the inputs of its first launch in that
+    run (the phase-2 bar) and timed beside its bound (:func:`kernel_row`,
+    the plain version timed once).  Returns the rows, named by kernel and
+    level slots."""
+    import torch
+    from mckpp_torch.ops import cuda_kernels as ck
+    rows, lines = [], []
+    for nz in DEEP_MAIN_NZ:
+        torch.cuda.reset_peak_memory_stats()
+        model, st, prm, frc = build(NCOL_MAIN, nz, land=LAND_SHARE)
+        st, frc = run_steps(model, st, prm, frc, 1, 2)
+        sync()
+        ck.reset_counts()                # this depth's run starts here
+        with Capture() as cap:
+            t0 = time.perf_counter()
+            st, frc = run_steps(model, st, prm, frc, 3, 3)
+            sync()
+            step_ms = (time.perf_counter() - t0) / 3 * 1e3
+            model_p = build(NCOL_MAIN, nz, pass_impl="cuda",
+                            land=LAND_SHARE)[0]
+            st_p = run_steps(model_p, st, prm, frc, 6, 1)[0]
+            sync()
+        counts = dict(ck.LAUNCHES)       # ... and is read here
+        del model_p, st_p
+        zero = [k for k, v in counts.items() if v == 0]
+        if zero:
+            raise AssertionError(f"nz = {nz}: kernels not launched {zero}")
+        wet = prm.run_physics
+        hm = st.hmix[wet]
+        if not torch_all_finite(st) or not bool(((hm > 0) & (hm <= 1000.0))
+                                                .all()):
+            raise AssertionError(f"nz = {nz}: non-finite state or hmix "
+                                 "outside (0, dmax]")
+        peak = torch.cuda.max_memory_allocated()
+        for kname in ("fused_pass_fast", "fused_pass_full", "fused_step"):
+            w, a = cap.first(kname)
+            row = kernel_row(kname, w, a, name, ptxas, counts[kname],
+                             plain_reps=0)
+            row["name"] = f"{kname}_ns{row['level_slots']}"
+            rows.append(row)
+        del cap, model, st, prm, frc
+        lines.append({"nz": nz, "ncol": NCOL_MAIN,
+                      "active_columns": int(wet.sum()),
+                      "step_ms_with_diags": step_ms, "launches": counts,
+                      "hmix_median_active": float(hm.median()),
+                      "peak_memory_bytes": peak})
+        torch.cuda.empty_cache()
+    emit({"phase": "deep_main", "card": name, "nvidia_smi": smi,
+          "dtype": "float32", "runs": lines, "rows": rows})
+    return rows
+
+
+DEEP_COLUMN_NZ, DEEP_COLUMN_DMAX = 250, 250.0   # 1 m levels
+DEEP_COLUMN_STEPS64 = 9
+
+
+class plain_step:
+    """Within it, a model built with pass_impl "auto" or "cuda_step" takes
+    the plain whole-step body ("eager_step") on whatever device it is
+    given, with the reference averages summed as the kernels sum them
+    (:class:`serial_matmul`): the kernels' own plain versions, driven by
+    the CLI."""
+
+    def __enter__(self):
+        from mckpp_torch.models.column_model import KppModel
+        self.cls, self.orig = KppModel, KppModel.__dict__["_resolve_pass_impl"]
+        KppModel._resolve_pass_impl = staticmethod(
+            lambda ph, on_cuda: "eager_step")
+        self.serial = serial_matmul().__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.serial.__exit__(*exc)
+        self.cls._resolve_pass_impl = self.orig
+
+
+def restart_rel(a, b):
+    """T, S, u, v and hmix of two restarts: max |a - b| over the field's
+    max |b|; and whether kmix is equal."""
+    import numpy as np
+    rel = {}
+    for key, field, idx in (("T", "st_x", 0), ("S", "st_x", 1),
+                            ("u", "st_u", 0), ("v", "st_u", 1),
+                            ("hmix", "st_hmix", None)):
+        x, y = a[field], b[field]
+        if idx is not None:
+            x, y = x[..., idx], y[..., idx]
+        rel[key] = float(np.abs(x - y).max()) / max(float(np.abs(y).max()),
+                                                    1e-300)
+    return rel, bool(np.array_equal(a["st_kmix"], b["st_kmix"]))
+
+
+def phase_deep_column(name, smi, work, device="cuda"):
+    """A deep single column: the single_column recipe at 250 levels over
+    250 m (``benchmark_inputs.write_single_column``), a model day (72
+    steps) of the CLI in float32 on ``device``, its outputs held (finite,
+    hmix in [0, dmax]) and its kernels the 8-slot ones; then the same
+    inputs in float64 for 9 steps through the CLI three times: on
+    ``device`` with the kernels, on ``device`` with the plain step body
+    (:class:`plain_step`), and on the CPU (the plain bodies).  The kernels'
+    restart is held to the plain body's on the same card (T, S, u, v and
+    hmix within 1e-10 of each field's scale, kmix equal); the CPU's is
+    reported beside it: at 1 m levels the hmix loop runs to its 200-pass
+    limit in 4 of the 9 steps (hbl hops between levels), so where it
+    stops turns on the last ulp of each pass, and the CPU's exp, pow and
+    scalar division round apart from the card's."""
+    import os
+    import shutil
+    import numpy as np
+    import torch
+    from mckpp_torch.io.benchmark_inputs import write_single_column
+    from mckpp_torch.ops import cuda_kernels as ck
+    data = os.path.join(work, "deep_column")
+    grid = write_single_column(data, DEEP_COLUMN_NZ, DEEP_COLUMN_DMAX)
+    dmax = grid["dmax"]
+    day = run_cli(data, os.path.join(data, "day"), CLI_DAY_STEPS,
+                  device=device)
+    n_held = hold_outputs(read_nc_dir(os.path.join(data, "day")),
+                          np.zeros((1, 1), dtype=bool), dmax)
+    on_card = device == "cuda"
+    ns = ck.launch_geometry(DEEP_COLUMN_NZ, torch.float32, 1).ns
+    if on_card and (not day["launches_read"]["fused_step"] or ns != 8):
+        raise AssertionError(f"the deep column: {day['launches_read']}, "
+                             f"{ns} slots")
+    nml = os.path.join(data, "r9.nml")
+    edit_namelist(os.path.join(data, "3D_ocn.nml"), nml,
+                  ndt_per_restart=DEEP_COLUMN_STEPS64)
+    runs, restarts = {}, {}
+    for label, dev in (("kernels", device), ("plain", device),
+                       ("cpu", "cpu")):
+        with plain_step() if label == "plain" else contextlib.nullcontext():
+            runs[label] = run_cli(data, os.path.join(data, label),
+                                  DEEP_COLUMN_STEPS64, namelist=nml,
+                                  device=dev, dtype="float64")
+        restarts[label] = npz_arrays([p for p in runs[label]["restarts"]
+                                      if p.endswith(".npz")][-1])
+    rel, kmix_equal = restart_rel(restarts["kernels"], restarts["plain"])
+    rel_cpu, kmix_cpu = restart_rel(restarts["kernels"], restarts["cpu"])
+    launched = runs["kernels"]["launches_read"]
+    shutil.rmtree(data)
+    emit({"phase": "deep_column", "card": name, "nvidia_smi": smi,
+          "nz": DEEP_COLUMN_NZ, "dmax": dmax, "level_slots": ns,
+          "day": {k: day.get(k) for k in CLI_KEYS}, "fields_held": n_held,
+          "float64_steps": DEEP_COLUMN_STEPS64,
+          "float64_kernels_vs_plain_max_rel": rel,
+          "float64_kmix_equal": kmix_equal,
+          "float64_kernels_vs_cpu_max_rel": rel_cpu,
+          "float64_kmix_equal_cpu": kmix_cpu,
+          "float64_hmix": {k: r["st_hmix"].tolist()
+                           for k, r in restarts.items()},
+          "float64_launches": {k: r["launches_read"]
+                               for k, r in runs.items()},
+          "float64_wall_s": {k: r["wall_s"] for k, r in runs.items()}})
+    over = {k: v for k, v in rel.items() if v > TOL_F64}
+    if over or not kmix_equal or (on_card and (
+            not launched["fused_step"]
+            or any(runs["plain"]["launches_read"].values()))):
+        raise AssertionError(f"the deep column in float64, kernels vs the "
+                             f"plain body: {over}, kmix equal {kmix_equal}, "
+                             f"launches {launched} / "
+                             f"{runs['plain']['launches_read']}")
 
 
 def phase_trace(model, st, prm, frc, nt, name):
@@ -1092,9 +1379,9 @@ RESUME_K = 6            # the resume check: k steps, restart, k more
 
 
 def run_cli(data_dir, out_dir, steps, chain=True, namelist=None,
-            iodef=None, device="cuda"):
-    """``mckpp_torch.cli`` in float32 on ``device``, launch counts from 0;
-    returns its summary with wall seconds and peak device memory."""
+            iodef=None, device="cuda", dtype="float32"):
+    """``mckpp_torch.cli`` in ``dtype`` on ``device``, launch counts from
+    0; returns its summary with wall seconds and peak device memory."""
     import os
     import torch
     from mckpp_torch import cli
@@ -1102,7 +1389,7 @@ def run_cli(data_dir, out_dir, steps, chain=True, namelist=None,
     os.environ["MCKPP_CHAIN"] = "1" if chain else "0"
     argv = ["--namelist", namelist or os.path.join(data_dir, "3D_ocn.nml"),
             "--data-dir", data_dir, "--output-dir", out_dir,
-            "--steps", str(steps), "--dtype", "float32", "--device", device]
+            "--steps", str(steps), "--dtype", dtype, "--device", device]
     if iodef:
         argv += ["--iodef", iodef]
     on_card = device == "cuda"
@@ -2000,13 +2287,20 @@ def main():
     try:
         data, nml, land, dmax, g, straight = phase_cli(name, smi, work)
         phase_distributed(name, smi, work, data, nml, g, straight)
-        phase_configs(name, smi, os.path.join(work, "cfg"), ptxas)
+        cfg_rows = phase_configs(name, smi, os.path.join(work, "cfg"), ptxas)
         phase_times_ns4(name, ptxas)
+        rows += [dict(r, name=f"{r['name']}_ns4") for r in cfg_rows
+                 if r["level_slots"] == 4]
+        rows += phase_deep_main(name, smi, ptxas)
+        phase_deep_column(name, smi, work)
         phase_day(name, t_start, work, data, land, dmax)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
+    # each kernel x level-slot library a path launched: 3 slots on the
+    # main path (phase 3), 4 on single_column's (phase 10), 6 and 8 on the
+    # deep main path
     emit({"kernels": [{k: r[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}

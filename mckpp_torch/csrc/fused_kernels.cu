@@ -18,21 +18,27 @@
 // chip, is bound by operations.  What the design does about it
 // (fused_pass.cuh has the details):
 // * one warp per column, levels on lanes (NS slots of 32 levels: NS = 3
-//   for WZ <= 96, NS = 4 for WZ <= 128), so a column's profiles live in
-//   registers and a small per-warp shared-memory area, not in per-thread
-//   local memory (L2/HBM);
+//   for WZ <= 96, 4 for WZ <= 128, 6 for WZ <= 192, 8 for WZ <= 256), so
+//   a column's profiles live in registers and a small per-warp
+//   shared-memory area, not in per-thread local memory (L2/HBM); at 6 and
+//   8 slots a thread holds up to the 255 registers it may, and what ptxas
+//   spills goes to local memory (a right kernel first: several warps a
+//   column would be the faster design);
 // * each warp runs its own column's convergence and trap loops, so a warp
 //   never waits for a slower column, and a land column's warp skips them;
 // * a block of W >= 8 warps takes W consecutive columns and stages their
 //   inputs and outputs through shared memory, so each level row of a
 //   profile moves as whole 32-byte sectors;
-// * the reference averages run over each aref row's nonzero prefix.
+// * the reference averages run over each aref row's nonzero prefix, from
+//   a copy in shared memory, or from a tile in device memory where no
+//   block holds the copy (float64 at 8 slots on a stretched grid).
 // The launch geometry (warps per block, blocks, aref columns kept, dynamic
-// shared-memory bytes, level slots) comes from the wrapper; the launcher
-// checks the bytes against smem_bytes().  One library holds the three
-// kernels of one type and one number of level slots.  Build:
+// shared-memory bytes, level slots, aref's placement) comes from the
+// wrapper; the launcher checks the bytes against smem_bytes().  One
+// library holds the three kernels of one type and one number of level
+// slots.  Build:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
-//        -shared -Xcompiler -fPIC -DKPP_REAL=float|double -DKPP_NS=3|4
+//        -shared -Xcompiler -fPIC -DKPP_REAL=float|double -DKPP_NS=3|4|6|8
 // -fmad=false keeps each multiply and add rounded on its own, as the
 // unfused eager torch ops that the kernels are held against round them.
 #include <cuda_runtime.h>
@@ -51,9 +57,9 @@ namespace kpp {
 constexpr int MAX_WARPS = 8;
 constexpr int SMEM_MAX = 232448;   // dynamic shared memory one block may use
 // blocks per SM the register budget aims at: 2 x 8 warps (128 registers a
-// thread) in float at NS = 3, 1 block otherwise (in double, and at NS = 4,
-// whose third more profile registers would spill under 128; its shared
-// memory holds one block of 8 warps at the worst kref)
+// thread) in float at NS = 3, 1 block otherwise (in double, and from NS = 4
+// up, whose profile registers would spill under 128; their shared memory
+// holds one block at a time anyway)
 template <typename T, int NS> struct MinBlocks {
   static constexpr int value = 1;
 };
@@ -74,14 +80,18 @@ fused_step_kernel(PassParams P, Geometry G, Inputs<T> in, Outputs<T> out) {
 }
 
 // A block of fewer than MAX_WARPS warps is taken where the shared memory
-// of 8 would not fit (float64 at NS = 4 with a deep aref prefix).
+// of 8 would not fit (float64 from NS = 4 up, float at NS = 8 with a deep
+// aref prefix).  With aref_dev (from AREF_DEV_MIN_NS slots up) the
+// kernels read in.aref_t, which must be given.
 template <typename K>
 int launch(K kern, const PassParams& P, const Geometry& G, cudaStream_t stream,
            const Inputs<KPP_REAL>& in, const Outputs<KPP_REAL>& out) {
-  const size_t need = smem_bytes(KPP_NS, G.kref, G.warps,
+  const size_t need = smem_bytes(KPP_NS, G.aref_dev ? 0 : G.kref, G.warps,
                                  int(sizeof(KPP_REAL)));
   if (G.ns != KPP_NS || P.wz > 32 * KPP_NS
       || G.warps < 1 || G.warps > MAX_WARPS || G.kref < 0 || G.kref > P.wz
+      || (G.aref_dev != 0 && G.aref_dev != 1)
+      || (G.aref_dev && (KPP_NS < AREF_DEV_MIN_NS || !in.aref_t))
       || size_t(G.smem) != need || G.smem > SMEM_MAX
       || size_t(G.blocks) * G.warps < size_t(P.ncol))
     return int(cudaErrorInvalidValue);
@@ -108,6 +118,7 @@ static void unpack(const void* ins, const void* outs, int n_out,
   void* const* op = static_cast<void* const*>(outs);
   for (int i = 0; i < kpp::N_IN; ++i) in->p[i] = static_cast<const Real*>(ip[i]);
   in->ref_hi = static_cast<const int*>(ip[kpp::N_IN]);
+  in->aref_t = static_cast<const Real*>(ip[kpp::N_IN + 1]);
   for (int i = 0; i < kpp::N_OUT_MAX; ++i)
     out->p[i] = i < n_out ? static_cast<Real*>(op[i]) : nullptr;
 }
@@ -132,7 +143,8 @@ int kpp_phase_zero() {
 #endif
 
 // ins: host array of kpp::N_IN device pointers (the 25 pass inputs + the
-// depth prefix), then the int32 aref row extents; outs: 9 (full=0) or 23
+// depth prefix), then the int32 aref row extents, then aref's device tile
+// (null unless geom's aref_dev is set); outs: 9 (full=0) or 23
 // (full=1) device pointers; params: host PassParams; geom: host Geometry;
 // stream: cudaStream_t.  Returns a cudaError_t code.
 int kpp_fused_pass(int full, const void* ins, const void* outs,
@@ -150,8 +162,8 @@ int kpp_fused_pass(int full, const void* ins, const void* outs,
 }
 
 // ins: the step's 21 inputs placed in the pass slots (ux..sx repeat
-// u0..s0) + the depth prefix + the aref row extents; outs: 9 device
-// pointers.
+// u0..s0) + the depth prefix + the aref row extents + aref's device tile
+// (or null); outs: 9 device pointers.
 int kpp_fused_step(const void* ins, const void* outs, const void* params,
                    const void* geom, void* stream) {
   const PassParams& P = *static_cast<const PassParams*>(params);

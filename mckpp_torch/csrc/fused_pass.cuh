@@ -11,14 +11,16 @@
 // Levels on lanes: level k of the warp's column sits on lane k % 32, slot
 // k / 32.  The number of slots NS is a template parameter of every
 // function below: NS = 3 covers WZ <= 96 (the production TerraMaris shape,
-// nz = 69), NS = 4 covers WZ <= 128 (MAXWZ; nz = 100 of the single-column
-// configuration); cuda_kernels.launch_geometry picks the smallest that
-// covers WZ.  A live profile is an array T x[NS] in registers whose every
-// index is a compile-time constant after unrolling, so no profile lives in
-// local memory.  Level-parallel
-// work runs per lane (relaxation, EOS, solar terms, shear and dbloc, rimix
-// with z121, ddmix, bldepth's per-level terms, blmix, tridcof and tridrhs,
-// the T/S increments).  A stage that needs another level reads it from the
+// nz = 69), NS = 4 covers WZ <= 128 (nz = 100 of the single-column
+// configuration), NS = 6 covers WZ <= 192 and NS = 8 WZ <= 256 (MAXWZ;
+// a 250-level single column at 1 m); cuda_kernels.launch_geometry picks
+// the smallest that covers WZ.  A live profile is an array T x[NS] in
+// registers whose every index is a compile-time constant after unrolling,
+// so no profile is indexed in local memory (at 6 and 8 slots a thread
+// holds up to 255 registers, and what ptxas spills lives there).
+// Level-parallel work runs per lane (relaxation, EOS, solar terms, shear
+// and dbloc, rimix with z121, ddmix, bldepth's per-level terms, blmix,
+// tridcof and tridrhs, the T/S increments).  A stage that needs another level reads it from the
 // warp's inputs in shared memory, from a per-warp exchange row that the
 // lanes publish to (X0..X4), or by a shuffle for a single level (lvl).
 // Column scalars are computed alike on every lane, so every branch on them
@@ -73,8 +75,12 @@ __device__ unsigned long long kpp_phase[16];
 
 namespace kpp {
 
-constexpr int NS_MAX = 4;         // level slots per lane, at most
+constexpr int NS_MAX = 8;         // level slots per lane, at most
 constexpr int MAXWZ = 32 * NS_MAX; // levels one warp covers, at most
+// aref from device memory (Geometry::aref_dev) is compiled in from this
+// many slots up: below it one warp and aref's whole shared copy always
+// fit, and the 3- and 4-slot kernels keep their code without the branch
+constexpr int AREF_DEV_MIN_NS = 6;
 // In each function templated on NS, LZ = 32 * NS is the number of levels
 // of a profile row in shared memory.
 constexpr unsigned FULLMASK = 0xffffffffu;
@@ -103,11 +109,15 @@ struct PassParams {
 };
 
 // Launch geometry, computed by the wrapper (cuda_kernels.launch_geometry):
-// warps (= columns) per block, blocks, aref columns kept in shared memory,
-// dynamic shared-memory bytes (smem_bytes below, checked by the launcher),
-// level slots per lane (the NS of the kernels launched).
+// warps (= columns) per block, blocks, aref columns the reference averages
+// read, dynamic shared-memory bytes (smem_bytes below, checked by the
+// launcher), level slots per lane (the NS of the kernels launched), and
+// where the transposed aref is read from: 0 a copy in shared memory, 1 the
+// wrapper's (kref, LZ) tile in device memory (Inputs::aref_t), taken where
+// no block of 8 down to 1 warps holds the shared copy (float64 at 8 slots
+// on a stretched grid).
 struct Geometry {
-  int warps, blocks, kref, smem, ns;
+  int warps, blocks, kref, smem, ns, aref_dev;
 };
 
 // the 25 pass inputs in the order of make_fused_pass plus the depth prefix
@@ -122,8 +132,14 @@ enum {
 
 constexpr int N_OUT_MAX = 23;
 
-// ref_hi: (WZ,) last nonzero column of each aref row, -1 for a zero row
-template <typename T> struct Inputs { const T* p[N_IN]; const int* ref_hi; };
+// ref_hi: (WZ,) last nonzero column of each aref row, -1 for a zero row;
+// aref_t: aref transposed into a (kref, LZ) tile, zero past WZ, in device
+// memory (cuda_kernels._ref_tile), read where Geometry::aref_dev is set
+template <typename T> struct Inputs {
+  const T* p[N_IN];
+  const int* ref_hi;
+  const T* aref_t;
+};
 template <typename T> struct Outputs { T* p[N_OUT_MAX]; };
 
 // Per-warp profile slots in shared memory, 32 * NS values each.  Slots 0..17
@@ -146,8 +162,8 @@ KPP_HD int warp_stride(int ns) {
 }
 
 // dynamic shared memory of one block at ns level slots (LZ = 32 ns): grid
-// rows (6 x LZ), aref transposed (kref x LZ), the warps' slots and column
-// values, then hi (LZ ints)
+// rows (6 x LZ), aref transposed (kref x LZ; kref = 0 where it is read from
+// device memory), the warps' slots and column values, then hi (LZ ints)
 KPP_HD size_t smem_bytes(int ns, int kref, int warps, int tsize) {
   const int lz = 32 * ns;
   return size_t((6 + kref) * lz + warps * warp_stride(ns)) * tsize
@@ -176,6 +192,7 @@ template <typename T> struct ColOut { T hbl, kbl, rho0, cp0; };
 template <typename T> struct Grid {
   const T *zm, *hm, *dm, *tdn, *tup, *pfx;  // LZ each, 0 beyond wz
   const T* arefT;   // (kref, LZ): arefT[k * LZ + n] = aref[n * wz + k]
+  const T* arefG;   // the same tile in device memory, or nullptr (arefT)
   const int* hi;    // LZ: last nonzero k of aref row n, -1 beyond wz
 };
 
@@ -221,8 +238,8 @@ KPP_DEV void ws_fn(const PassParams& P, T sig, T h, T us, T bf, T* wm, T* ws) {
     wscale_nodal(sig, h, us, bf, T(P.vonk), wm, ws);
 }
 
-// x at level j - s (dn) or j + s (up) for s = 32 or 64 (the stages of
-// WZ <= 128): whole slots move within each lane, no other lane is read;
+// x at level j - s (dn) or j + s (up) for s = 32, 64 or 128 (the stages
+// of WZ <= 256): whole slots move within each lane, no other lane is read;
 // fill outside 0..LZ-1
 template <typename T, int NS>
 KPP_DEV void slot_dn(const T (&x)[NS], int s, T fill, T (&out)[NS]) {
@@ -295,7 +312,7 @@ KPP_DEV void tridrhs(const Grid<T>& g, const T* yo, const T* xn,
 // parallel cyclic reduction (ops/fused_pass.py _pcr_solve) of NR = 1 or 2
 // systems that share one matrix, one warp; the solutions overwrite rhs0
 // (and rhs1 with NR = 2).  Stages s < 32 exchange through the five
-// consecutive exchange rows x5; stages 32 and 64 move whole slots.
+// consecutive exchange rows x5; stages 32, 64 and 128 move whole slots.
 template <typename T, int NR, int NS>
 KPP_DEV void pcr_solve(const T (&cu)[NS], const T (&cc)[NS],
                        const T (&cl)[NS], T (&rhs0)[NS], T (&rhs1)[NS],
@@ -372,6 +389,26 @@ KPP_DEV void pcr_solve(const T (&cu)[NS], const T (&cc)[NS],
     rhs0[q] = r[0][q] / b[q];
     if (NR == 2) rhs1[q] = r[NR - 1][q] / b[q];
   }
+}
+
+// the reference sums of level n over aref row n's nonzero prefix k =
+// 0..hi, in k order: sum_k aT[k * lz + n] * x[k] for x = x0, x1, x2.  DEV:
+// aT is the tile in device memory, read through the read-only path (one
+// tile for every column, so it stays in L2); else the block's shared copy.
+template <typename T, bool DEV>
+KPP_DEV void ref_sums(const T* aT, int lz, int n, int hi, const T* x0,
+                      const T* x1, const T* x2, T* u_out, T* v_out,
+                      T* b_out) {
+  T u = T(0), v = T(0), b = T(0);
+  for (int k = 0; k <= hi; ++k) {
+    const T a = DEV ? __ldg(aT + k * lz + n) : aT[k * lz + n];
+    u = u + a * x0[k];
+    v = v + a * x1[k];
+    b = b + a * x2[k];
+  }
+  *u_out = u;
+  *v_out = v;
+  *b_out = b;
 }
 
 // rhsmod band basis (mode 6/7 walk): rows [lo, n2r] with n2r the first row
@@ -500,14 +537,13 @@ KPP_DEV void pass_warp(const PassParams& P, const Grid<T>& g,
     T urefv[NS], vrefv[NS];
     KPP_FOR_Q {
       const int n = lane + 32 * q;
-      T uref = T(0), vref = T(0), bref = T(0);
-      const int hi = g.hi[n];
-      for (int k = 0; k <= hi; ++k) {
-        const T a = g.arefT[k * LZ + n];
-        uref = uref + a * X0[k];
-        vref = vref + a * X1[k];
-        bref = bref + a * X2[k];
-      }
+      T uref, vref, bref;
+      if (NS >= AREF_DEV_MIN_NS && g.arefG)
+        ref_sums<T, true>(g.arefG, LZ, n, g.hi[n], X0, X1, X2, &uref, &vref,
+                          &bref);
+      else
+        ref_sums<T, false>(g.arefT, LZ, n, g.hi[n], X0, X1, X2, &uref,
+                           &vref, &bref);
       urefv[q] = uref;
       vrefv[q] = vref;
       T zref = T(EPSILON_KPP) * g.zm[n];
@@ -1202,7 +1238,9 @@ KPP_DEV Block<T, NS> block_view(const Geometry& G, unsigned char* raw) {
   b.g.tup = sm + 4 * LZ;
   b.g.pfx = sm + 5 * LZ;
   b.g.arefT = sm + 6 * LZ;
-  b.warps = sm + (6 + G.kref) * LZ;
+  b.g.arefG = nullptr;
+  const bool dev = NS >= AREF_DEV_MIN_NS && G.aref_dev;
+  b.warps = sm + (6 + (dev ? 0 : G.kref)) * LZ;
   b.g.hi = reinterpret_cast<const int*>(b.warps + G.warps * warp_stride(NS));
   return b;
 }
@@ -1243,7 +1281,8 @@ KPP_DEV void stage_out(const Stager& st, T* dst, const T* src, int rows,
   }
 }
 
-// Load the grid rows, aref's nonzero columns and the block's column inputs
+// Load the grid rows, aref's nonzero columns (unless they are read from
+// device memory) and the block's column inputs
 // (profiles into their slots, colscal into the column values).  The loads
 // of the profiles every launch stages are all issued before their stores
 // to shared memory, so they are in flight together.
@@ -1266,10 +1305,14 @@ KPP_DEV Block<T, NS> load_block(const PassParams& P, const Geometry& G,
     sm[5 * LZ + k] = (in_z && P.l_advect) ? in.p[IN_PFX][k] : T(0);
     const_cast<int*>(b.g.hi)[k] = in_z ? in.ref_hi[k] : -1;
   }
-  T* arefT = sm + 6 * LZ;
-  for (int i = tid; i < G.kref * LZ; i += nt) {
-    const int k = i / LZ, n = i - k * LZ;
-    arefT[i] = n < wz ? in.p[IN_AREF][n * wz + k] : T(0);
+  if (NS >= AREF_DEV_MIN_NS && G.aref_dev) {
+    b.g.arefG = in.aref_t;
+  } else {
+    T* arefT = sm + 6 * LZ;
+    for (int i = tid; i < G.kref * LZ; i += nt) {
+      const int k = i / LZ, n = i - k * LZ;
+      arefT[i] = n < wz ? in.p[IN_AREF][n * wz + k] : T(0);
+    }
   }
   Stager st;
   st.j = tid % W;

@@ -257,15 +257,8 @@ def generate(config: str, outdir: str, toy: bool = False,
     if shrink is None:
         shrink = 8 if toy else 1
     if config == "single_column":
-        nx, ny, nz, dmax = 1, 1, 100, 2000.0
-        lons, lats, h, zf, dd = _grids(nx, ny, nz, dmax, 90.0, -20.0,
-                                       0.5, 0.25)
-        lsm = np.zeros((ny, nx))
-        _write_common(outdir, lons, lats, h, zf, dd, lsm,
-                      np.full((ny, nx), -dmax))
-        _namelist(outdir, nx, ny, nz, dmax, lons[0], lats[0],
-                  fluxdata=False, finalt=1.0)
-    elif config == "regional_64x64":
+        return write_single_column(outdir)
+    if config == "regional_64x64":
         nx = ny = max(8, 64 // shrink)
         nz, dmax = 40, 500.0
         lons, lats, h, zf, dd = _grids(nx, ny, nz, dmax, 90.0, -20.0,
@@ -308,6 +301,24 @@ def generate(config: str, outdir: str, toy: bool = False,
         raise ValueError(f"unknown config {config!r}; one of {CONFIGS}")
     return {"config": config, "nx": nx, "ny": ny, "nz": nz, "dmax": dmax,
             "land_share": float(lsm.mean())}
+
+
+def write_single_column(outdir: str, nz: int = 100,
+                        dmax: float = 2000.0) -> dict:
+    """The ``single_column`` inputs with ``nz`` uniform levels over
+    ``dmax`` m (the configuration's own: 100 over 2000 m; 250 over 250 m
+    is a 1 m column as KPP single-column studies run at a station):
+    one column at 90 E, 20 S, constant analytic fluxes, one model day."""
+    os.makedirs(outdir, exist_ok=True)
+    nx = ny = 1
+    lons, lats, h, zf, dd = _grids(nx, ny, nz, dmax, 90.0, -20.0, 0.5, 0.25)
+    lsm = np.zeros((ny, nx))
+    _write_common(outdir, lons, lats, h, zf, dd, lsm,
+                  np.full((ny, nx), -dmax))
+    _namelist(outdir, nx, ny, nz, dmax, lons[0], lats[0], fluxdata=False,
+              finalt=1.0)
+    return {"config": "single_column", "nx": nx, "ny": ny, "nz": nz,
+            "dmax": dmax, "land_share": 0.0}
 
 
 def write_terramaris(outdir: str, shrink: int = 1) -> dict:

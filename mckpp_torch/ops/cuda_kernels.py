@@ -29,8 +29,14 @@ whole 32-byte sectors; the reference averages run over each ``aref`` row's
 nonzero prefix (:func:`row_extents`, computed once per ``aref`` tensor).
 :func:`launch_geometry` computes the launch geometry the C side is given,
 with the number of level slots a lane carries: each kernel is a template
-on it, built for ``SLOTS`` = 3 (``nz + 2 <= 96``) and 4 (``<= 128``), and
-a launch takes the smallest that covers its levels.
+on it, built for ``SLOTS`` = 3 (``nz + 2 <= 96``), 4 (``<= 128``), 6
+(``<= 192``) and 8 (``<= 256``), and a launch takes the smallest that
+covers its levels.  At 6 and 8 slots a thread holds 220 to 255
+registers, the most it may (``chip_smoke.py`` phase 1 prints what ptxas
+spills).  The transposed ``aref`` sits in
+shared memory beside the warps' areas; where no block of 8 down to 1
+warps holds it (float64 at 8 slots on a stretched grid) the kernels read
+it from a tile in device memory instead (:func:`_ref_tile`).
 
 A wrapper called with CPU tensors runs the plain torch body
 (``ops/fused_pass.py``); with CUDA tensors it launches its kernel or
@@ -73,11 +79,13 @@ _lock = threading.Lock()
 
 # launch geometry (the constants of csrc/fused_pass.cuh and fused_kernels.cu)
 WARPS = 8              # columns per block, one warp each (MAX_WARPS)
-SLOTS = (3, 4)         # level slots per lane of the built kernels (NS)
+SLOTS = (3, 4, 6, 8)   # level slots per lane of the built kernels (NS)
 MAXWZ = 32 * SLOTS[-1]  # the most levels (nz + 2) a kernel takes
 N_SLOTS = 23           # per-warp profile slots (NB)
 N_COLV = 48            # per-warp column values: colscal rows + 16 outputs
 SMEM_MAX = 232_448     # dynamic shared memory one block may use (H100)
+AREF_DEV_MIN_NS = 6    # the fewest slots whose kernels read aref from
+                       # device memory (below, the shared copy always fits)
 
 
 def reset_counts():
@@ -273,10 +281,11 @@ def _check(arrays, kw, n_prof):
 
 
 class Geometry(ctypes.Structure):
-    """Field for field the C struct kpp::Geometry (csrc/fused_pass.cuh)."""
+    """Field for field the C struct kpp::Geometry (csrc/fused_pass.cuh);
+    ``aref_dev`` is 1 where the kernels read aref from device memory."""
     _fields_ = [("warps", ctypes.c_int), ("blocks", ctypes.c_int),
                 ("kref", ctypes.c_int), ("smem", ctypes.c_int),
-                ("ns", ctypes.c_int)]
+                ("ns", ctypes.c_int), ("aref_dev", ctypes.c_int)]
 
     @property
     def cols_per_block(self) -> int:
@@ -292,22 +301,26 @@ def _warp_stride(ns: int) -> int:
 
 def smem_bytes(ns: int, kref: int, warps: int, esize: int) -> int:
     """Dynamic shared memory of one block (csrc/fused_pass.cuh
-    smem_bytes): the grid rows, aref's kept columns, the warps' areas and
-    the row extents, at ``32 * ns`` levels a row."""
+    smem_bytes): the grid rows, aref's ``kref`` kept columns (0 where aref
+    is read from device memory), the warps' areas and the row extents, at
+    ``32 * ns`` levels a row."""
     lz = 32 * ns
     return ((6 + kref) * lz + warps * _warp_stride(ns)) * esize + lz * 4
 
 
 def launch_geometry(nz: int, dtype, ncol: int, kref: int | None = None
                     ) -> Geometry:
-    """Warps (= columns) per block, blocks, aref columns kept in shared
-    memory, dynamic shared-memory bytes and level slots of one launch at
-    ``nz`` levels over ``ncol`` columns.  ``kref`` is the number of
-    ``aref`` columns the reference averages read (:func:`row_extents`);
-    the default is the worst case, all ``nz + 2``.  The level slots are
-    the fewest of ``SLOTS`` that cover ``nz + 2``; a block takes
-    ``WARPS`` warps, or half as many until its shared memory fits (float64
-    at 4 slots with a deep aref prefix)."""
+    """Warps (= columns) per block, blocks, aref columns the reference
+    averages read, dynamic shared-memory bytes, level slots and aref's
+    placement of one launch at ``nz`` levels over ``ncol`` columns.
+    ``kref`` is the number of ``aref`` columns the reference averages read
+    (:func:`row_extents`); the default is the worst case, all ``nz + 2``.
+    The level slots are the fewest of ``SLOTS`` that cover ``nz + 2``; a
+    block takes ``WARPS`` warps, or half as many until its shared memory
+    fits (float64 from 4 slots up, float32 at 8 with a deep aref prefix).
+    Where not even one warp fits beside aref's shared copy, aref is read
+    from device memory (``aref_dev``) and the warps are halved again from
+    8 without it."""
     wz = nz + 2
     if wz > MAXWZ:
         raise ValueError(f"nz+2={wz} exceeds the kernels' limit of "
@@ -317,14 +330,17 @@ def launch_geometry(nz: int, dtype, ncol: int, kref: int | None = None
     if not 0 <= kref <= wz:
         raise ValueError(f"kref={kref} outside 0..{wz}")
     esize = torch.empty((), dtype=dtype).element_size()
-    warps = WARPS
-    while warps > 1 and smem_bytes(ns, kref, warps, esize) > SMEM_MAX:
-        warps //= 2
-    smem = smem_bytes(ns, kref, warps, esize)
-    if smem > SMEM_MAX:
-        raise ValueError(f"{smem} bytes of shared memory exceed {SMEM_MAX}")
-    return Geometry(warps=warps, blocks=-(-ncol // warps), kref=kref,
-                    smem=smem, ns=ns)
+    placements = ((0, kref), (1, 0)) if ns >= AREF_DEV_MIN_NS else \
+        ((0, kref),)
+    for aref_dev, kept in placements:
+        warps = WARPS
+        while warps > 1 and smem_bytes(ns, kept, warps, esize) > SMEM_MAX:
+            warps //= 2
+        smem = smem_bytes(ns, kept, warps, esize)
+        if smem <= SMEM_MAX:
+            return Geometry(warps=warps, blocks=-(-ncol // warps),
+                            kref=kref, smem=smem, ns=ns, aref_dev=aref_dev)
+    raise ValueError(f"{smem} bytes of shared memory exceed {SMEM_MAX}")
 
 
 def row_extents(aref) -> np.ndarray:
@@ -336,23 +352,44 @@ def row_extents(aref) -> np.ndarray:
     return np.where(a != 0, cols, -1).max(axis=1).astype(np.int32)
 
 
-# id(aref) -> (weak reference, its _version, row extents on its device,
-# kref); the grid is static, so each aref is read back to the host once
+# id(aref) -> [weak reference, its _version, row extents on its device,
+# kref, its device tile or None]; the grid is static, so each aref is read
+# back to the host once
 _extents: dict = {}
 
 
-def _ref_extents(aref: torch.Tensor):
+def _ref_entry(aref: torch.Tensor) -> list:
     hit = _extents.get(id(aref))
     if hit is not None and hit[0]() is aref and hit[1] == aref._version:
-        return hit[2], hit[3]
+        return hit
     hi = row_extents(aref)
     dev = torch.as_tensor(hi, device=aref.device)
     kref = int(hi.max()) + 1 if hi.size else 0
     if len(_extents) > 64:                   # drop entries of dead tensors
         for key in [k for k, v in _extents.items() if v[0]() is None]:
             del _extents[key]
-    _extents[id(aref)] = (weakref.ref(aref), aref._version, dev, kref)
-    return dev, kref
+    entry = [weakref.ref(aref), aref._version, dev, kref, None]
+    _extents[id(aref)] = entry
+    return entry
+
+
+def _ref_extents(aref: torch.Tensor):
+    """(row extents on aref's device, kref) of ``aref``, once per tensor."""
+    return tuple(_ref_entry(aref)[2:4])
+
+
+def _ref_tile(aref: torch.Tensor, ns: int) -> torch.Tensor:
+    """``aref`` transposed into a (kref, 32 ns) tile on its device, zero
+    past its ``nz + 2`` columns: ``tile[k, n] = aref[n, k]``, the layout of
+    the kernels' shared copy, read from device memory where that copy does
+    not fit (``Geometry.aref_dev``).  Made once per aref tensor."""
+    entry = _ref_entry(aref)
+    if entry[4] is None:
+        kref, wz = entry[3], aref.shape[0]
+        tile = aref.new_zeros((kref, 32 * ns))
+        tile[:, :wz] = aref[:, :kref].t()
+        entry[4] = tile
+    return entry[4]
 
 
 def pass_ops(nz: int, aref, kbl, ldd: bool = False):
@@ -388,20 +425,24 @@ def _raise_on(rc: int, name: str):
 
 
 def _ptrs(tensors):
-    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+    """The tensors' device pointers (None: a null pointer)."""
+    return (ctypes.c_void_p * len(tensors))(
+        *[None if t is None else t.data_ptr() for t in tensors])
 
 
 def _launch_args(arrays, kw, ncol, dtype):
-    """The library, the extra inputs (depth prefix, aref row extents) and
-    the launch geometry."""
+    """The library, the extra inputs (depth prefix, aref row extents,
+    aref's device tile or None) and the launch geometry."""
     nz = kw["nz"]
-    hi, kref = _ref_extents(arrays[-1])
+    aref = arrays[-1]
+    hi, kref = _ref_extents(aref)
     geom = launch_geometry(nz, dtype, ncol, kref)
     lib = _lib(dtype, geom.ns)
     hm = arrays[-5]
     pfx = (fp._depth_prefix(hm, nz).contiguous()
            if kw["flags"].l_advect else hm)
-    return lib, [pfx, hi], geom
+    tile = _ref_tile(aref, geom.ns) if geom.aref_dev else None
+    return lib, [pfx, hi, tile], geom
 
 
 class FusedPass:

@@ -8,6 +8,7 @@ validate their inputs, the launch geometry, the reference-average row
 extents and the operation count the bounds are computed from.
 """
 
+import contextlib
 import ctypes
 import math
 import re
@@ -33,9 +34,12 @@ def cuda():
     return torch.device("cuda")
 
 
-def model(ncol, pass_impl, device, dtype="float32", nz=NZ, **boundary):
+def model(ncol, pass_impl, device, dtype="float32", nz=NZ, dscale=0.0,
+          **boundary):
+    """``dscale`` > 0: a stretched vertical grid."""
     cfg = T.KppConfig(
-        domain=T.DomainConfig(nx=ncol, ny=1, nz=nz, dmax=120.0),
+        domain=T.DomainConfig(nx=ncol, ny=1, nz=nz, dmax=120.0,
+                              l_stretchgrid=dscale > 0, dscale=dscale),
         time=T.TimeConfig(dtsec=1200.0, ndtocn=1, startt=0.0, finalt=1.0),
         physics=T.PhysicsFlags(pass_impl=pass_impl, wscale_mode="nodal"),
         boundary=T.BoundaryConfig(**boundary), dtype=dtype)
@@ -54,18 +58,18 @@ def model(ncol, pass_impl, device, dtype="float32", nz=NZ, **boundary):
     return m, st, prm, frc
 
 
-def mixed_block(device, dtype):
+def mixed_block(device, dtype, nz=NZ, dscale=0.0):
     """One 8-column block (the kernels' WARPS) mixing a land column (3), a
     column the instability trap retries (large T and u noise on columns 1
-    and 6; column 1 ends with comp_flag 1 after 11 attempts) and columns
-    whose pass counts differ by >= 3."""
-    m, st, prm, frc = model(8, "cuda_step", device, dtype)
+    and 6; at nz = 12 column 1 ends with comp_flag 1 after 11 attempts)
+    and columns whose pass counts differ by >= 3."""
+    m, st, prm, frc = model(8, "cuda_step", device, dtype, nz, dscale)
     rng = np.random.default_rng(2)
     x, u = st.x.clone(), st.u.clone()
     for col in (1, 6):
-        x[col, :, 0] += torch.as_tensor(3.0 * rng.standard_normal(NZ + 1),
+        x[col, :, 0] += torch.as_tensor(3.0 * rng.standard_normal(nz + 1),
                                         dtype=x.dtype, device=x.device)
-        u[col] += torch.as_tensor(2.1 * rng.standard_normal((NZ + 1, 2)),
+        u[col] += torch.as_tensor(2.1 * rng.standard_normal((nz + 1, 2)),
                                   dtype=u.dtype, device=u.device)
     hist = lambda a: a[..., None].expand(*a.shape, 2).clone()
     st = st.replace(x=x, u=u, xs=hist(x), us=hist(u))
@@ -93,6 +97,68 @@ INT_ROWS = {"fused_pass_fast": (8, (1,)), "fused_pass_full": (4, (1,)),
             "fused_step": (8, (1, 4, 5, 7))}
 
 
+@contextlib.contextmanager
+def serial_sums():
+    """The plain bodies' one matmul, the reference averages ``aref @
+    prof``, summed as the kernels sum them: term by term in k order, each
+    product and each sum rounded on its own (cuBLAS orders them its own
+    way, which shows where aref's rows are long)."""
+    matmul = torch.matmul
+
+    def serial(a, b):
+        acc = torch.zeros((a.shape[0], b.shape[1]), dtype=b.dtype,
+                          device=b.device)
+        for k in range(a.shape[1]):
+            acc = acc + a[:, k:k + 1] * b[k:k + 1]
+        return acc
+    torch.matmul = serial
+    try:
+        yield
+    finally:
+        torch.matmul = matmul
+
+
+def hold_to_plain(monkeypatch, setups, nz, tol, aref_dev=None, first=None,
+                  serial=False):
+    """Step each (model, state, params, forcing) of ``setups`` once and
+    hold every kernel its wrapper was called for (``first``: the first
+    ``first`` calls of each kernel) to its plain body on the same inputs
+    (``serial``: with the reference averages summed serially,
+    :func:`serial_sums`): floats within ``tol`` of each output's scale,
+    the integer rows equal; each launch on the fewest level slots that
+    cover nz + 2, and (``aref_dev`` not None) with aref in that
+    placement."""
+    names = set()
+    ns = min(n for n in ck.SLOTS if 32 * n >= nz + 2)
+    for m, st, prm, frc in setups:
+        rec = Recorder(monkeypatch)
+        m.step(st, prm, frc, first_step=True)
+        seen = []
+        for w, a in rec.calls:
+            seen.append(w.name)
+            if first is not None and seen.count(w.name) > first:
+                continue
+            g = ck.launch_geometry(nz, a[0].dtype, a[0].shape[1],
+                                   ck._ref_extents(a[-1])[1])
+            assert g.ns == ns
+            if aref_dev is not None:
+                assert g.aref_dev == aref_dev
+            got = w.launch(*a)
+            body = fp._pass_body if isinstance(w, ck.FusedPass) else fp._step_body
+            with serial_sums() if serial else contextlib.nullcontext():
+                ref = body(*a, **w.kw)
+            torch.cuda.synchronize()
+            for g_, r in zip(got, ref):
+                rel = float((g_ - r).abs().max()) / max(float(r.abs().max()), 1e-6)
+                assert rel <= tol, (w.name, rel)
+            pos, rows = INT_ROWS[w.name]
+            for row in rows:
+                assert torch.equal(got[pos][row], ref[pos][row]), (w.name, row)
+            names.add(w.name)
+        monkeypatch.undo()
+    assert names == {"fused_pass_fast", "fused_pass_full", "fused_step"}
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-5), ("float64", 1e-10)])
 @pytest.mark.parametrize("ncol,nz", [(5, NZ), (130, NZ), (13, NZ),
@@ -102,33 +168,44 @@ def test_kernels_match_plain(cuda, monkeypatch, dtype, tol, ncol, nz):
     """5, 130 and 13 leave a ragged last 8-column block; "mixed_block" is
     one block of a land column, a trap column and uneven pass counts;
     nz = 100 and 126 run the kernels at 4 level slots (single_column's
-    levels, and the most they take)."""
-    names = set()
+    levels, and the most 4 slots take)."""
+    setups = []
     for impl in ("cuda", "cuda_step"):
         if ncol == "mixed_block":
-            m, st, prm, frc = mixed_block(cuda, dtype)
-            m = model(8, impl, cuda, dtype)[0]
+            _, st, prm, frc = mixed_block(cuda, dtype)
+            setups.append((model(8, impl, cuda, dtype)[0], st, prm, frc))
         else:
-            m, st, prm, frc = model(ncol, impl, cuda, dtype, nz=nz,
-                                    l_advect=False)
-        rec = Recorder(monkeypatch)
-        m.step(st, prm, frc, first_step=True)
-        for w, a in rec.calls:
-            assert ck.launch_geometry(
-                nz, a[0].dtype, a[0].shape[1]).ns == (3 if nz <= 94 else 4)
-            got = w.launch(*a)
-            body = fp._pass_body if isinstance(w, ck.FusedPass) else fp._step_body
-            ref = body(*a, **w.kw)
-            torch.cuda.synchronize()
-            for g, r in zip(got, ref):
-                rel = float((g - r).abs().max()) / max(float(r.abs().max()), 1e-6)
-                assert rel <= tol, (w.name, rel)
-            pos, rows = INT_ROWS[w.name]
-            for row in rows:
-                assert torch.equal(got[pos][row], ref[pos][row]), (w.name, row)
-            names.add(w.name)
-        monkeypatch.undo()
-    assert names == {"fused_pass_fast", "fused_pass_full", "fused_step"}
+            setups.append(model(ncol, impl, cuda, dtype, nz=nz,
+                                l_advect=False))
+    hold_to_plain(monkeypatch, setups, nz, tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5), ("float64", 1e-10)])
+@pytest.mark.parametrize("nz,dscale", [(127, 0.0), (190, 0.0), (254, 0.0),
+                                       (127, 5.0), (190, 5.0), (254, 5.0)])
+def test_deep_kernels_match_plain(cuda, monkeypatch, dtype, tol, nz, dscale):
+    """Past 126 levels: 6 slots (nz 127 and 190) and 8 (nz 254), on a
+    uniform and a stretched grid, 13 columns (a ragged last block) with a
+    land column.  float64 at nz = 254 on the stretched grid reads aref
+    from device memory (no block holds its shared copy); every other case
+    keeps it in shared memory.  Some column's hmix loop runs to its
+    limit (~200 passes), so the per-pass kernel is held on its first 8
+    calls.  The plain bodies sum the reference averages serially
+    (:func:`serial_sums`): the stretched grids' aref rows reach 48 to 122
+    levels, where cuBLAS's order moves a pass by ~2e-5 and the hmix
+    loop's kmix with it.  (``chip_smoke.py``'s gate adds a trap column and
+    double diffusion at these depths.)"""
+    setups = []
+    for impl in ("cuda", "cuda_step"):
+        m, st, prm, frc = model(13, impl, cuda, dtype, nz, dscale)
+        wet = torch.ones(13, dtype=torch.bool, device=cuda)
+        wet[3] = False
+        setups.append((m, st, prm.replace(l_ocean=wet, run_physics=wet),
+                       frc))
+    dev = int(dtype == "float64" and nz == 254 and dscale > 0)
+    hold_to_plain(monkeypatch, setups, nz, tol, aref_dev=dev, first=8,
+                  serial=True)
 
 
 def test_mixed_block_has_its_cases(monkeypatch):
@@ -217,16 +294,20 @@ def test_unsupported_wscale_raises():
         ck._params(kw, 4)
 
 
-def _aref(nz, dmax, stretch):
+def _aref(nz, dmax, stretch, dscale=2.0):
     """The reference-average matrix as ops/ocnstep_fused builds it."""
-    g = make_vertical_grid(nz, dmax, 1200.0, stretch=stretch, dscale=2.0)
+    g = make_vertical_grid(nz, dmax, 1200.0, stretch=stretch, dscale=dscale)
     zm = np.pad(g.zm.numpy(), (0, 1))
     return fp.build_ref_matrix(zm[:nz + 1], nz + 2).T
 
 
+def _fewest_slots(nz):
+    return min(n for n in ck.SLOTS if 32 * n >= nz + 2)
+
+
 @pytest.mark.parametrize("stretch", [False, True])
 @pytest.mark.parametrize("dmax", [120.0, 1000.0])
-@pytest.mark.parametrize("nz", [12, 33, 40, 65, 69, 94])
+@pytest.mark.parametrize("nz", [12, 33, 40, 65, 69, 94, 190, 254])
 def test_ref_extents_and_pass_ops(nz, dmax, stretch):
     """aref is zero past each row's extent, each row's nonzeros are a
     prefix, and pass_ops is the dense count less the skipped entries."""
@@ -260,76 +341,140 @@ def test_ref_extents_and_pass_ops(nz, dmax, stretch):
     assert np.array_equal(dev.numpy(), hi)
 
 
+@pytest.mark.parametrize("nz,dscale", [(69, 2.0), (190, 5.0), (254, 10.0)])
+def test_ref_tile(nz, dscale):
+    """The device-memory placement's tile is aref transposed, cut to its
+    kref columns and padded with zeros to the 32 x slots levels of the
+    launch, made once per aref tensor."""
+    aref = torch.as_tensor(_aref(nz, 250.0, True, dscale))
+    kref = ck._ref_extents(aref)[1]
+    ns = _fewest_slots(nz)
+    tile = ck._ref_tile(aref, ns)
+    assert tile.shape == (kref, 32 * ns) and tile.dtype == aref.dtype
+    assert torch.equal(tile[:, :nz + 2], aref[:, :kref].T)
+    assert not tile[:, nz + 2:].any()
+    assert ck._ref_tile(aref, ns) is tile
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_launch_geometry(dtype):
-    """Every nz the kernels take fits one block's shared memory with aref
-    kept whole (the worst case), on the fewest level slots that cover
-    nz + 2, and the grid covers every ncol exactly; past 128 levels the
-    geometry raises."""
-    for nz in range(1, 127):
+    """Every nz the kernels take fits one block's shared memory, with aref
+    kept whole (the worst case) or read from device memory where no block
+    holds it, on the fewest level slots that cover nz + 2, and the grid
+    covers every ncol exactly; past 256 levels the geometry raises."""
+    for nz in range(1, 255):
         for kref in (None, 0, 9):
             if kref is not None and kref > nz + 2:
                 continue
             for ncol in (1, 7, 37, 129, 144_507):
                 g = ck.launch_geometry(nz, dtype, ncol, kref)
-                assert g.ns == (3 if nz + 2 <= 96 else 4)
+                assert g.ns == _fewest_slots(nz)
                 assert g.smem <= 232_448
-                assert g.smem == ck.smem_bytes(g.ns, g.kref, g.warps,
-                                               dtype.itemsize)
+                assert g.smem == ck.smem_bytes(
+                    g.ns, 0 if g.aref_dev else g.kref, g.warps,
+                    dtype.itemsize)
                 assert 1 <= g.warps <= 8 and g.warps == g.cols_per_block
                 assert g.blocks * g.cols_per_block >= ncol
                 assert (g.blocks - 1) * g.cols_per_block < ncol
-    with pytest.raises(ValueError, match="128 levels"):
-        ck.launch_geometry(127, dtype, 8)
+    with pytest.raises(ValueError, match="256 levels"):
+        ck.launch_geometry(255, dtype, 8)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("nz", [69, 94, 95, 100, 126, 127])
+@pytest.mark.parametrize("dscale", [0.0, 5.0, 10.0])
+def test_launch_geometry_on_real_grids(dtype, dscale):
+    """For every nz in 1..254 on a uniform grid and stretched grids
+    (``dscale`` 5 and 10), with the kref of the grid's own aref: the
+    geometry never raises, takes the fewest slots, fits SMEM_MAX, and
+    reads aref from device memory exactly where its shared copy does not
+    fit beside even one warp (then with as many warps as fit without
+    it)."""
+    esize = dtype.itemsize
+    n_dev = 0
+    for nz in range(1, 255):
+        aref = _aref(nz, 250.0, dscale > 0, dscale or 2.0)
+        kref = int(ck.row_extents(aref).max()) + 1
+        g = ck.launch_geometry(nz, dtype, 37, kref)
+        assert g.ns == _fewest_slots(nz) and g.kref == kref
+        shared_fits = ck.smem_bytes(g.ns, kref, 1, esize) <= ck.SMEM_MAX
+        assert g.aref_dev == int(not shared_fits)
+        kept = 0 if g.aref_dev else kref
+        assert g.smem == ck.smem_bytes(g.ns, kept, g.warps, esize) \
+            <= ck.SMEM_MAX
+        assert g.warps == 8 or \
+            ck.smem_bytes(g.ns, kept, 2 * g.warps, esize) > ck.SMEM_MAX
+        n_dev += g.aref_dev
+    # float64 at 8 slots on the stretched grids: 37 and 64 of the 64 nz
+    assert n_dev == {(torch.float64, 5.0): 37,
+                     (torch.float64, 10.0): 64}.get((dtype, dscale), 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nz", [69, 94, 95, 100, 126, 127, 190, 191, 254,
+                                255])
 def test_level_slots(dtype, nz):
     """The slots, warps and shared memory a launch takes at the levels of
     the five configurations and at the edges of each instantiation: 3
-    slots up to nz 94 (WZ 96), 4 up to nz 126 (WZ 128), a raise naming
-    the limit at 127.  With aref's real prefix (kref of the grid) a block
-    keeps 8 warps; float64 at 4 slots with aref kept whole takes fewer."""
-    if nz == 127:
-        with pytest.raises(ValueError, match=r"nz\+2=129 .*128 levels"):
+    slots up to nz 94 (WZ 96), 4 up to nz 126 (WZ 128), 6 up to nz 190
+    (WZ 192), 8 up to nz 254 (WZ 256), a raise naming the limit at 255.
+    With aref's real prefix (kref of a uniform grid) a block keeps 8
+    warps in float32, and in float64 up to 4 slots (4 warps at 6, 2 at
+    8); with aref kept whole a block takes fewer, or reads aref from
+    device memory where no block holds it."""
+    if nz == 255:
+        with pytest.raises(ValueError, match=r"nz\+2=257 .*256 levels"):
             ck.launch_geometry(nz, dtype, 37)
         return
     esize = dtype.itemsize
     kref = int(ck.row_extents(_aref(nz, 1000.0, False)).max()) + 1
     g = ck.launch_geometry(nz, dtype, 37, kref)
-    assert g.ns == (3 if nz <= 94 else 4)
-    assert (g.warps, g.blocks) == (8, 5)
-    assert g.smem == ck.smem_bytes(g.ns, kref, 8, esize) <= ck.SMEM_MAX
+    assert g.ns == _fewest_slots(nz)
+    warps = 8 if dtype == torch.float32 else {3: 8, 4: 8, 6: 4, 8: 2}[g.ns]
+    assert (g.warps, g.blocks, g.aref_dev) == (warps, -(-37 // warps), 0)
+    assert g.smem == ck.smem_bytes(g.ns, kref, warps, esize) <= ck.SMEM_MAX
     worst = ck.launch_geometry(nz, dtype, 37)
-    if dtype == torch.float64 and g.ns == 4:
-        assert worst.warps == (4 if nz + 2 <= 102 else 2)
-        assert ck.smem_bytes(4, nz + 2, 8, esize) > ck.SMEM_MAX
-    else:
-        assert worst.warps == 8
-    assert worst.smem <= ck.SMEM_MAX
+    assert (worst.warps, worst.aref_dev) == WORST[dtype.itemsize, nz]
+    kept = 0 if worst.aref_dev else nz + 2
+    assert worst.smem == ck.smem_bytes(g.ns, kept, worst.warps, esize) \
+        <= ck.SMEM_MAX
+    assert worst.warps == 8 or \
+        ck.smem_bytes(g.ns, kept, 2 * worst.warps, esize) > ck.SMEM_MAX
+    assert worst.aref_dev == int(
+        ck.smem_bytes(g.ns, nz + 2, 1, esize) > ck.SMEM_MAX)
+
+
+# (warps, aref_dev) with aref kept whole (kref = nz + 2), by element size
+# and nz: 8 warps and the shared copy unless noted
+WORST = {(4, nz): (8, 0) for nz in (69, 94, 95, 100, 126)}
+WORST.update({(4, 127): (4, 0), (4, 190): (4, 0), (4, 191): (1, 0),
+              (4, 254): (8, 1)})
+WORST.update({(8, 69): (8, 0), (8, 94): (8, 0), (8, 95): (4, 0),
+              (8, 100): (4, 0), (8, 126): (2, 0), (8, 127): (4, 1),
+              (8, 190): (4, 1), (8, 191): (4, 1), (8, 254): (4, 1)})
 
 
 def test_geometry_constants_match_the_source():
     """launch_geometry mirrors csrc/fused_pass.cuh's shared-memory layout:
-    the slot count, the column values, the level slots and the most
-    warps a block takes."""
+    the slot count, the column values, the level slots, the most warps a
+    block takes and the Geometry struct (aref's placement last)."""
     with open(ck._CSRC + "/fused_pass.cuh") as f:
         src = f.read()
     slots = src[src.index("  B_U = 0,"):src.index(", NB\n")]
     assert len(re.findall(r"B_\w+", slots)) == ck.N_SLOTS
     assert "constexpr int NCV = NSC + 16;" in src and ck.N_COLV == 32 + 16
-    assert "constexpr int NS_MAX = 4;" in src and ck.SLOTS[-1] == 4
-    assert ck.MAXWZ == 128
-    assert "int warps, blocks, kref, smem, ns;" in src
+    assert "constexpr int NS_MAX = 8;" in src and ck.SLOTS[-1] == 8
+    assert ck.MAXWZ == 256
+    assert "int warps, blocks, kref, smem, ns, aref_dev;" in src
     assert [f[0] for f in ck.Geometry._fields_] == \
-        ["warps", "blocks", "kref", "smem", "ns"]
+        ["warps", "blocks", "kref", "smem", "ns", "aref_dev"]
     with open(ck._CSRC + "/fused_kernels.cu") as f:
         ker = f.read()
     assert "constexpr int MAX_WARPS = 8;" in ker
     assert ck.WARPS == 8
     assert "constexpr int SMEM_MAX = 232448;" in ker and \
         ck.SMEM_MAX == 232_448
+    assert "in->aref_t = static_cast<const Real*>(ip[kpp::N_IN + 1]);" in ker
+    assert f"constexpr int AREF_DEV_MIN_NS = {ck.AREF_DEV_MIN_NS};" in src
 
 
 def test_stage_marks_match_chip_phases():

@@ -24,6 +24,7 @@ import zipfile
 
 import numpy as np
 import pytest
+import torch
 
 from mckpp_tpu.io import restart as jrestart
 from mckpp_tpu.utils import timer as jtimer
@@ -38,6 +39,20 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from test_torch_io import NX, NY, _pair  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch intra-op thread for this file's in-process runs, the
+    previous count restored after.  The toy ensemble (1,980 columns) is
+    the one CPU run here whose tensors are large enough for torch's
+    OpenMP pool; with six pytest workers on eight cores, its eight
+    threads wait on each other against the other workers' busy threads
+    (300 s for a 2 s run)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def jax_tool():
