@@ -9,7 +9,8 @@ Phases, each printing JSON lines; any breach raises, so the script exits
 
 1. device: card name, power limit, versions; build the CUDA kernels (one
    library per dtype and number of level slots a lane carries: 3 for
-   nz + 2 <= 96, 4 for <= 128, 6 for <= 192, 8 for <= 256; eight nvcc
+   nz + 2 <= 96, 4 for <= 128, 6 for <= 192, 8 for <= 256; and one per
+   dtype of a column over several warps, "cw", for <= 1024; ten nvcc
    processes at once) and print each one's ptxas table;
 2. kernel gate: each kernel against its plain torch version on the same
    float32 inputs at several (ncol, nz) shapes and flag sets (ragged last
@@ -26,8 +27,14 @@ Phases, each printing JSON lines; any breach raises, so the script exits
    in one case, float64 at 254 stretched with aref read from device
    memory, a mixed block at nz = 127 (land, a trap column, uneven pass
    counts), a deep-mixing case at nz = 254 whose kmix reaches below level
-   128, each at the same bar; nz = 255 raises ValueError naming the 256
-   limit, and nz = 190 under pass_impl "auto" runs the step kernel;
+   128, each at the same bar; then past 254 levels (a column over 3 to 8
+   warps): nz = 255, 383 and 1022 in float32 and float64 on a uniform
+   and a stretched grid at 37 columns with land, double diffusion in one
+   case, a mixed block at nz = 300 (9 columns: land, a trap column,
+   uneven pass counts), a deep-mixing case at nz = 1022 whose kmix
+   reaches below level 128 (past the first warp), each at the same bar;
+   nz = 1023 raises ValueError naming the 1024 limit, and nz = 511 under
+   pass_impl "auto" runs the step kernel;
 3. main path: the production ocean step (``KppModel.step``, pass_impl
    "cuda_step", with the full diagnostics pass on with_diags steps) at the
    TerraMaris width, ncol = 144,507 (453 x 319), nz = 69, ~12% land, with
@@ -86,12 +93,17 @@ Phases, each printing JSON lines; any breach raises, so the script exits
    kernels timed at nz = 100 on 16,384 columns against their plain
    versions and bounds;
 11. deep main path: the step alone at the TerraMaris width at nz = 150
-   (6 slots) and 254 (8 slots), float32, counts from 0 over a few steps
-   of both paths, each kernel held to its plain version and timed beside
-   its bound; then a deep single column (250 levels of 1 m) through the
-   CLI for a model day in float32, outputs held, and 9 steps in float64
-   with the kernels against the plain step body on the same card (1e-10
-   of each field's scale, kmix equal), the CPU's run reported beside;
+   (6 slots), 254 (8 slots) and 510 (a column over 4 warps), and at
+   nz = 1022 (8 warps) on 16,384 columns,
+   float32, counts from 0 over a few steps of both
+   paths, each kernel held to its plain version and timed beside its
+   bound, the phase's peak device memory; the step kernel forced to 2
+   warps a column at nz = 254 beside the 8-slot row on the same inputs;
+   then two deep single columns (250 levels of 1 m, and 1000 levels of 2 m
+   over 2000 m) through the CLI for a model day each in float32, outputs
+   held, and a few steps in float64 with the kernels against the plain
+   step body on the same card (1e-10 of each field's scale, kmix equal),
+   the CPU's run reported beside (the 1000-level column's only);
 12. one model day (72 steps) of the CLI when the script has used less
    than ``CLI_DAY_BEFORE_S``.
 
@@ -287,11 +299,11 @@ class Capture:
         import torch
 
         def wrap(fn):
-            def launch(w, *a):
+            def launch(w, *a, **kw):
                 if all(c[0].name != w.name for c in calls) and \
                         not torch.cuda.is_current_stream_capturing():
                     calls.append((w, tuple(x.clone() for x in a)))
-                return fn(w, *a)
+                return fn(w, *a, **kw)
             return launch
         ck.FusedPass.launch = wrap(self.orig[0])
         ck.FusedStep.launch = wrap(self.orig[1])
@@ -337,6 +349,30 @@ def compare(w, got, ref, tol):
     return worst
 
 
+def distance(w, got, ref):
+    """The distance of two results, reported and not held: the max
+    relative difference over the float outputs and the columns whose
+    integer rows differ."""
+    pos, rows = INT_ROWS[w.name]
+    rel = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-6)
+              for a, b in zip(got, ref))
+    cols = int((got[pos][list(rows)] != ref[pos][list(rows)]).any(0).sum())
+    return {"max_rel": rel, "int_columns_differ": cols}
+
+
+def ulp_shifted(w, a):
+    """A kernel's inputs with T (the profile and its iterate) scaled by
+    1 + 4.5 eps of its dtype (1e-15 in float64, 5.4e-7 in float32), as
+    the port's tests calibrate the rounding spread."""
+    from mckpp_torch.ops import cuda_kernels as ck
+    import torch
+    a = list(a)
+    rel = 4.5 * torch.finfo(a[0].dtype).eps
+    for i in ((2, 6) if isinstance(w, ck.FusedStep) else (2, 6, 10)):
+        a[i] = a[i] * (1.0 + rel)
+    return tuple(a)
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -376,10 +412,11 @@ def phase_device():
     t0 = time.perf_counter()
     reports = ck.build()
     build_s = time.perf_counter() - t0
-    # one library per dtype and level slots: "float32/ns3" (nz + 2 <= 96)
-    # and "float32/ns4" (<= 128), the same in float64
-    ptxas = {f"{str(dt).replace('torch.', '')}/ns{ns}": ptxas_table(log)
-             for (dt, ns), log in reports.items()}
+    # one library per dtype and level slots: "float32/ns3" (nz + 2 <= 96),
+    # "float32/ns4" (<= 128), ..., "float32/cw" (a column over several
+    # warps, <= 1024), the same in float64
+    ptxas = {f"{str(dt).replace('torch.', '')}/{ck._lib_tag(lib)}":
+             ptxas_table(log) for (dt, lib), log in reports.items()}
     emit({"phase": "build", "seconds": build_s, "ptxas": ptxas})
     return name, smi, ptxas
 
@@ -401,10 +438,17 @@ GATE_SHAPES = [(512, 69), (256, 40), (300, 33), (37, 69), (129, 65), (64, 94),
 
 
 def gate_case(ncol, nz, dtype, flags, tol, seed, land=0.1, big=(), warm=2,
-              cold=()):
+              cold=(), serial_above=None):
     """Each kernel against its plain version on the inputs of step
     warm+1 (``cold``: see :func:`build`); returns ({kernel: max rel}, the
-    plain step's colstep, the step launch's geometry)."""
+    plain step's colstep, the step launch's geometry).  Where aref's rows
+    reach past ``serial_above`` entries, the kernels are held to the plain
+    version with the reference averages summed in their order
+    (:func:`plain_serial`) and the distance to the plain version itself
+    (cuBLAS's order) is reported as ``<kernel>/plain``, beside the
+    plain version's own distance from itself on inputs perturbed by a few
+    ulp (:func:`ulp_shifted`), ``<kernel>/plain_spread``: the model's own
+    sensitivity to rounding at those inputs (:func:`distance`)."""
     from mckpp_torch.ops import cuda_kernels as ck
     out, colstep, geom = {}, None, None
     for impl in ("cuda", "cuda_step"):
@@ -420,6 +464,12 @@ def gate_case(ncol, nz, dtype, flags, tol, seed, land=0.1, big=(), warm=2,
             w, a = cap.first(name)
             got = w.launch(*a)
             ref = plain_of(w, a)
+            kref = ck._ref_extents(a[-1])[1]
+            if serial_above is not None and kref > serial_above:
+                out[name + "/plain"] = distance(w, got, ref)
+                out[name + "/plain_spread"] = distance(
+                    w, plain_of(w, ulp_shifted(w, a)), ref)
+                ref = plain_serial(w, a)
             sync()
             out[name] = compare(w, got, ref, tol)
             if name == "fused_step":
@@ -448,7 +498,7 @@ def hold_mixed_block(cs):
     """The mixed block's plain colstep has its cases: column 3 land (no
     pass), a column the trap retried, pass counts apart by >= 3."""
     import torch
-    active = torch.ones(8, dtype=torch.bool, device=cs.device)
+    active = torch.ones(cs.shape[1], dtype=torch.bool, device=cs.device)
     active[3] = False
     npass = cs[7][active]
     trapped = int(((cs[4] > 0.5) & (cs[5] >= 2) & active).sum())
@@ -465,7 +515,10 @@ class serial_matmul:
     term in k order, each product and each sum rounded on its own
     (cuBLAS fuses and orders them its own way).  The terms past aref's
     last nonzero column are exact zeros and are skipped, as the kernels
-    skip them."""
+    skip them.  The products of ``chunk`` terms come from one launch (each
+    still rounded once), and the sums from one launch a term."""
+
+    chunk = 64
 
     def __enter__(self):
         import torch
@@ -476,8 +529,11 @@ class serial_matmul:
                               device=b.device)
             nonzero = (a != 0).any(dim=0).nonzero()
             kref = int(nonzero.max()) + 1 if len(nonzero) else 0
-            for k in range(kref):
-                acc = acc + a[:, k:k + 1] * b[k:k + 1]
+            for k0 in range(0, kref, self.chunk):
+                k1 = min(k0 + self.chunk, kref)
+                terms = a[:, k0:k1, None] * b[None, k0:k1]
+                for k in range(k1 - k0):
+                    acc = acc + terms[:, k]
             return acc
         torch.matmul = serial
         return self
@@ -639,7 +695,28 @@ def gate_wide_aref():
 DEEP_DSCALE = 5.0
 GATE_DEEP = [(nz, dt, ds) for nz in (127, 190, 254)
              for dt in ("float32", "float64") for ds in (0.0, DEEP_DSCALE)]
-MAXNZ = 254             # the most levels the kernels take (WZ = 256)
+ONE_WARP_NZ = 254       # the most levels one warp a column takes (WZ = 256)
+# past 254 levels, a column over several warps: the first nz of 3 and of 4
+# warps and the last of 8 (WZ = 1024), both dtypes, both grids; double
+# diffusion at (383, float64, stretched)
+GATE_MW = [(nz, dt, ds) for nz in (255, 383, 1022)
+           for dt in ("float32", "float64") for ds in (0.0, DEEP_DSCALE)]
+MAXNZ = 1022            # the most levels the kernels take (WZ = 1024)
+# aref rows longer than this (the stretched grid at nz = 383 and 1022:
+# kref 149 and 402) are summed by cuBLAS in its own order, which moves the
+# reference averages by an ulp and, through the hmix loop, kmix: there
+# the kernels are held to the serial-sum plain version, and the distance
+# to the plain version itself is reported beside the plain version's own
+# spread under a few ulp of T
+SERIAL_ABOVE = 128
+
+
+def take_worst(worst, dtype, res):
+    """Fold one case's {kernel: max rel} into ``worst[dtype]`` (the
+    reported distances, keyed ``<kernel>/plain``, are not held)."""
+    for k, v in res.items():
+        if "/" not in k:
+            worst[dtype][k] = max(worst[dtype].get(k, 0.0), v)
 
 
 def gate_levels():
@@ -648,18 +725,9 @@ def gate_levels():
     placement its step launch took; the mixed block (a land column, a
     column the trap retries and uneven pass counts) at nz = 127; the
     deep-mixing inputs at nz = 254 over 100 m (kmix past level 128)
-    against the serial-sum plain version; then
-    nz = 255 raising ValueError naming 256 from the geometry, the pass
-    wrapper and a model step, and ``auto`` at nz = 190 running the step
-    kernel once.  Returns ({kernel: worst f32}, {kernel: worst f64}, the
-    number of cases)."""
-    import torch
-    from mckpp_torch.ops import cuda_kernels as ck
+    against the serial-sum plain version.  Returns ({kernel: worst f32},
+    {kernel: worst f64}, the number of cases)."""
     worst = {"float32": {}, "float64": {}}
-
-    def take(dtype, res):
-        for k, v in res.items():
-            worst[dtype][k] = max(worst[dtype].get(k, 0.0), v)
 
     for i, (nz, dtype, dscale) in enumerate(GATE_DEEP):
         fname = "ldd" if (nz, dtype, dscale) == (190, "float64",
@@ -677,7 +745,7 @@ def gate_levels():
               "warps_per_block": g.warps, "kref": g.kref,
               "aref": "device" if g.aref_dev else "shared",
               "max_rel": res})
-        take(dtype, res)
+        take_worst(worst, dtype, res)
     res, cs, g = gate_case(8, 127, "float32", GATE_FLAGS["default_analytic"],
                            TOL_F32, 1, land=(3,), big=(6,), cold=(1,),
                            warm=0)
@@ -686,8 +754,61 @@ def gate_levels():
           "dtype": "float32", "level_slots": g.ns, "max_rel": res,
           "npass": cs[7].tolist(), "comp_flag": cs[4].tolist(),
           "reset": cs[5].tolist()})
-    take("float32", res)
-    take("float32", gate_deep(MAXNZ, 100.0, 128, plain_cases=()))
+    take_worst(worst, "float32", res)
+    take_worst(worst, "float32",
+               gate_deep(ONE_WARP_NZ, 100.0, 128, plain_cases=()))
+    return worst["float32"], worst["float64"], len(GATE_DEEP) + 2
+
+
+def gate_multiwarp():
+    """The kernels past 254 levels, a column over ceil((nz + 2) / 128)
+    warps: each case of ``GATE_MW`` held at the phase-2 bar on the first
+    step's inputs (to the serial-sum plain version where aref's rows pass
+    ``SERIAL_ABOVE`` entries), with the warps, grid-row and aref
+    placement its step launch took; the mixed block at nz = 300 (9
+    columns: land, a column the trap retries, uneven pass counts); the
+    deep-mixing inputs at
+    nz = 1022 over 250 m (kmix past level 128, the first warp's last)
+    against the serial-sum plain version; then nz = 1023 raising
+    ValueError naming 1024 from the geometry, the pass wrapper and a
+    model step, and ``auto`` at nz = 511 running the step kernel once.
+    Returns ({kernel: worst f32}, {kernel: worst f64}, the number of
+    cases)."""
+    import torch
+    from mckpp_torch.ops import cuda_kernels as ck
+    worst = {"float32": {}, "float64": {}}
+
+    for i, (nz, dtype, dscale) in enumerate(GATE_MW):
+        fname = "ldd" if (nz, dtype, dscale) == (383, "float64",
+                                                 DEEP_DSCALE) \
+            else "default_analytic"
+        flags = dict(GATE_FLAGS[fname], dscale=dscale)
+        tol = TOL_F32 if dtype == "float32" else TOL_F64
+        res, _, g = gate_case(37, nz, dtype, flags, tol, 90 + i, warm=0,
+                              serial_above=SERIAL_ABOVE)
+        cw = -(-(nz + 2) // 128)
+        want_grid = int(dtype == "float64" and cw == 8)
+        if (g.cw, g.ns, g.aref_dev, g.grid_dev) != (cw, 4, 1, want_grid):
+            raise AssertionError(f"nz = {nz} {dtype} dscale {dscale}: "
+                                 f"{g.cw} warps, {g.ns} slots, aref_dev "
+                                 f"{g.aref_dev}, grid_dev {g.grid_dev}")
+        emit({"phase": "gate", "ncol": 37, "nz": nz, "flags": fname,
+              "dtype": dtype, "dscale": dscale, "warps_per_column": g.cw,
+              "level_slots": g.ns, "kref": g.kref, "smem_bytes": g.smem,
+              "grid_rows": "device" if g.grid_dev else "shared",
+              "max_rel": res})
+        take_worst(worst, dtype, res)
+    res, cs, g = gate_case(9, 300, "float32", GATE_FLAGS["default_analytic"],
+                           TOL_F32, 2, land=(3,), big=(6,), cold=(1,),
+                           warm=0)
+    hold_mixed_block(cs)
+    emit({"phase": "gate", "ncol": 9, "nz": 300, "flags": "mixed_block",
+          "dtype": "float32", "warps_per_column": g.cw, "max_rel": res,
+          "npass": cs[7].tolist(), "comp_flag": cs[4].tolist(),
+          "reset": cs[5].tolist()})
+    take_worst(worst, "float32", res)
+    take_worst(worst, "float32",
+               gate_deep(MAXNZ, 250.0, 128, plain_cases=()))
     raised = []
     try:
         ck.launch_geometry(MAXNZ + 1, torch.float32, 37)
@@ -699,21 +820,21 @@ def gate_levels():
             run_steps(model, st, prm, frc, 1, 1)
         except ValueError as e:
             raised.append(str(e))
-    if len(raised) != 3 or not all("256" in r for r in raised):
-        raise AssertionError(f"nz = 255 did not raise naming 256: {raised}")
-    # nz = 190 under pass_impl "auto": the whole-step kernel, 6 slots
-    model, st, prm, frc = build(37, 190, "float32", "auto")
+    if len(raised) != 3 or not all("1024" in r for r in raised):
+        raise AssertionError(f"nz = 1023 did not raise naming 1024: {raised}")
+    # nz = 511 under pass_impl "auto": the whole-step kernel, 5 warps
+    model, st, prm, frc = build(37, 511, "float32", "auto")
     ck.reset_counts()
     st, frc = run_steps(model, st, prm, frc, 1, 1, with_diags=False)
     sync()
     if model.pass_impl != "cuda_step" or ck.LAUNCHES["fused_step"] != 1 \
             or not torch_all_finite(st):
-        raise AssertionError(f"nz = 190, auto: {model.pass_impl}, "
+        raise AssertionError(f"nz = 511, auto: {model.pass_impl}, "
                              f"{ck.LAUNCHES}")
     emit({"phase": "gate", "nz": MAXNZ + 1, "raises": raised,
-          "nz190_auto": model.pass_impl, "nz190_auto_launches":
+          "nz511_auto": model.pass_impl, "nz511_auto_launches":
               dict(ck.LAUNCHES)})
-    return worst["float32"], worst["float64"], len(GATE_DEEP) + 2
+    return worst["float32"], worst["float64"], len(GATE_MW) + 2
 
 
 def phase_gate():
@@ -749,10 +870,13 @@ def phase_gate():
             tgt[k] = max(tgt.get(k, 0.0), v)
     for k, v in gate_wide_aref().items():
         worst64[k] = max(worst64.get(k, 0.0), v)
-    deep32, deep64, n_deep = gate_levels()
-    for tgt, res in ((worst, deep32), (worst64, deep64)):
-        for k, v in res.items():
-            tgt[k] = max(tgt.get(k, 0.0), v)
+    n_deep = 0
+    for gate in (gate_levels, gate_multiwarp):
+        deep32, deep64, n_cases = gate()
+        n_deep += n_cases
+        for tgt, res in ((worst, deep32), (worst64, deep64)):
+            for k, v in res.items():
+                tgt[k] = max(tgt.get(k, 0.0), v)
     emit({"phase": "gate_ok", "cases": n + 5 + len(GATE_NS4) + n_deep,
           "worst_f32": worst, "worst_f64": worst64})
     return worst
@@ -887,17 +1011,19 @@ def time_cuda(fn, reps):
     return e0.elapsed_time(e1) / reps
 
 
-def kernel_row(kname, w, a, name, ptxas, launches, plain_reps=2):
+def kernel_row(kname, w, a, name, ptxas, launches, plain_reps=2, cw=None):
     """One kernel at one shape, on the inputs ``a`` the path gave it: held
     to its plain version (the phase-2 bar), timed beside it and beside
     the card's bound; ``ptxas``: every library's table, by dtype and
-    level slots ({"float32/ns3": {kernel: registers, spills}, ...}).
-    ``plain_reps`` 0: the plain version's time is that of the one call
-    the comparison makes (the deep shapes, where a call takes seconds)."""
+    library ({"float32/ns3": {kernel: registers, spills}, ...,
+    "float32/cw": ...}).  ``plain_reps`` 0: the plain version's time is
+    that of the one call the comparison makes (the deep shapes, where a
+    call takes seconds).  ``cw``: the kernel launched with a column over
+    that many warps (:func:`ck.launch_geometry`)."""
     import torch
     from mckpp_torch.ops import cuda_kernels as ck
     flops_peak, bytes_peak = card_peaks(name)
-    got = w.launch(*a)
+    got = w.launch(*a, _cw=cw)
     e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     e0.record()
     ref = plain_of(w, a)
@@ -905,13 +1031,15 @@ def kernel_row(kname, w, a, name, ptxas, launches, plain_reps=2):
     sync()
     err = max(float((x - y).abs().max()) for x, y in zip(got, ref))
     rel = compare(w, got, ref, TOL_F32)
-    ms = time_cuda(lambda: w.launch(*a), 5 if kname != "fused_step" else 3)
+    ms = time_cuda(lambda: w.launch(*a, _cw=cw),
+                   5 if kname != "fused_step" else 3)
     plain_ms = (time_cuda(lambda: plain_of(w, a), plain_reps) if plain_reps
                 else e0.elapsed_time(e1))
     nz = w.kw["nz"]
     ncol = a[0].shape[1]
     aref, ldd = a[-1], w.kw["flags"].ldd
-    geom = ck.launch_geometry(nz, a[0].dtype, ncol, ck._ref_extents(aref)[1])
+    geom = ck.launch_geometry(nz, a[0].dtype, ncol, ck._ref_extents(aref)[1],
+                              cw)
     # bytes: every input read once, every output written once
     nbytes = sum(x.numel() * x.element_size() for x in a) + \
         sum(x.numel() * x.element_size() for x in got)
@@ -923,8 +1051,8 @@ def kernel_row(kname, w, a, name, ptxas, launches, plain_reps=2):
         kmix, npass = got[8][1].double(), got[8][7].double()
         ops = float((npass * ck.pass_ops(nz, aref, kmix, ldd)).sum())
         # a block holds its SM share until its slowest column is done:
-        # passes run over passes the blocks' warps were held for
-        wb = geom.warps
+        # passes run over passes the blocks' columns were held for
+        wb = geom.cols_per_block
         pad = torch.nn.functional.pad(npass, (0, (-ncol) % wb))
         held = float(pad.view(-1, wb).amax(dim=1).sum()) * wb
         extra = {"npass_mean_active": float(npass[npass > 0].mean()),
@@ -935,7 +1063,7 @@ def kernel_row(kname, w, a, name, ptxas, launches, plain_reps=2):
         kbl = got[8 if kname == "fused_pass_fast" else 4][1].double()
         ops = float(ck.pass_ops(nz, aref, kbl, ldd).sum())
     dt = str(a[0].dtype).replace("torch.", "")
-    table = ptxas.get(f"{dt}/ns{geom.ns}", {}).get(kname, {})
+    table = ptxas.get(f"{dt}/{ck._lib_tag(geom.lib)}", {}).get(kname, {})
     regs = table.get("registers")
     bound_bytes_ms = nbytes / bytes_peak * 1e3
     bound_ops_ms = ops / flops_peak * 1e3
@@ -950,8 +1078,10 @@ def kernel_row(kname, w, a, name, ptxas, launches, plain_reps=2):
         "library_ms": None, "bytes": nbytes, "ops": ops,
         "bound_bytes_ms": bound_bytes_ms, "bound_ops_ms": bound_ops_ms,
         "shape": [nz + 2, ncol], "level_slots": geom.ns,
+        "library": ck._lib_tag(geom.lib), "warps_per_column": geom.cw,
         "warps_per_block": geom.warps, "smem_bytes": geom.smem,
         "kref": geom.kref, "aref": "device" if geom.aref_dev else "shared",
+        "grid_rows": "device" if geom.grid_dev else "shared",
         "registers": regs,
         "spill_stores": table.get("spill_stores"),
         "spill_loads": table.get("spill_loads"),
@@ -1003,28 +1133,34 @@ def phase_times_ns4(name, ptxas):
     return rows
 
 
-# the step alone at the TerraMaris width past 126 levels: 6 slots at
-# nz = 150, 8 at nz = 254 (~6 GB of device memory), float32
-DEEP_MAIN_NZ = (150, MAXNZ)
+# the step alone past 126 levels, float32, (nz, columns): 6 slots at
+# nz = 150 and 8 at 254 at the TerraMaris width, a column over 4 warps at
+# 510 there too, over 8 warps at 1022 on 16,384 columns
+DEEP_MAIN = ((150, NCOL_MAIN), (ONE_WARP_NZ, NCOL_MAIN), (510, NCOL_MAIN),
+             (MAXNZ, 16_384))
 
 
 def phase_deep_main(name, smi, ptxas):
-    """The main path past 126 levels: at each of ``DEEP_MAIN_NZ``, the
+    """The main path past 126 levels: at each of ``DEEP_MAIN``, the
     production step (``KppModel.step``, "cuda_step", the full pass on
-    with_diags steps) at the TerraMaris width with ~12% land from
+    with_diags steps) at that width with ~12% land from
     ``warm_start``, 2 steps to warm up, then the counts set to 0, 3 timed
     steps and one step of the per-pass path ("cuda"), the counts read;
     outputs finite with hmix in (0, dmax] on active columns; each kernel
     held to its plain version on the inputs of its first launch in that
     run (the phase-2 bar) and timed beside its bound (:func:`kernel_row`,
-    the plain version timed once).  Returns the rows, named by kernel and
-    level slots."""
+    the plain version timed once); at nz = 254 the step kernel also with
+    a column over 2 warps on the same inputs (a row of the phase line
+    only: no path launches it).  The peak device memory of the path's run
+    and of the phase with the plain versions' temporaries.  Returns the
+    rows, named by kernel and library (``_ns6``, ``_ns8``, ``_cw4``,
+    ``_cw8``)."""
     import torch
     from mckpp_torch.ops import cuda_kernels as ck
     rows, lines = [], []
-    for nz in DEEP_MAIN_NZ:
+    for nz, ncol in DEEP_MAIN:
         torch.cuda.reset_peak_memory_stats()
-        model, st, prm, frc = build(NCOL_MAIN, nz, land=LAND_SHARE)
+        model, st, prm, frc = build(ncol, nz, land=LAND_SHARE)
         st, frc = run_steps(model, st, prm, frc, 1, 2)
         sync()
         ck.reset_counts()                # this depth's run starts here
@@ -1033,7 +1169,7 @@ def phase_deep_main(name, smi, ptxas):
             st, frc = run_steps(model, st, prm, frc, 3, 3)
             sync()
             step_ms = (time.perf_counter() - t0) / 3 * 1e3
-            model_p = build(NCOL_MAIN, nz, pass_impl="cuda",
+            model_p = build(ncol, nz, pass_impl="cuda",
                             land=LAND_SHARE)[0]
             st_p = run_steps(model_p, st, prm, frc, 6, 1)[0]
             sync()
@@ -1049,18 +1185,28 @@ def phase_deep_main(name, smi, ptxas):
             raise AssertionError(f"nz = {nz}: non-finite state or hmix "
                                  "outside (0, dmax]")
         peak = torch.cuda.max_memory_allocated()
+        n_wet, hm_med = int(wet.sum()), float(hm.median())
+        del model, st, prm, frc, wet, hm
+        extra = {}
         for kname in ("fused_pass_fast", "fused_pass_full", "fused_step"):
             w, a = cap.first(kname)
             row = kernel_row(kname, w, a, name, ptxas, counts[kname],
                              plain_reps=0)
-            row["name"] = f"{kname}_ns{row['level_slots']}"
+            row["name"] = (f"{kname}_cw{row['warps_per_column']}"
+                           if row["library"] == ck.MW
+                           else f"{kname}_ns{row['level_slots']}")
             rows.append(row)
-        del cap, model, st, prm, frc
-        lines.append({"nz": nz, "ncol": NCOL_MAIN,
-                      "active_columns": int(wet.sum()),
+            if kname == "fused_step" and nz == ONE_WARP_NZ:
+                extra["step_cw2"] = dict(kernel_row(
+                    kname, w, a, name, ptxas, None, plain_reps=0, cw=2),
+                    name="fused_step_cw2")
+        del cap
+        lines.append({"nz": nz, "ncol": ncol, "active_columns": n_wet,
                       "step_ms_with_diags": step_ms, "launches": counts,
-                      "hmix_median_active": float(hm.median()),
-                      "peak_memory_bytes": peak})
+                      "hmix_median_active": hm_med,
+                      "peak_memory_bytes": peak,
+                      "peak_memory_bytes_with_plain":
+                          torch.cuda.max_memory_allocated(), **extra})
         torch.cuda.empty_cache()
     emit({"phase": "deep_main", "card": name, "nvidia_smi": smi,
           "dtype": "float32", "runs": lines, "rows": rows})
@@ -1069,6 +1215,9 @@ def phase_deep_main(name, smi, ptxas):
 
 DEEP_COLUMN_NZ, DEEP_COLUMN_DMAX = 250, 250.0   # 1 m levels
 DEEP_COLUMN_STEPS64 = 9
+# single_column's 2000 m at 2 m levels, as KPP single-column studies of
+# deep winter convection resolve it (a column over 8 warps)
+DEEP_COLUMN_1000 = (1000, 2000.0, 6)   # levels, dmax, float64 steps
 
 
 class plain_step:
@@ -1107,58 +1256,64 @@ def restart_rel(a, b):
     return rel, bool(np.array_equal(a["st_kmix"], b["st_kmix"]))
 
 
-def phase_deep_column(name, smi, work, device="cuda"):
-    """A deep single column: the single_column recipe at 250 levels over
-    250 m (``benchmark_inputs.write_single_column``), a model day (72
-    steps) of the CLI in float32 on ``device``, its outputs held (finite,
-    hmix in [0, dmax]) and its kernels the 8-slot ones; then the same
-    inputs in float64 for 9 steps through the CLI three times: on
-    ``device`` with the kernels, on ``device`` with the plain step body
-    (:class:`plain_step`), and on the CPU (the plain bodies).  The kernels'
-    restart is held to the plain body's on the same card (T, S, u, v and
-    hmix within 1e-10 of each field's scale, kmix equal); the CPU's is
-    reported beside it: at 1 m levels the hmix loop runs to its 200-pass
-    limit in 4 of the 9 steps (hbl hops between levels), so where it
-    stops turns on the last ulp of each pass, and the CPU's exp, pow and
-    scalar division round apart from the card's."""
+def phase_deep_column(name, smi, work, device="cuda", nz=DEEP_COLUMN_NZ,
+                      dmax=DEEP_COLUMN_DMAX, steps64=DEEP_COLUMN_STEPS64,
+                      cpu=True):
+    """A deep single column: the single_column recipe at ``nz`` levels
+    over ``dmax`` m (``benchmark_inputs.write_single_column``; 250 over
+    250 m, and 1000 over 2000 m), a model day (72 steps) of the CLI in
+    float32 on ``device``, its outputs held (finite, hmix in [0, dmax])
+    and its kernels those launch_geometry takes there (8 slots at 250, a
+    column over 8 warps at 1000); then the same inputs in float64 for
+    ``steps64`` steps through the CLI three times: on ``device`` with the
+    kernels, on ``device`` with the plain step body (:class:`plain_step`),
+    and (``cpu``) on the CPU (the plain bodies).  The kernels' restart is
+    held to the plain body's on the same card (T, S, u, v and hmix within
+    1e-10 of each field's scale, kmix equal); the CPU's is reported beside
+    it.  At 1 m levels the hmix loop runs to its 200-pass limit in 4 of
+    the first 9 steps (hbl hops between levels), so where it stops turns
+    on the last ulp of each pass, and the CPU's exp, pow and scalar
+    division round apart from the card's (ROADMAP §C): the 250-level
+    column's CPU run (~20 s) is left out for the script's time."""
     import os
     import shutil
     import numpy as np
     import torch
     from mckpp_torch.io.benchmark_inputs import write_single_column
     from mckpp_torch.ops import cuda_kernels as ck
-    data = os.path.join(work, "deep_column")
-    grid = write_single_column(data, DEEP_COLUMN_NZ, DEEP_COLUMN_DMAX)
+    data = os.path.join(work, f"deep_column_{nz}")
+    grid = write_single_column(data, nz, dmax)
     dmax = grid["dmax"]
     day = run_cli(data, os.path.join(data, "day"), CLI_DAY_STEPS,
                   device=device)
     n_held = hold_outputs(read_nc_dir(os.path.join(data, "day")),
                           np.zeros((1, 1), dtype=bool), dmax)
     on_card = device == "cuda"
-    ns = ck.launch_geometry(DEEP_COLUMN_NZ, torch.float32, 1).ns
-    if on_card and (not day["launches_read"]["fused_step"] or ns != 8):
-        raise AssertionError(f"the deep column: {day['launches_read']}, "
-                             f"{ns} slots")
-    nml = os.path.join(data, "r9.nml")
+    g = ck.launch_geometry(nz, torch.float32, 1)
+    if on_card and not day["launches_read"]["fused_step"]:
+        raise AssertionError(f"the deep column: {day['launches_read']}")
+    nml = os.path.join(data, "r64.nml")
     edit_namelist(os.path.join(data, "3D_ocn.nml"), nml,
-                  ndt_per_restart=DEEP_COLUMN_STEPS64)
+                  ndt_per_restart=steps64)
     runs, restarts = {}, {}
     for label, dev in (("kernels", device), ("plain", device),
-                       ("cpu", "cpu")):
+                       ("cpu", "cpu"))[:3 if cpu else 2]:
         with plain_step() if label == "plain" else contextlib.nullcontext():
             runs[label] = run_cli(data, os.path.join(data, label),
-                                  DEEP_COLUMN_STEPS64, namelist=nml,
+                                  steps64, namelist=nml,
                                   device=dev, dtype="float64")
         restarts[label] = npz_arrays([p for p in runs[label]["restarts"]
                                       if p.endswith(".npz")][-1])
     rel, kmix_equal = restart_rel(restarts["kernels"], restarts["plain"])
-    rel_cpu, kmix_cpu = restart_rel(restarts["kernels"], restarts["cpu"])
+    rel_cpu, kmix_cpu = (restart_rel(restarts["kernels"], restarts["cpu"])
+                         if cpu else ("not run", None))
     launched = runs["kernels"]["launches_read"]
     shutil.rmtree(data)
     emit({"phase": "deep_column", "card": name, "nvidia_smi": smi,
-          "nz": DEEP_COLUMN_NZ, "dmax": dmax, "level_slots": ns,
+          "nz": nz, "dmax": dmax, "library": ck._lib_tag(g.lib),
+          "level_slots": g.ns, "warps_per_column": g.cw,
           "day": {k: day.get(k) for k in CLI_KEYS}, "fields_held": n_held,
-          "float64_steps": DEEP_COLUMN_STEPS64,
+          "float64_steps": steps64,
           "float64_kernels_vs_plain_max_rel": rel,
           "float64_kmix_equal": kmix_equal,
           "float64_kernels_vs_cpu_max_rel": rel_cpu,
@@ -2292,15 +2447,18 @@ def main():
         rows += [dict(r, name=f"{r['name']}_ns4") for r in cfg_rows
                  if r["level_slots"] == 4]
         rows += phase_deep_main(name, smi, ptxas)
-        phase_deep_column(name, smi, work)
+        phase_deep_column(name, smi, work, cpu=False)
+        nz1000, dmax1000, steps1000 = DEEP_COLUMN_1000
+        phase_deep_column(name, smi, work, nz=nz1000, dmax=dmax1000,
+                          steps64=steps1000)
         phase_day(name, t_start, work, data, land, dmax)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
-    # each kernel x level-slot library a path launched: 3 slots on the
-    # main path (phase 3), 4 on single_column's (phase 10), 6 and 8 on the
-    # deep main path
+    # each kernel x library a path launched: 3 slots on the main path
+    # (phase 3), 4 on single_column's (phase 10), 6 and 8 slots and a
+    # column over 4 and 8 warps on the deep main path (phase 11)
     emit({"kernels": [{k: r[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}

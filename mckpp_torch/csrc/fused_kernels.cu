@@ -22,8 +22,13 @@
 //   a column's profiles live in registers and a small per-warp
 //   shared-memory area, not in per-thread local memory (L2/HBM); at 6 and
 //   8 slots a thread holds up to the 255 registers it may, and what ptxas
-//   spills goes to local memory (a right kernel first: several warps a
-//   column would be the faster design);
+//   spills goes to local memory;
+// * past 256 levels (WZ <= 1024) one column a block over CW = 3..8 warps
+//   of 4 slots (the "cw" library, KPP_MW): the 4-slot register footprint,
+//   the column's rows shared by its warps, block barriers where levels
+//   meet, aref (and, for float64 at CW = 8, the grid rows) read from
+//   device memory; a column's input rows are read one level at a time
+//   (stride ncol), so its staging moves whole sectors for one value;
 // * each warp runs its own column's convergence and trap loops, so a warp
 //   never waits for a slower column, and a land column's warp skips them;
 // * a block of W >= 8 warps takes W consecutive columns and stages their
@@ -33,12 +38,14 @@
 //   a copy in shared memory, or from a tile in device memory where no
 //   block holds the copy (float64 at 8 slots on a stretched grid).
 // The launch geometry (warps per block, blocks, aref columns kept, dynamic
-// shared-memory bytes, level slots, aref's placement) comes from the
-// wrapper; the launcher checks the bytes against smem_bytes().  One
-// library holds the three kernels of one type and one number of level
-// slots.  Build:
+// shared-memory bytes, level slots, aref's placement, warps a column, the
+// grid rows' placement) comes from the wrapper; the launcher checks the
+// bytes against smem_bytes() or smem_bytes_mw().  One library holds the
+// three kernels of one type and one number of level slots, or (KPP_MW=1,
+// NS = 4) of a column over several warps.  Build:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
 //        -shared -Xcompiler -fPIC -DKPP_REAL=float|double -DKPP_NS=3|4|6|8
+//        [-DKPP_MW=1]
 // -fmad=false keeps each multiply and add rounded on its own, as the
 // unfused eager torch ops that the kernels are held against round them.
 #include <cuda_runtime.h>
@@ -50,6 +57,9 @@
 #endif
 #ifndef KPP_NS
 #define KPP_NS 3
+#endif
+#ifndef KPP_MW
+#define KPP_MW 0
 #endif
 
 namespace kpp {
@@ -65,36 +75,53 @@ template <typename T, int NS> struct MinBlocks {
 };
 template <> struct MinBlocks<float, 3> { static constexpr int value = 2; };
 
-template <typename T, bool FULL, int NS>
+static_assert(CW_MAX == MAX_WARPS, "a column's warps fill at most a block");
+static_assert(!KPP_MW || KPP_NS == MW_NS, "a column over warps has 4 slots");
+
+template <typename T, bool FULL, int NS, bool MW>
 __global__ void __launch_bounds__(MAX_WARPS * 32, MinBlocks<T, NS>::value)
 fused_pass_kernel(PassParams P, Geometry G, Inputs<T> in, Outputs<T> out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  pass_block<T, FULL, NS>(P, G, in, out, smem_raw);
+  pass_block<T, FULL, NS, MW>(P, G, in, out, smem_raw);
 }
 
-template <typename T, int NS>
+template <typename T, int NS, bool MW>
 __global__ void __launch_bounds__(MAX_WARPS * 32, MinBlocks<T, NS>::value)
 fused_step_kernel(PassParams P, Geometry G, Inputs<T> in, Outputs<T> out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  step_block<T, NS>(P, G, in, out, smem_raw);
+  step_block<T, NS, MW>(P, G, in, out, smem_raw);
+}
+
+// the checks of one launch's geometry against this library's kernels
+bool geometry_ok(const PassParams& P, const Geometry& G,
+                 const Inputs<KPP_REAL>& in) {
+  const int tsize = int(sizeof(KPP_REAL));
+  const bool common = G.ns == KPP_NS && G.kref >= 0 && G.kref <= P.wz
+                      && G.smem <= SMEM_MAX;
+  if (KPP_MW)   // one column a block over cw warps, aref from device memory
+    return common && G.cw >= 2 && G.cw <= CW_MAX && G.warps == G.cw
+           && P.wz <= 32 * KPP_NS * G.cw && G.aref_dev == 1 && in.aref_t
+           && (G.grid_dev == 0 || (G.grid_dev == 1 && in.grid_t))
+           && size_t(G.smem) == smem_bytes_mw(G.cw, G.grid_dev, tsize)
+           && G.blocks >= P.ncol;
+  return common && G.cw == 1 && G.grid_dev == 0 && P.wz <= 32 * KPP_NS
+         && G.warps >= 1 && G.warps <= MAX_WARPS
+         && (G.aref_dev == 0 || G.aref_dev == 1)
+         && (!G.aref_dev || (KPP_NS >= AREF_DEV_MIN_NS && in.aref_t))
+         && size_t(G.smem) == smem_bytes(KPP_NS, G.aref_dev ? 0 : G.kref,
+                                         G.warps, tsize)
+         && size_t(G.blocks) * G.warps >= size_t(P.ncol);
 }
 
 // A block of fewer than MAX_WARPS warps is taken where the shared memory
 // of 8 would not fit (float64 from NS = 4 up, float at NS = 8 with a deep
-// aref prefix).  With aref_dev (from AREF_DEV_MIN_NS slots up) the
-// kernels read in.aref_t, which must be given.
+// aref prefix).  With aref_dev (from AREF_DEV_MIN_NS slots up, and always
+// in the MW library) the kernels read in.aref_t, which must be given; with
+// grid_dev (MW) in.grid_t.
 template <typename K>
 int launch(K kern, const PassParams& P, const Geometry& G, cudaStream_t stream,
            const Inputs<KPP_REAL>& in, const Outputs<KPP_REAL>& out) {
-  const size_t need = smem_bytes(KPP_NS, G.aref_dev ? 0 : G.kref, G.warps,
-                                 int(sizeof(KPP_REAL)));
-  if (G.ns != KPP_NS || P.wz > 32 * KPP_NS
-      || G.warps < 1 || G.warps > MAX_WARPS || G.kref < 0 || G.kref > P.wz
-      || (G.aref_dev != 0 && G.aref_dev != 1)
-      || (G.aref_dev && (KPP_NS < AREF_DEV_MIN_NS || !in.aref_t))
-      || size_t(G.smem) != need || G.smem > SMEM_MAX
-      || size_t(G.blocks) * G.warps < size_t(P.ncol))
-    return int(cudaErrorInvalidValue);
+  if (!geometry_ok(P, G, in)) return int(cudaErrorInvalidValue);
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, G.smem);
   if (e != cudaSuccess) return int(e);
@@ -111,6 +138,7 @@ using kpp::Outputs;
 using kpp::PassParams;
 using Real = KPP_REAL;
 constexpr int NSL = KPP_NS;   // the level slots of this library's kernels
+constexpr bool MWL = KPP_MW;  // ... whose column spreads over several warps
 
 static void unpack(const void* ins, const void* outs, int n_out,
                    Inputs<Real>* in, Outputs<Real>* out) {
@@ -119,6 +147,7 @@ static void unpack(const void* ins, const void* outs, int n_out,
   for (int i = 0; i < kpp::N_IN; ++i) in->p[i] = static_cast<const Real*>(ip[i]);
   in->ref_hi = static_cast<const int*>(ip[kpp::N_IN]);
   in->aref_t = static_cast<const Real*>(ip[kpp::N_IN + 1]);
+  in->grid_t = static_cast<const Real*>(ip[kpp::N_IN + 2]);
   for (int i = 0; i < kpp::N_OUT_MAX; ++i)
     out->p[i] = i < n_out ? static_cast<Real*>(op[i]) : nullptr;
 }
@@ -128,8 +157,9 @@ extern "C" {
 // element size of the build, for the wrapper's dtype check
 int kpp_real_bytes() { return int(sizeof(Real)); }
 
-// the levels this library's kernels cover (32 x its level slots)
-int kpp_max_wz() { return 32 * NSL; }
+// the levels this library's kernels cover (32 x its level slots, times
+// the most warps of a column in the MW library)
+int kpp_max_wz() { return 32 * NSL * (MWL ? kpp::CW_MAX : 1); }
 
 #ifdef KPP_PHASES
 // the stage clocks of fused_pass.cuh: copy the 16 sums out, or zero them
@@ -144,7 +174,8 @@ int kpp_phase_zero() {
 
 // ins: host array of kpp::N_IN device pointers (the 25 pass inputs + the
 // depth prefix), then the int32 aref row extents, then aref's device tile
-// (null unless geom's aref_dev is set); outs: 9 (full=0) or 23
+// (null unless geom's aref_dev is set), then the grid rows' padded tile
+// (null unless geom's grid_dev is set); outs: 9 (full=0) or 23
 // (full=1) device pointers; params: host PassParams; geom: host Geometry;
 // stream: cudaStream_t.  Returns a cudaError_t code.
 int kpp_fused_pass(int full, const void* ins, const void* outs,
@@ -155,15 +186,15 @@ int kpp_fused_pass(int full, const void* ins, const void* outs,
   Outputs<Real> out;
   unpack(ins, outs, full ? 23 : 9, &in, &out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return full ? kpp::launch(kpp::fused_pass_kernel<Real, true, NSL>, P, G, st,
-                            in, out)
-              : kpp::launch(kpp::fused_pass_kernel<Real, false, NSL>, P, G,
-                            st, in, out);
+  return full ? kpp::launch(kpp::fused_pass_kernel<Real, true, NSL, MWL>, P,
+                            G, st, in, out)
+              : kpp::launch(kpp::fused_pass_kernel<Real, false, NSL, MWL>, P,
+                            G, st, in, out);
 }
 
 // ins: the step's 21 inputs placed in the pass slots (ux..sx repeat
 // u0..s0) + the depth prefix + the aref row extents + aref's device tile
-// (or null); outs: 9 device pointers.
+// (or null) + the grid rows' tile (or null); outs: 9 device pointers.
 int kpp_fused_step(const void* ins, const void* outs, const void* params,
                    const void* geom, void* stream) {
   const PassParams& P = *static_cast<const PassParams*>(params);
@@ -171,7 +202,7 @@ int kpp_fused_step(const void* ins, const void* outs, const void* params,
   Inputs<Real> in;
   Outputs<Real> out;
   unpack(ins, outs, 9, &in, &out);
-  return kpp::launch(kpp::fused_step_kernel<Real, NSL>, P, G,
+  return kpp::launch(kpp::fused_step_kernel<Real, NSL, MWL>, P, G,
                      static_cast<cudaStream_t>(stream), in, out);
 }
 

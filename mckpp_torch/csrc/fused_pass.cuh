@@ -1,5 +1,6 @@
 // The fused ocean pass and the whole ocean step for ONE column, run by ONE
-// warp.  Twins of _pass_body and _step_body in mckpp_torch/ops/fused_pass.py,
+// warp (up to 256 levels) or by the CW warps of one block (past 256).
+// Twins of _pass_body and _step_body in mckpp_torch/ops/fused_pass.py,
 // which are the plain versions these kernels are held against.
 //
 // Layout in device memory: every profile is (WZ, ncol) row-major, WZ = nz+2;
@@ -12,8 +13,8 @@
 // k / 32.  The number of slots NS is a template parameter of every
 // function below: NS = 3 covers WZ <= 96 (the production TerraMaris shape,
 // nz = 69), NS = 4 covers WZ <= 128 (nz = 100 of the single-column
-// configuration), NS = 6 covers WZ <= 192 and NS = 8 WZ <= 256 (MAXWZ;
-// a 250-level single column at 1 m); cuda_kernels.launch_geometry picks
+// configuration), NS = 6 covers WZ <= 192 and NS = 8 WZ <= 256 (a
+// 250-level single column at 1 m); cuda_kernels.launch_geometry picks
 // the smallest that covers WZ.  A live profile is an array T x[NS] in
 // registers whose every index is a compile-time constant after unrolling,
 // so no profile is indexed in local memory (at 6 and 8 slots a thread
@@ -27,6 +28,23 @@
 // is warp-uniform; each warp runs its own column's convergence and trap
 // loops and never waits for another column.
 //
+// A column over several warps (the template flag MW, the "cw" library):
+// past 256 levels one block holds one column, spread over CW = 2..8 warps
+// of NS = 4 slots (WZ <= 128 CW, MAXWZ = 1024).  Level k sits on warp
+// k / 128, lane k % 32, slot (k % 128) / 32; the column's rows in shared
+// memory hold LZ = 128 CW levels, shared by its warps.  Every exchange
+// across levels goes through those rows with a block barrier (the PCR and
+// scan strides too, whatever their length); a single level's value (lvl)
+// goes through a broadcast cell; bldepth's first crossing is the first of
+// the warps' own in level order; the column-wide AND and count are
+// __syncthreads_and and __syncthreads_count.  The column's scalars are
+// computed alike on every thread from the same shared values, so every
+// branch around a barrier is uniform over the block; a land column's
+// block skips the step's loops whole.  aref is read from device memory,
+// and so are the grid rows where the column's rows leave no room
+// (float64 at CW = 8).  With MW false every function below compiles to
+// the one-warp code (__syncwarp, shuffles, ballots).
+//
 // Order-sensitive pieces keep the plain version's numbers:
 // * bldepth's bulk Richardson scan is the plain max-plus doubling scan,
 //   stage for stage; the first crossing comes from ballots;
@@ -34,7 +52,8 @@
 //   aref in the k order of the dense loop (the skipped terms are exact
 //   zeros); the wrapper computes hi from aref once per aref tensor;
 // * the instability RMSD sums and the mode-2 and band depth sums run
-//   serially in level order (lanes 0..3 take one RMSD sum each);
+//   serially in level order (the column's first four threads take one
+//   RMSD sum each);
 // * the PCR solve keeps the plain elimination order;
 // * the rhsmod depth prefix sum comes in as an input, computed by the plain
 //   helper (fused_pass._depth_prefix), because its sums decide band edges
@@ -75,14 +94,17 @@ __device__ unsigned long long kpp_phase[16];
 
 namespace kpp {
 
-constexpr int NS_MAX = 8;         // level slots per lane, at most
-constexpr int MAXWZ = 32 * NS_MAX; // levels one warp covers, at most
+constexpr int NS_MAX = 8;         // level slots per lane of a one-warp column
+constexpr int MW_NS = 4;          // ... of a column over several warps (MW)
+constexpr int CW_MAX = 8;         // warps of one column, at most
+constexpr int MAXWZ = 32 * MW_NS * CW_MAX;  // levels a column covers (1024)
 // aref from device memory (Geometry::aref_dev) is compiled in from this
 // many slots up: below it one warp and aref's whole shared copy always
 // fit, and the 3- and 4-slot kernels keep their code without the branch
 constexpr int AREF_DEV_MIN_NS = 6;
-// In each function templated on NS, LZ = 32 * NS is the number of levels
-// of a profile row in shared memory.
+// In each function templated on NS, LZ is the number of levels of a
+// profile row in shared memory: 32 * NS for one warp, 32 * NS * CW for a
+// column over CW warps (Col::lz).
 constexpr unsigned FULLMASK = 0xffffffffu;
 constexpr double BIG = 1.0e30;    // the plain scan's -inf stand-in
 
@@ -109,15 +131,18 @@ struct PassParams {
 };
 
 // Launch geometry, computed by the wrapper (cuda_kernels.launch_geometry):
-// warps (= columns) per block, blocks, aref columns the reference averages
-// read, dynamic shared-memory bytes (smem_bytes below, checked by the
-// launcher), level slots per lane (the NS of the kernels launched), and
-// where the transposed aref is read from: 0 a copy in shared memory, 1 the
-// wrapper's (kref, LZ) tile in device memory (Inputs::aref_t), taken where
-// no block of 8 down to 1 warps holds the shared copy (float64 at 8 slots
-// on a stretched grid).
+// warps per block, blocks, aref columns the reference averages read,
+// dynamic shared-memory bytes (smem_bytes below, checked by the launcher),
+// level slots per lane (the NS of the kernels launched), where the
+// transposed aref is read from: 0 a copy in shared memory, 1 the wrapper's
+// (kref, LZ) tile in device memory (Inputs::aref_t), taken where no block
+// of 8 down to 1 warps holds the shared copy (float64 at 8 slots on a
+// stretched grid) and always by a column over several warps; the warps of
+// one column (cw: 1, or 2..CW_MAX for the MW kernels, whose block is one
+// column); and where the MW kernels read the grid rows: 0 a copy in
+// shared memory, 1 the wrapper's padded (6, LZ) tile (Inputs::grid_t).
 struct Geometry {
-  int warps, blocks, kref, smem, ns, aref_dev;
+  int warps, blocks, kref, smem, ns, aref_dev, cw, grid_dev;
 };
 
 // the 25 pass inputs in the order of make_fused_pass plus the depth prefix
@@ -134,11 +159,15 @@ constexpr int N_OUT_MAX = 23;
 
 // ref_hi: (WZ,) last nonzero column of each aref row, -1 for a zero row;
 // aref_t: aref transposed into a (kref, LZ) tile, zero past WZ, in device
-// memory (cuda_kernels._ref_tile), read where Geometry::aref_dev is set
+// memory (cuda_kernels._ref_tile), read where Geometry::aref_dev is set;
+// grid_t: the rows zm, hm, dm, tdn, tup, pfx padded to LZ levels as their
+// shared copy pads them (cuda_kernels._grid_tile), read where
+// Geometry::grid_dev is set
 template <typename T> struct Inputs {
   const T* p[N_IN];
   const int* ref_hi;
   const T* aref_t;
+  const T* grid_t;
 };
 template <typename T> struct Outputs { T* p[N_OUT_MAX]; };
 
@@ -152,6 +181,14 @@ enum {
   B_X0, B_X1, B_X2, B_X3, B_X4, NB
 };
 constexpr int NCV = NSC + 16;     // colscal rows, then the column outputs
+// MW: broadcast cells after the column values: lvl's level value at each
+// call site (its own cell, so no reader waits on a later writer), each
+// warp's first bldepth crossing, the four RMSD sums
+enum {
+  BC_RHO0 = 0, BC_CP0, BC_TA0, BC_SB0, BC_TSFC, BC_UREF, BC_VREF, BC_MNZ,
+  BC_SNZ, BC_TNZ, BC_HBL, BC_MATCH, BC_ENH = BC_MATCH + 9,
+  BC_FX = BC_ENH + 3, BC_RMSD = BC_FX + CW_MAX, NBC = BC_RMSD + 4
+};
 
 // per-warp stride in elements at ns level slots: padded to 4 (mod 32) so
 // that the staging accesses of 8 warps x 4 levels fall on 32 different
@@ -167,6 +204,20 @@ KPP_HD int warp_stride(int ns) {
 KPP_HD size_t smem_bytes(int ns, int kref, int warps, int tsize) {
   const int lz = 32 * ns;
   return size_t((6 + kref) * lz + warps * warp_stride(ns)) * tsize
+         + size_t(lz) * sizeof(int);
+}
+
+// MW: the elements of one column's area at lz levels a row (its NB rows,
+// the column values, the broadcast cells)
+KPP_HD int col_stride(int lz) { return NB * lz + NCV + NBC; }
+
+// dynamic shared memory of one MW block, one column over cw warps (LZ =
+// 32 MW_NS cw): the grid rows (6 x LZ, none where they are read from
+// device memory), the column's area, then hi (LZ ints); aref is always
+// read from device memory
+KPP_HD size_t smem_bytes_mw(int cw, int grid_dev, int tsize) {
+  const int lz = 32 * MW_NS * cw;
+  return size_t((grid_dev ? 0 : 6) * lz + col_stride(lz)) * tsize
          + size_t(lz) * sizeof(int);
 }
 
@@ -196,38 +247,73 @@ template <typename T> struct Grid {
   const int* hi;    // LZ: last nonzero k of aref row n, -1 beyond wz
 };
 
-// one warp's column in shared memory
-template <typename T, int NS> struct Warp {
-  static constexpr int LZ = 32 * NS;
-  T* b;     // NB slots of LZ
-  T* cv;    // colscal [0, NSC), column outputs [NSC, NSC + 16)
-  int lane;
-  KPP_DEV T* slot(int i) const { return b + i * LZ; }
+// one column's area in shared memory and this thread's place in it: its
+// lane; (MW) k0, the level of its slot 0 (128 x its warp in the column +
+// lane), and lzc, the levels of a row
+template <typename T, int NS, bool MW> struct Col {
+  T* b;     // NB slots of LZ levels
+  T* cv;    // colscal [0, NSC), column outputs [NSC, NSC + 16), then (MW)
+            // the broadcast cells
+  int lane, k0, lzc;
+  // The one-warp forms are written as the constants they are (not
+  // through a helper that returns one), and a one-warp block takes its
+  // lane from its own variable, not back from this struct (col_of,
+  // pass_block), so that those kernels compile to the registers they had
+  // before the MW form existed.
+  KPP_DEV int lev0() const {   // the level of slot 0
+    if constexpr (MW) return k0; else return lane;
+  }
+  KPP_DEV T* slot(int i) const {
+    if constexpr (MW) return b + i * lzc; else return b + i * (32 * NS);
+  }
 };
+
+// the barrier of one column's threads: its warp, or (MW) its block
+template <bool MW> KPP_DEV void col_sync() {
+  if (MW)
+    __syncthreads();
+  else
+    __syncwarp();
+}
 
 #define KPP_FOR_Q _Pragma("unroll") for (int q = 0; q < NS; ++q)
 
-// level k of x on every lane (k warp-uniform, 0 <= k < LZ)
-template <typename T, int NS> KPP_DEV T lvl(const T (&x)[NS], int k) {
-  T v = x[0];
+// level k of x on every thread of the column (k uniform, 0 <= k < LZ): a
+// shuffle, or (MW) through broadcast cell ``cell`` after a barrier
+template <typename T, int NS, bool MW>
+KPP_DEV T lvl(const Col<T, NS, MW>& w, const T (&x)[NS], int k, int cell) {
+  if (!MW) {
+    T v = x[0];
 #pragma unroll
-  for (int q = 1; q < NS; ++q)
-    if (k >= 32 * q) v = x[q];
-  return __shfl_sync(FULLMASK, v, k & 31);
+    for (int q = 1; q < NS; ++q)
+      if (k >= 32 * q) v = x[q];
+    return __shfl_sync(FULLMASK, v, k & 31);
+  }
+  const int kw = k % (32 * NS);           // k's place in its warp
+  if (w.k0 == k - kw + (k & 31)) {        // the thread that holds k
+    T v = x[0];
+#pragma unroll
+    for (int q = 1; q < NS; ++q)
+      if (kw >= 32 * q) v = x[q];
+    w.cv[NCV + cell] = v;
+  }
+  __syncthreads();
+  return w.cv[NCV + cell];
 }
-// the plain one-hot gather: 0 outside 0..wz-1 (k warp-uniform)
-template <typename T, int NS>
-KPP_DEV T ext_l(const T (&x)[NS], int k, int wz) {
-  return (k >= 0 && k < wz) ? lvl(x, k) : T(0);
+// the plain one-hot gather: 0 outside 0..wz-1 (k uniform)
+template <typename T, int NS, bool MW>
+KPP_DEV T ext_l(const Col<T, NS, MW>& w, const T (&x)[NS], int k, int wz,
+                int cell) {
+  return (k >= 0 && k < wz) ? lvl(w, x, k, cell) : T(0);
 }
 template <typename T> KPP_DEV T ext(const T* a, int idx, int wz) {
   return (idx >= 0 && idx < wz) ? a[idx] : T(0);
 }
-// publish this lane's levels of x to an exchange row (callers bracket a
-// group of puts with __syncwarp)
+// publish this thread's levels of x (slot 0 at level k0) to an exchange
+// row (callers bracket a group of puts with col_sync)
 template <typename T, int NS>
-KPP_DEV void put(T* xb, const T (&x)[NS], int lane) {
-  KPP_FOR_Q xb[lane + 32 * q] = x[q];
+KPP_DEV void put(T* xb, const T (&x)[NS], int k0) {
+  KPP_FOR_Q xb[k0 + 32 * q] = x[q];
 }
 
 template <typename T>
@@ -238,9 +324,9 @@ KPP_DEV void ws_fn(const PassParams& P, T sig, T h, T us, T bf, T* wm, T* ws) {
     wscale_nodal(sig, h, us, bf, T(P.vonk), wm, ws);
 }
 
-// x at level j - s (dn) or j + s (up) for s = 32, 64 or 128 (the stages
-// of WZ <= 256): whole slots move within each lane, no other lane is read;
-// fill outside 0..LZ-1
+// One warp's column: x at level j - s (dn) or j + s (up) for s = 32, 64
+// or 128 (the stages of WZ <= 256): whole slots move within each lane, no
+// other lane is read; fill outside 0..LZ-1
 template <typename T, int NS>
 KPP_DEV void slot_dn(const T (&x)[NS], int s, T fill, T (&out)[NS]) {
   const int d = s >> 5;
@@ -268,14 +354,16 @@ KPP_DEV void slot_up(const T (&x)[NS], int s, T fill, T (&out)[NS]) {
 
 // tridiagonal coefficients on rows (solvers.F90:14-44); leaves diff
 // published in xd
-template <typename T, int NS>
-KPP_DEV void tridcof(const T (&diff)[NS], const Grid<T>& g, int nz, int wz,
-                     int lane, T* xd, T (&cu)[NS], T (&cc)[NS], T (&cl)[NS]) {
-  __syncwarp();
-  put(xd, diff, lane);
-  __syncwarp();
+template <typename T, int NS, bool MW>
+KPP_DEV void tridcof(const Col<T, NS, MW>& w, const T (&diff)[NS],
+                     const Grid<T>& g, int nz, int wz, T* xd, T (&cu)[NS],
+                     T (&cc)[NS], T (&cl)[NS]) {
+  const int k0 = w.lev0();
+  col_sync<MW>();
+  put(xd, diff, k0);
+  col_sync<MW>();
   KPP_FOR_Q {
-    const int r = lane + 32 * q;
+    const int r = k0 + 32 * q;
     const bool in1 = r + 1 < wz;
     T diff1 = in1 ? xd[r + 1] : T(0);
     T tdn1 = in1 ? g.tdn[r + 1] : T(0);
@@ -292,10 +380,10 @@ template <typename T, int NS>
 KPP_DEV void tridrhs(const Grid<T>& g, const T* yo, const T* xn,
                      const T (&diff)[NS], const T* xd, const T (&ghat)[NS],
                      const T* xg, T sturflux, T ghatflux, T dto, int nz,
-                     int wz, int lane, T (&rhs)[NS]) {
+                     int wz, int k0, T (&rhs)[NS]) {
   const T bot = yo[nz] * g.tdn[nz] * xd[nz];
   KPP_FOR_Q {
-    const int r = lane + 32 * q;
+    const int r = k0 + 32 * q;
     const bool in1 = r + 1 < wz;
     T d1 = in1 ? xd[r + 1] : T(0);
     T gh1 = in1 ? xg[r + 1] : T(0);
@@ -310,21 +398,22 @@ KPP_DEV void tridrhs(const Grid<T>& g, const T* yo, const T* xn,
 }
 
 // parallel cyclic reduction (ops/fused_pass.py _pcr_solve) of NR = 1 or 2
-// systems that share one matrix, one warp; the solutions overwrite rhs0
-// (and rhs1 with NR = 2).  Stages s < 32 exchange through the five
-// consecutive exchange rows x5; stages 32, 64 and 128 move whole slots.
-template <typename T, int NR, int NS>
-KPP_DEV void pcr_solve(const T (&cu)[NS], const T (&cc)[NS],
-                       const T (&cl)[NS], T (&rhs0)[NS], T (&rhs1)[NS],
-                       int nz, int wz, int lane, T* x5) {
-  constexpr int LZ = 32 * NS;
+// systems that share one matrix, one column; the solutions overwrite rhs0
+// (and rhs1 with NR = 2).  Stages s < 32 (every stage, MW) exchange
+// through the five consecutive exchange rows x5; on one warp stages 32, 64
+// and 128 move whole slots.
+template <typename T, int NR, int NS, bool MW>
+KPP_DEV void pcr_solve(const Col<T, NS, MW>& w, const T (&cu)[NS],
+                       const T (&cc)[NS], const T (&cl)[NS], T (&rhs0)[NS],
+                       T (&rhs1)[NS], int nz, int wz, T* x5) {
+  const int LZ = MW ? w.lzc : 32 * NS, k0 = w.lev0();
   T* xa = x5;
   T* xc = x5 + LZ;
   T* xb = x5 + 2 * LZ;
   T* xr = x5 + 3 * LZ;     // NR rows
   T a[NS], b[NS], c[NS], r[NR][NS];
   KPP_FOR_Q {
-    const bool in = lane + 32 * q < nz;
+    const bool in = k0 + 32 * q < nz;
     a[q] = in ? cu[q] : T(0);
     b[q] = in ? cc[q] : T(1);
     c[q] = in ? cl[q] : T(0);
@@ -335,16 +424,16 @@ KPP_DEV void pcr_solve(const T (&cu)[NS], const T (&cc)[NS],
     T rb[NS], rb_lo[NS], rb_hi[NS], a_lo[NS], a_hi[NS], c_lo[NS], c_hi[NS];
     T r_lo[NR][NS], r_hi[NR][NS];
     KPP_FOR_Q rb[q] = T(1) / (b[q] == T(0) ? T(1) : b[q]);
-    if (s < 32) {
-      __syncwarp();
-      put(xa, a, lane);
-      put(xc, c, lane);
-      put(xb, rb, lane);
+    if (MW || s < 32) {
+      col_sync<MW>();
+      put(xa, a, k0);
+      put(xc, c, k0);
+      put(xb, rb, k0);
 #pragma unroll
-      for (int i = 0; i < NR; ++i) put(xr + i * LZ, r[i], lane);
-      __syncwarp();
+      for (int i = 0; i < NR; ++i) put(xr + i * LZ, r[i], k0);
+      col_sync<MW>();
       KPP_FOR_Q {
-        const int j = lane + 32 * q;
+        const int j = k0 + 32 * q;
         const bool lo = j - s >= 0, up = j + s < LZ;
         rb_lo[q] = lo ? xb[j - s] : T(1);
         rb_hi[q] = up ? xb[j + s] : T(1);
@@ -372,7 +461,7 @@ KPP_DEV void pcr_solve(const T (&cu)[NS], const T (&cc)[NS],
       }
     }
     KPP_FOR_Q {
-      const bool hi = lane + 32 * q + s < wz;   // beyond: shifted-in fill
+      const bool hi = k0 + 32 * q + s < wz;   // beyond: shifted-in fill
       T alpha = -a[q] * rb_lo[q];
       T beta = -c[q] * (hi ? rb_hi[q] : T(1));
       T ah = hi ? a_hi[q] : T(0), ch = hi ? c_hi[q] : T(0);
@@ -413,7 +502,7 @@ KPP_DEV void ref_sums(const T* aT, int lz, int n, int hi, const T* x0,
 
 // rhsmod band basis (mode 6/7 walk): rows [lo, n2r] with n2r the first row
 // >= lo (below nz) whose depth depth_off + (pfx[r] - sub) reaches target,
-// else nz-1; every lane walks alike
+// else nz-1; every thread walks alike
 template <typename T>
 KPP_DEV void band(const T* pfx, T sub, T depth_off, T target, int lo, int nz,
                   const Grid<T>& g, int* hi_out, T* val_out) {
@@ -426,20 +515,33 @@ KPP_DEV void band(const T* pfx, T sub, T depth_off, T target, int lo, int nz,
   *val_out = T(1) / (delta > T(0) ? delta : T(1));
 }
 
-// One fused pass of the warp's column.  In: u..s (current iterate) and
+// MW: the column's first bldepth crossing, the first of its warps' own
+// (``firstx``, alike on a warp's lanes; -1 for none) in level order
+template <typename T, int NS, bool MW>
+KPP_DEV int first_crossing(const Col<T, NS, MW>& w, int firstx) {
+  T* fx = w.cv + NCV + BC_FX;
+  const int wc = (w.k0 - w.lane) / (32 * NS), cw = w.lzc / (32 * NS);
+  if (w.lane == 0) fx[wc] = T(firstx);
+  __syncthreads();
+  int f = -1;
+  for (int i = 0; i < cw && f < 0; ++i) f = int(fx[i]);
+  return f;
+}
+
+// One fused pass of the column.  In: u..s (current iterate) and
 // ux..sx.  Out: u..s become the solved u_n..s_n and ux..sx the
 // under-relaxed iterate (the plain fast tuple's 2nd quartet).  f_cor is
 // the Coriolis parameter this pass uses.  With FULL, the diagnostic
 // profiles go to their full_slot slots and colout16 to the column values
 // (the input slots they overwrite are dead by then).
-template <typename T, bool FULL, int NS>
+template <typename T, bool FULL, int NS, bool MW>
 KPP_DEV void pass_warp(const PassParams& P, const Grid<T>& g,
-                       const Warp<T, NS>& w,
+                       const Col<T, NS, MW>& w,
                        T (&u)[NS], T (&v)[NS], T (&t)[NS], T (&s)[NS],
                        T (&ux)[NS], T (&vx)[NS], T (&tx)[NS], T (&sx)[NS],
                        T f_cor, ColOut<T>* co) {
-  constexpr int LZ = 32 * NS;
-  const int nz = P.nz, wz = P.wz, lane = w.lane;
+  const int LZ = MW ? w.lzc : 32 * NS;
+  const int nz = P.nz, wz = P.wz, k0 = w.lev0();
   const T dto = T(P.dto), grav = T(P.grav), zbot = T(P.zbot);
   const T lam = T(LAMBDA_SMOOTH), oml = T(1.0 - LAMBDA_SMOOTH);
   const T* cv = w.cv;
@@ -466,7 +568,7 @@ KPP_DEV void pass_warp(const PassParams& P, const Grid<T>& g,
   T alpha[NS], beta[NS], rho[NS], cp[NS], buoy[NS];
   const T sref = cv[CS_SREF];
   KPP_FOR_Q {
-    const int k = lane + 32 * q;
+    const int k = k0 + 32 * q;
     alpha[q] = beta[q] = rho[q] = cp[q] = buoy[q] = T(0);
     if (k < wz) {
       T s_abs = sx[q] + sref, pr = -g.zm[k], al, be, sig0;
@@ -477,7 +579,7 @@ KPP_DEV void pass_warp(const PassParams& P, const Grid<T>& g,
       cp[q] = cpsw(s_abs, tx[q], pr);
       buoy[q] = div_s(-grav * sig0, 1000.0);
     }
-    if (FULL) {   // the u..sx input slots are dead: each lane read its own
+    if (FULL) {   // the u..sx input slots are dead: each thread read its own
       w.slot(full_slot(4 + FO_RHO))[k] = rho[q];
       w.slot(full_slot(4 + FO_CP))[k] = cp[q];
       w.slot(full_slot(4 + FO_ALPHA))[k] = alpha[q];
@@ -485,8 +587,9 @@ KPP_DEV void pass_warp(const PassParams& P, const Grid<T>& g,
       w.slot(full_slot(4 + FO_BUOY))[k] = buoy[q];
     }
   }
-  const T rho0 = lvl(rho, 0), cp0 = lvl(cp, 0);
-  const T ta0 = lvl(alpha, 0), sb0 = lvl(beta, 0), t_sfc = lvl(tx, 0);
+  const T rho0 = lvl(w, rho, 0, BC_RHO0), cp0 = lvl(w, cp, 0, BC_CP0);
+  const T ta0 = lvl(w, alpha, 0, BC_TA0), sb0 = lvl(w, beta, 0, BC_SB0);
+  const T t_sfc = lvl(w, tx, 0, BC_TSFC);
   const T rhoh2o = T(1000.0) + sig0_of(T(0), t_sfc, -g.zm[0]);
   const T rhob = T(1000.0) + sig0_of(T(P.sice), t_sfc, -g.zm[0]);
 
@@ -498,7 +601,7 @@ KPP_DEV void pass_warp(const PassParams& P, const Grid<T>& g,
   {
     T* swdk = w.slot(B_SWDK);
     KPP_FOR_Q {
-      const int k = lane + 32 * q;
+      const int k = k0 + 32 * q;
       T swdk_new = rfac * k_exp(-g.dm[k] / a1j)
                    + (T(1) - rfac) * k_exp(-g.dm[k] / a2j);
       T swdk_opt = first * swdk_new + (T(1) - first) * swdk[k];
@@ -529,16 +632,16 @@ KPP_DEV void pass_warp(const PassParams& P, const Grid<T>& g,
   T ritop[NS], dvsq[NS], dbloc[NS], shsq[NS];
   T uref_b = T(0), vref_b = T(0);
   {
-    __syncwarp();
-    put(X0, ux, lane);
-    put(X1, vx, lane);
-    put(X2, buoy, lane);
-    __syncwarp();
+    col_sync<MW>();
+    put(X0, ux, k0);
+    put(X1, vx, k0);
+    put(X2, buoy, k0);
+    col_sync<MW>();
     T urefv[NS], vrefv[NS];
     KPP_FOR_Q {
-      const int n = lane + 32 * q;
+      const int n = k0 + 32 * q;
       T uref, vref, bref;
-      if (NS >= AREF_DEV_MIN_NS && g.arefG)
+      if ((MW || NS >= AREF_DEV_MIN_NS) && g.arefG)
         ref_sums<T, true>(g.arefG, LZ, n, g.hi[n], X0, X1, X2, &uref, &vref,
                           &bref);
       else
@@ -560,8 +663,8 @@ KPP_DEV void pass_warp(const PassParams& P, const Grid<T>& g,
       }
     }
     if (FULL) {
-      uref_b = lvl(urefv, nz - 1);
-      vref_b = lvl(vrefv, nz - 1);
+      uref_b = lvl(w, urefv, nz - 1, BC_UREF);
+      vref_b = lvl(w, vrefv, nz - 1, BC_VREF);
     }
   }
 
@@ -569,17 +672,17 @@ KPP_DEV void pass_warp(const PassParams& P, const Grid<T>& g,
   // ---- rimix + z121 ------------------------------------------------------------
   T rig[NS], difm[NS], difs[NS], dift[NS], ghat[NS];
   KPP_FOR_Q {
-    const int k = lane + 32 * q;
+    const int k = k0 + 32 * q;
     const bool im = k >= 1 && k <= nz;
     rig[q] = (P.lri && im)
                  ? dbloc[q] * (g.zm[k - 1] - g.zm[k]) / (shsq[q] + T(EPS16))
                  : T(0);
   }
-  __syncwarp();
-  put(X3, rig, lane);
-  __syncwarp();
+  col_sync<MW>();
+  put(X3, rig, k0);
+  col_sync<MW>();
   KPP_FOR_Q {
-    const int k = lane + 32 * q;
+    const int k = k0 + 32 * q;
     const bool im = k >= 1 && k <= nz;
     difm[q] = difs[q] = dift[q] = ghat[q] = T(0);
     if (P.lri && im) {
@@ -611,14 +714,14 @@ KPP_DEV void pass_warp(const PassParams& P, const Grid<T>& g,
   }
 
   if (P.ldd) {  // double diffusion (ddmix_mod :12-52)
-    __syncwarp();
-    put(X0, alpha, lane);
-    put(X1, beta, lane);
-    put(X2, tx, lane);
-    put(X4, sx, lane);
-    __syncwarp();
+    col_sync<MW>();
+    put(X0, alpha, k0);
+    put(X1, beta, k0);
+    put(X2, tx, k0);
+    put(X4, sx, k0);
+    col_sync<MW>();
     KPP_FOR_Q {
-      const int k = lane + 32 * q;
+      const int k = k0 + 32 * q;
       if (k >= 1 && k <= nz) {
         T adt = T(0.5) * (X0[k - 1] + alpha[q]) * (X2[k - 1] - tx[q]);
         T bds = T(0.5) * (X1[k - 1] + beta[q]) * (X4[k - 1] - sx[q]);
@@ -643,9 +746,10 @@ KPP_DEV void pass_warp(const PassParams& P, const Grid<T>& g,
     }
   }
   {  // bottom kmp1 coefficient for blmix matching (kppmix :58-62)
-    const T m_nz = lvl(difm, nz), s_nz = lvl(difs, nz), t_nz = lvl(dift, nz);
+    const T m_nz = lvl(w, difm, nz, BC_MNZ), s_nz = lvl(w, difs, nz, BC_SNZ),
+            t_nz = lvl(w, dift, nz, BC_TNZ);
     KPP_FOR_Q {
-      if (lane + 32 * q == nz + 1) {
+      if (k0 + 32 * q == nz + 1) {
         difm[q] = m_nz;
         difs[q] = s_nz;
         dift[q] = t_nz;
@@ -662,25 +766,26 @@ KPP_DEV void pass_warp(const PassParams& P, const Grid<T>& g,
     const T hek = T(CEKMAN) * ustar / (k_abs(f_cor) + T(EPS16));
     const T dmo_num = div_s(T(CMONOB) * (ustar * ustar * ustar), P.vonk);
     const T* swfrac = w.slot(B_SWFRAC);
-    __syncwarp();
-    put(X0, dbloc, lane);
-    put(X1, ritop, lane);
-    put(X2, dvsq, lane);
-    __syncwarp();
+    col_sync<MW>();
+    put(X0, dbloc, k0);
+    put(X1, ritop, k0);
+    put(X2, dvsq, k0);
+    col_sync<MW>();
     // The first crossing is usually in slot 0 (levels < 32), and the
     // doubling scan's values there are final after its stages < 32, so
     // slot 0 goes first; slots 1..NS-1 only when it has no crossing
-    // (levels past the first crossing never change hbl or kbl).
+    // (levels past the first crossing never change hbl or kbl).  (MW: the
+    // first round is levels < 32, slot 0 of the column's first warp.)
     T hmin_l[NS];
     int firstx = -1;
     for (int nsl = 1;; nsl = NS) {
       // per-level terms; the scan starts from m = raw, c = 1e-16 on 2..nz
       T m_acc[NS], c_acc[NS], dmo_l[NS], hekman_l[NS];
       KPP_FOR_Q {
-        const int k = lane + 32 * q;
+        const int k = k0 + 32 * q;
         m_acc[q] = T(-BIG);
         c_acc[q] = dmo_l[q] = hekman_l[q] = T(0);
-        if (q < nsl && k >= 2 && k <= nz) {
+        if ((MW ? nsl > 1 || k < 32 : q < nsl) && k >= 2 && k <= nz) {
           T z_kl = g.zm[k - 1], z_klm1 = g.zm[k - 2];
           T bfsfc_l = b0 + b0sol * (T(1) - swfrac[k - 1]);
           T stable_l = (bfsfc_l + T(EPS16) >= T(0)) ? T(1) : T(0);
@@ -701,13 +806,13 @@ KPP_DEV void pass_warp(const PassParams& P, const Grid<T>& g,
       const int smax = nsl == 1 ? 32 : wz;
       for (int step = 1; step < wz && step < smax; step *= 2) {
         T m_s[NS], c_s[NS];
-        if (step < 32) {
-          __syncwarp();
-          put(X3, m_acc, lane);
-          put(X4, c_acc, lane);
-          __syncwarp();
+        if (MW || step < 32) {
+          col_sync<MW>();
+          put(X3, m_acc, k0);
+          put(X4, c_acc, k0);
+          col_sync<MW>();
           KPP_FOR_Q {
-            const int j = lane + 32 * q - step;
+            const int j = k0 + 32 * q - step;
             m_s[q] = j >= 0 ? X3[j] : T(-BIG);
             c_s[q] = j >= 0 ? X4[j] : T(0);
           }
@@ -722,15 +827,15 @@ KPP_DEV void pass_warp(const PassParams& P, const Grid<T>& g,
       }
       T rib[NS];
       KPP_FOR_Q rib[q] = k_max(m_acc[q], c_acc[q]);
-      __syncwarp();
-      put(X3, rib, lane);
-      put(X4, dmo_l, lane);
-      __syncwarp();
+      col_sync<MW>();
+      put(X3, rib, k0);
+      put(X4, dmo_l, k0);
+      col_sync<MW>();
       KPP_FOR_Q {
-        const int k = lane + 32 * q;
+        const int k = k0 + 32 * q;
         bool cross = false;
         hmin_l[q] = T(0);
-        if (q < nsl && k >= 2 && k <= nz) {
+        if ((MW ? nsl > 1 || k < 32 : q < nsl) && k >= 2 && k <= nz) {
           T z_kl = g.zm[k - 1], z_klm1 = g.zm[k - 2];
           T rib_prev = X3[k - 1];
           T dmo_prev = k == 2 ? -zbot : X4[k - 1];
@@ -746,12 +851,14 @@ KPP_DEV void pass_warp(const PassParams& P, const Grid<T>& g,
           cross = hmin < -z_kl;
         }
         unsigned bal = __ballot_sync(FULLMASK, cross);
-        if (firstx < 0 && bal) firstx = 32 * q + __ffs(bal) - 1;
+        if (firstx < 0 && bal)
+          firstx = (MW ? k0 - w.lane : 0) + 32 * q + __ffs(bal) - 1;
       }
+      if (MW) firstx = first_crossing(w, firstx);
       if (firstx >= 0 || nsl == NS || nz < 32) break;
     }
     kbl = firstx >= 0 ? firstx : nz;
-    hbl = firstx >= 0 ? lvl(hmin_l, firstx) : -g.zm[nz - 1];
+    hbl = firstx >= 0 ? lvl(w, hmin_l, firstx, BC_HBL) : -g.zm[nz - 1];
 
     KPP_MARK(4);   // bldepth
     // final surface forcing at hbl (:187-201)
@@ -772,9 +879,10 @@ KPP_DEV void pass_warp(const PassParams& P, const Grid<T>& g,
     T hm_kn = ext(g.hm, kn - 1, wz), hm_knp1 = ext(g.hm, kn, wz);
     T delhat = T(0.5) * hm_kn - ext(g.zm, kn - 1, wz) - hbl;
     T r_frac = T(1) - delhat / hm_kn;
-    auto match = [&](const T (&dif)[NS], T* dp_out) {
-      T d_m1 = ext_l(dif, kn - 1, wz), d_0 = ext_l(dif, kn, wz),
-        d_p1 = ext_l(dif, kn + 1, wz);
+    auto match = [&](const T (&dif)[NS], int cell, T* dp_out) {
+      T d_m1 = ext_l(w, dif, kn - 1, wz, cell),
+        d_0 = ext_l(w, dif, kn, wz, cell + 1),
+        d_p1 = ext_l(w, dif, kn + 1, wz, cell + 2);
       T dvdzup = (d_m1 - d_0) / hm_kn;
       T dvdzdn = (d_0 - d_p1) / hm_knp1;
       T dp = T(0.5) * ((T(1) - r_frac) * (dvdzup + k_abs(dvdzup))
@@ -783,9 +891,9 @@ KPP_DEV void pass_warp(const PassParams& P, const Grid<T>& g,
       return d_0 + dp * delhat;
     };
     T viscp, difsp, diftp;
-    T visch = match(difm, &viscp);
-    T difsh = match(difs, &difsp);
-    T difth = match(dift, &diftp);
+    T visch = match(difm, BC_MATCH, &viscp);
+    T difsh = match(difs, BC_MATCH + 3, &difsp);
+    T difth = match(dift, BC_MATCH + 6, &diftp);
     T u2 = ustar * ustar;
     T f1 = stable * T(C1_WS) * bfsfc / (u2 * u2 + T(EPS20));
     T gat1m = visch / hbl / (wm_h + T(EPS20));
@@ -833,14 +941,14 @@ KPP_DEV void pass_warp(const PassParams& P, const Grid<T>& g,
         T dstar = om * om * dkm1_x + delta * delta * dkmp5;
         return om * dif_e + delta * dstar;
       };
-      enh_m = enh(lvl(difm, ki_e), bm, dkm1_m);
-      enh_s = enh(lvl(difs, ki_e), bs, dkm1_s);
-      enh_t = enh(lvl(dift, ki_e), bt, dkm1_t);
+      enh_m = enh(lvl(w, difm, ki_e, BC_ENH), bm, dkm1_m);
+      enh_s = enh(lvl(w, difs, ki_e, BC_ENH + 1), bs, dkm1_s);
+      enh_t = enh(lvl(w, dift, ki_e, BC_ENH + 2), bt, dkm1_t);
       enh_g = (T(1) - case_a) * gh;
     }
     // ---- merge boundary layer and interior (kppmix :100-124) ---------------
     KPP_FOR_Q {
-      const int k = lane + 32 * q;
+      const int k = k0 + 32 * q;
       if (k >= 1 && k < kbl && k <= nz) {
         if (sel_ok && k == ki_e) {
           difm[q] = enh_m;
@@ -861,16 +969,16 @@ KPP_DEV void pass_warp(const PassParams& P, const Grid<T>& g,
     hbl = -g.zm[nz - 1];
     kbl = nz;
   }
-  if (FULL) {   // swfrac (read across lanes by bldepth) is dead now
-    __syncwarp();
+  if (FULL) {   // swfrac (read across levels by bldepth) is dead now
+    col_sync<MW>();
     T* o = w.slot(full_slot(4 + FO_RIG));
-    KPP_FOR_Q o[lane + 32 * q] = rig[q];
+    KPP_FOR_Q o[k0 + 32 * q] = rig[q];
   }
 
   KPP_MARK(5);   // blmix + enhance + merge
   // bottom diffusivity limits + no bottom ghat (verticalmixing :151-159)
   KPP_FOR_Q {
-    const int k = lane + 32 * q;
+    const int k = k0 + 32 * q;
     if (k >= nz) {
       difm[q] = T(VLIMIT_BOTTOM);
       difs[q] = T(DLIMIT_BOTTOM);
@@ -883,32 +991,32 @@ KPP_DEV void pass_warp(const PassParams& P, const Grid<T>& g,
   const T hm_sfc = g.hm[0];
   T cu[NS], cc[NS], cl[NS], rhs_t[NS], rhs_s[NS];
   // U / V with semi-implicit Coriolis (:44-72)
-  tridcof(difm, g, nz, wz, lane, X0, cu, cc, cl);
+  tridcof(w, difm, g, nz, wz, X0, cu, cc, cl);
   const T bot_m = g.tdn[nz] * X0[nz];
   const T fc = dto * f_cor * T(0.5);
   KPP_FOR_Q {
-    const int r = lane + 32 * q;
+    const int r = k0 + 32 * q;
     T x = UO[r] + fc * (VO[r] + vx[q]);
     if (r == 0) x = x + -dto * wu0x / hm_sfc;
     if (r == nz - 1) x = x + bot_m * UO[nz];
     rhs_t[q] = x;
   }
-  pcr_solve<T, 1>(cu, cc, cl, rhs_t, rhs_t, nz, wz, lane, X0);
+  pcr_solve<T, 1>(w, cu, cc, cl, rhs_t, rhs_t, nz, wz, X0);
   KPP_FOR_Q {
-    const int r = lane + 32 * q;
+    const int r = k0 + 32 * q;
     u[q] = r < nz ? rhs_t[q] : (r == nz ? UO[r] : T(0));
   }
   KPP_FOR_Q {
-    const int r = lane + 32 * q;
+    const int r = k0 + 32 * q;
     T us_r = r < nz ? u[q] : T(0);   // the solve's own rows (0 below nz)
     T x = VO[r] - fc * (UO[r] + us_r);
     if (r == 0) x = x + -dto * wu0y / hm_sfc;
     if (r == nz - 1) x = x + bot_m * VO[nz];
     rhs_t[q] = x;
   }
-  pcr_solve<T, 1>(cu, cc, cl, rhs_t, rhs_t, nz, wz, lane, X0);
+  pcr_solve<T, 1>(w, cu, cc, cl, rhs_t, rhs_t, nz, wz, X0);
   KPP_FOR_Q {
-    const int r = lane + 32 * q;
+    const int r = k0 + 32 * q;
     v[q] = r < nz ? rhs_t[q] : (r == nz ? VO[r] : T(0));
   }
 
@@ -919,13 +1027,14 @@ KPP_DEV void pass_warp(const PassParams& P, const Grid<T>& g,
   // per system as two solves).
   bool ts_eq = true;
   KPP_FOR_Q ts_eq = ts_eq && difs[q] == dift[q];
-  const bool same_ts = __all_sync(FULLMASK, ts_eq);
-  tridcof(dift, g, nz, wz, lane, X0, cu, cc, cl);
-  __syncwarp();
-  put(X1, ghat, lane);
-  put(X2, wxnt, lane);
-  __syncwarp();
-  tridrhs(g, TO, X2, dift, X0, ghat, X1, wx0t, wx0t, dto, nz, wz, lane, rhs_t);
+  const bool same_ts = MW ? __syncthreads_and(ts_eq)
+                          : __all_sync(FULLMASK, ts_eq);
+  tridcof(w, dift, g, nz, wz, X0, cu, cc, cl);
+  col_sync<MW>();
+  put(X1, ghat, k0);
+  put(X2, wxnt, k0);
+  col_sync<MW>();
+  tridrhs(g, TO, X2, dift, X0, ghat, X1, wx0t, wx0t, dto, nz, wz, k0, rhs_t);
   T fcorr = cv[CS_FCORRP];
   if (P.l_relax_sst && !P.l_fcorr_withz && !P.l_fcorr) {
     T relax_sst = cv[CS_RELAX_SST], sst0 = cv[CS_SST0];
@@ -933,18 +1042,18 @@ KPP_DEV void pass_warp(const PassParams& P, const Grid<T>& g,
     T dm_kmixe = ext(g.dm, kbl, wz);
     T to_sfc = TO[0];
     T incr = dto * relax_sst * (sst0 - to_sfc) * dm_kmixe / hm_sfc;
-    if (!P.l_relax_calconly && do_rlx && lane == 0)
+    if (!P.l_relax_calconly && do_rlx && k0 == 0)
       rhs_t[0] = rhs_t[0] + incr;
     fcorr = do_rlx ? relax_sst * (sst0 - to_sfc) * dm_kmixe * rho0 * cp0 : T(0);
   }
-  if (P.l_fcorr && !P.l_relax_sst && !P.l_fcorr_withz && lane == 0)
+  if (P.l_fcorr && !P.l_relax_sst && !P.l_fcorr_withz && k0 == 0)
     rhs_t[0] = rhs_t[0] + dto * cv[CS_FCORR2D] / (rho0 * cp0 * hm_sfc);
   {
     const T relax_ocnt = cv[CS_RELAX_OCNT];
     T* ocnt = w.slot(B_OCNT);
     T* fcz = w.slot(B_FCZ);
     KPP_FOR_Q {
-      const int r = lane + 32 * q;
+      const int r = k0 + 32 * q;
       T tinc = T(0);
       if (P.l_fcorr_withz && !P.l_fcorr)
         tinc = tinc + dto * fcz[r] / (rho[q] * cp[q]);
@@ -959,15 +1068,15 @@ KPP_DEV void pass_warp(const PassParams& P, const Grid<T>& g,
     }
   }
   if (!same_ts) {   // the solve overwrites X0..X4
-    pcr_solve<T, 1>(cu, cc, cl, rhs_t, rhs_t, nz, wz, lane, X0);
-    tridcof(difs, g, nz, wz, lane, X0, cu, cc, cl);
-    __syncwarp();
-    put(X1, ghat, lane);
-    __syncwarp();
+    pcr_solve<T, 1>(w, cu, cc, cl, rhs_t, rhs_t, nz, wz, X0);
+    tridcof(w, difs, g, nz, wz, X0, cu, cc, cl);
+    col_sync<MW>();
+    put(X1, ghat, k0);
+    col_sync<MW>();
   }
   // salinity: wXNT(:,2) is identically zero in the reference
   tridrhs(g, SO, (const T*)nullptr, difs, X0, ghat, X1, wx0s, wx0s, dto, nz,
-          wz, lane, rhs_s);
+          wz, k0, rhs_s);
   if (P.l_advect) {
     // steady advection corrections (rhsmod modes 1-7, solvers.F90:176-335):
     // each mode's basis is one value over a band of rows
@@ -994,7 +1103,7 @@ KPP_DEV void pass_warp(const PassParams& P, const Grid<T>& g,
     const bool mode4 = P.adv_n1_4 > 0 && P.adv_delta4 > 0.0;
     const T adv = T(P.dto * 0.033);
     KPP_FOR_Q {
-      const int r = lane + 32 * q;
+      const int r = k0 + 32 * q;
       bool rn = r < nz;
       T total = c_m[0] * (r == 0 ? T(1.0 / P.adv_hm1) : T(0));
       total = total + c_m[1] * ((rn && r <= km - 2) ? v2 : T(0));
@@ -1013,7 +1122,7 @@ KPP_DEV void pass_warp(const PassParams& P, const Grid<T>& g,
     T* sal = w.slot(B_SAL);
     T* sfcz = w.slot(B_SFCZ);
     KPP_FOR_Q {
-      const int r = lane + 32 * q;
+      const int r = k0 + 32 * q;
       T sinc = T(0);
       if (P.l_sfcorr_withz) sinc = sinc + dto * sfcz[r];
       if (P.l_relax_sal) sinc = sinc + dto * relax_sal * (sal[r] - SO[r]);
@@ -1025,11 +1134,11 @@ KPP_DEV void pass_warp(const PassParams& P, const Grid<T>& g,
     }
   }
   if (same_ts)
-    pcr_solve<T, 2>(cu, cc, cl, rhs_t, rhs_s, nz, wz, lane, X0);
+    pcr_solve<T, 2>(w, cu, cc, cl, rhs_t, rhs_s, nz, wz, X0);
   else
-    pcr_solve<T, 1>(cu, cc, cl, rhs_s, rhs_s, nz, wz, lane, X0);
+    pcr_solve<T, 1>(w, cu, cc, cl, rhs_s, rhs_s, nz, wz, X0);
   KPP_FOR_Q {
-    const int r = lane + 32 * q;
+    const int r = k0 + 32 * q;
     t[q] = r < nz ? rhs_t[q] : (r == nz ? TO[r] : T(0));
     s[q] = r < nz ? rhs_s[q] : (r == nz ? SO[r] : T(0));
   }
@@ -1040,9 +1149,9 @@ KPP_DEV void pass_warp(const PassParams& P, const Grid<T>& g,
   co->rho0 = rho0;
   co->cp0 = cp0;
   if (FULL) {
-    __syncwarp();   // the old-state and exchange rows are dead now
+    col_sync<MW>();   // the old-state and exchange rows are dead now
     KPP_FOR_Q {
-      const int k = lane + 32 * q;
+      const int k = k0 + 32 * q;
       w.slot(full_slot(0))[k] = u[q];
       w.slot(full_slot(1))[k] = v[q];
       w.slot(full_slot(2))[k] = t[q];
@@ -1052,7 +1161,7 @@ KPP_DEV void pass_warp(const PassParams& P, const Grid<T>& g,
       w.slot(full_slot(4 + FO_DIFT))[k] = dift[q];
       w.slot(full_slot(4 + FO_GHAT))[k] = ghat[q];
     }
-    if (lane == 0) {
+    if (k0 == 0) {
       T* c16 = w.cv + NSC;
       const T vals[16] = {hbl, T(kbl), rhoh2o, fcorr, wu0x, wu0y, wx0t, wx0s,
                           wx0b, uref_b, vref_b, ustar, T(0), T(0), T(0), T(0)};
@@ -1063,34 +1172,42 @@ KPP_DEV void pass_warp(const PassParams& P, const Grid<T>& g,
 }
 
 // ---- the whole step for one column (ops/fused_pass.py _step_body) ----------
-// The convergence and trap loops run per warp: a column's updates depend
-// only on that column, so the result equals the plain batch-masked loops.
-template <typename T, int NS>
+// The convergence and trap loops run per column: a column's updates
+// depend only on that column, so the result equals the plain batch-masked
+// loops.
+// instability's RMSD sum i: lane i's acc, or (MW) broadcast cell i
+template <bool MW, typename T>
+KPP_DEV T rmsd_sum(const T* cell, T acc, int i) {
+  if constexpr (MW) return cell[i]; else return __shfl_sync(FULLMASK, acc, i);
+}
+
+template <typename T, int NS, bool MW>
 KPP_DEV bool instability(const PassParams& P, const Grid<T>& g,
-                         const Warp<T, NS>& w, const T (&u)[NS],
+                         const Col<T, NS, MW>& w, const T (&u)[NS],
                          const T (&v)[NS], const T (&t)[NS], const T (&s)[NS],
                          T* fmul) {
-  constexpr int LZ = 32 * NS;
-  const int nz = P.nz, wz = P.wz, lane = w.lane;
+  const int LZ = MW ? w.lzc : 32 * NS;
+  const int nz = P.nz, wz = P.wz, k0 = w.lev0();
   T* X0 = w.slot(B_X0);
   T* X1 = w.slot(B_X1);   // X1..X4: the four RMSD term rows, consecutive
-  __syncwarp();
-  put(X0, t, lane);
-  __syncwarp();
+  col_sync<MW>();
+  put(X0, t, k0);
+  col_sync<MW>();
   int nbad = 0;
   KPP_FOR_Q {
-    const int k = lane + 32 * q;
+    const int k = k0 + 32 * q;
     bool bad = false;
     if (k < nz) {
       T dxv = k_abs(t[q] - (k + 1 < wz ? X0[k + 1] : T(0)));
       bad = k_abs(u[q]) >= T(10) || k_abs(v[q]) >= T(10) || dxv >= T(10);
     }
-    nbad += __popc(__ballot_sync(FULLMASK, bad));
+    nbad += MW ? __syncthreads_count(bad)
+               : __popc(__ballot_sync(FULLMASK, bad));
   }
   // RMSD terms (d * d * w per level), summed serially in level order
   const T* old[4] = {w.slot(B_UO), w.slot(B_VO), w.slot(B_TO), w.slot(B_SO)};
   KPP_FOR_Q {
-    const int k = lane + 32 * q;
+    const int k = k0 + 32 * q;
     const T wt = k <= nz ? div_s(g.hm[k], P.dm_nz) : T(0);
     T du = u[q] - old[0][k], dv = v[q] - old[1][k];
     T dt = t[q] - old[2][k], ds = s[q] - old[3][k];
@@ -1099,16 +1216,23 @@ KPP_DEV bool instability(const PassParams& P, const Grid<T>& g,
     X1[2 * LZ + k] = dt * dt * wt;
     X1[3 * LZ + k] = ds * ds * wt;
   }
-  __syncwarp();
+  col_sync<MW>();
   T acc = T(0);
-  if (lane < 4) {
-    const T* row = X1 + lane * LZ;
+  if (k0 < 4) {
+    const T* row = X1 + k0 * LZ;
     for (int k = 0; k < wz; ++k) acc = acc + row[k];
   }
-  const bool e0 = k_sqrt(__shfl_sync(FULLMASK, acc, 0)) >= T(P.rmsd_thr[0]);
-  const bool e1 = k_sqrt(__shfl_sync(FULLMASK, acc, 1)) >= T(P.rmsd_thr[1]);
-  const bool e2 = k_sqrt(__shfl_sync(FULLMASK, acc, 2)) >= T(P.rmsd_thr[2]);
-  const bool e3 = k_sqrt(__shfl_sync(FULLMASK, acc, 3)) >= T(P.rmsd_thr[3]);
+  // the four sums: lanes 0..3's by shuffle, or (MW) through broadcast
+  // cells after a barrier (rmsd_sum)
+  T* cell = w.cv + NCV + BC_RMSD;
+  if (MW) {
+    if (k0 < 4) cell[k0] = acc;
+    __syncthreads();
+  }
+  const bool e0 = k_sqrt(rmsd_sum<MW>(cell, acc, 0)) >= T(P.rmsd_thr[0]);
+  const bool e1 = k_sqrt(rmsd_sum<MW>(cell, acc, 1)) >= T(P.rmsd_thr[1]);
+  const bool e2 = k_sqrt(rmsd_sum<MW>(cell, acc, 2)) >= T(P.rmsd_thr[2]);
+  const bool e3 = k_sqrt(rmsd_sum<MW>(cell, acc, 3)) >= T(P.rmsd_thr[3]);
   const int nex = int(e0) + int(e1) + int(e2) + int(e3);
   const bool blown = nbad > 0;
   const int n = nbad + (blown ? 0 : nex);
@@ -1119,10 +1243,10 @@ KPP_DEV bool instability(const PassParams& P, const Grid<T>& g,
 // The step's 8 output profiles go to slots 0..7 and colstep to the column
 // values (rows 0=hmix, 1=kmix, 2=rho0, 3=cp0, 4=comp_flag, 5=reset_flag,
 // 6=f_used, 7=npass, the passes the column ran).
-template <typename T, int NS>
+template <typename T, int NS, bool MW>
 KPP_DEV void step_warp(const PassParams& P, const Grid<T>& g,
-                       const Warp<T, NS>& w) {
-  const int nz = P.nz, lane = w.lane;
+                       const Col<T, NS, MW>& w) {
+  const int nz = P.nz, k0 = w.lev0();
   const T* cv = w.cv;
   const T* U0 = w.slot(B_U);
   const T* V0 = w.slot(B_V);
@@ -1131,7 +1255,7 @@ KPP_DEV void step_warp(const PassParams& P, const Grid<T>& g,
   T u[NS], v[NS], t[NS], s[NS], ux[NS], vx[NS], tx[NS], sx[NS];
   auto load0 = [&]() {
     KPP_FOR_Q {
-      const int k = lane + 32 * q;
+      const int k = k0 + 32 * q;
       u[q] = ux[q] = U0[k];
       v[q] = vx[q] = V0[k];
       t[q] = tx[q] = T0[k];
@@ -1193,9 +1317,10 @@ KPP_DEV void step_warp(const PassParams& P, const Grid<T>& g,
     rho0 = r0_i;
     cp0 = c0_i;
   }
-  // each lane writes its own levels: slots 0..3 are read at own level only
+  // each thread writes its own levels: slots 0..3 are read at own level
+  // only
   KPP_FOR_Q {
-    const int k = lane + 32 * q;
+    const int k = k0 + 32 * q;
     w.slot(B_U)[k] = u[q];
     w.slot(B_V)[k] = v[q];
     w.slot(B_T)[k] = t[q];
@@ -1205,7 +1330,7 @@ KPP_DEV void step_warp(const PassParams& P, const Grid<T>& g,
     w.slot(B_TX)[k] = tx[q];
     w.slot(B_SX)[k] = sx[q];
   }
-  if (lane == 0) {
+  if (k0 == 0) {
     T* c8 = w.cv + NSC;
     c8[0] = hmixn;
     c8[1] = kmixn;
@@ -1218,19 +1343,23 @@ KPP_DEV void step_warp(const PassParams& P, const Grid<T>& g,
   }
 }
 
-// ---- the block: stage the W columns' inputs, run one warp per column,
-// ---- write the outputs back (coalesced by level rows) ----------------------
+// ---- the block: stage the columns' inputs, run each column, write the
+// ---- outputs back ----------------------------------------------------------
+// One warp a column: a block of W warps takes W consecutive columns, and
+// each level row of a profile moves as one run of W values (coalesced).
+// A column over CW warps (MW): a block is one column, whose threads stage
+// its rows, level k on thread k % (32 CW).
 
-template <typename T, int NS> struct Block {
+template <typename T, int NS, bool MW> struct Block {
   Grid<T> g;
-  T* warps;      // W x warp_stride(NS)
+  T* cols;       // W x warp_stride(NS), or (MW) the column's area
 };
 
-template <typename T, int NS>
-KPP_DEV Block<T, NS> block_view(const Geometry& G, unsigned char* raw) {
-  constexpr int LZ = 32 * NS;
+template <typename T, int NS, bool MW>
+KPP_DEV Block<T, NS, MW> block_view(const Geometry& G, unsigned char* raw) {
+  const int LZ = MW ? 32 * NS * G.cw : 32 * NS;
   T* sm = reinterpret_cast<T*>(raw);
-  Block<T, NS> b;
+  Block<T, NS, MW> b;
   b.g.zm = sm;
   b.g.hm = sm + LZ;
   b.g.dm = sm + 2 * LZ;
@@ -1239,73 +1368,92 @@ KPP_DEV Block<T, NS> block_view(const Geometry& G, unsigned char* raw) {
   b.g.pfx = sm + 5 * LZ;
   b.g.arefT = sm + 6 * LZ;
   b.g.arefG = nullptr;
+  if (MW) {   // aref always, and (grid_dev) the grid rows, in device memory
+    b.cols = sm + (G.grid_dev ? 0 : 6) * LZ;
+    b.g.hi = reinterpret_cast<const int*>(b.cols + col_stride(LZ));
+    return b;
+  }
   const bool dev = NS >= AREF_DEV_MIN_NS && G.aref_dev;
-  b.warps = sm + (6 + (dev ? 0 : G.kref)) * LZ;
-  b.g.hi = reinterpret_cast<const int*>(b.warps + G.warps * warp_stride(NS));
+  b.cols = sm + (6 + (dev ? 0 : G.kref)) * LZ;
+  b.g.hi = reinterpret_cast<const int*>(b.cols + G.warps * warp_stride(NS));
   return b;
 }
 
 // This thread's place in the staging loops: column j of the block and
-// level rows k0 + 32 q, q < NS (a block has 32 threads per column)
+// level rows k0 + 32 q, q < NS (a block has 32 threads per column); MW:
+// j = 0 and rows k0 + kstep q, kstep = 32 CW, the block's threads
 struct Stager {
-  int j, k0;
+  int j, k0, kstep;
   bool col_ok;
   size_t col;
 };
 
-// rows k0 + 32 m of one input profile, through the read-only path
-template <typename T, int NS>
+// rows k0 + 32 m (MW: k0 + kstep m) of one input profile, through the
+// read-only path
+template <bool MW, typename T, int NS>
 KPP_DEV void fetch(const Stager& st, const T* src, int rows, int ncol,
                    T (&v)[NS]) {
   KPP_FOR_Q {
-    const int k = st.k0 + 32 * q;
+    const int k = st.k0 + (MW ? st.kstep : 32) * q;
     v[q] = (st.col_ok && k < rows) ? __ldg(src + size_t(k) * ncol + st.col)
                                    : T(0);
   }
 }
 
-template <typename T, int NS>
+template <bool MW, typename T, int NS>
 KPP_DEV void stash(const Stager& st, T* dst, int rows, const T (&v)[NS]) {
   KPP_FOR_Q {
-    const int k = st.k0 + 32 * q;
+    const int k = st.k0 + (MW ? st.kstep : 32) * q;
     if (st.col_ok && k < rows) dst[k] = v[q];
   }
 }
 
-template <int NS, typename T>
+template <int NS, bool MW, typename T>
 KPP_DEV void stage_out(const Stager& st, T* dst, const T* src, int rows,
                        int ncol) {
   KPP_FOR_Q {
-    const int k = st.k0 + 32 * q;
+    const int k = st.k0 + (MW ? st.kstep : 32) * q;
     if (st.col_ok && k < rows) dst[size_t(k) * ncol + st.col] = src[k];
   }
 }
 
-// Load the grid rows, aref's nonzero columns (unless they are read from
-// device memory) and the block's column inputs
+// Load the grid rows (unless they are read from device memory), aref's
+// nonzero columns (likewise) and the block's column inputs
 // (profiles into their slots, colscal into the column values).  The loads
 // of the profiles every launch stages are all issued before their stores
 // to shared memory, so they are in flight together.
-template <typename T, bool STEP, int NS>
-KPP_DEV Block<T, NS> load_block(const PassParams& P, const Geometry& G,
-                                const Inputs<T>& in, unsigned char* raw,
-                                Stager* st_out) {
-  constexpr int LZ = 32 * NS;
-  Block<T, NS> b = block_view<T, NS>(G, raw);
-  const int tid = threadIdx.x, nt = blockDim.x, W = G.warps;
+template <typename T, bool STEP, int NS, bool MW>
+KPP_DEV Block<T, NS, MW> load_block(const PassParams& P, const Geometry& G,
+                                    const Inputs<T>& in, unsigned char* raw,
+                                    Stager* st_out) {
+  const int LZ = MW ? 32 * NS * G.cw : 32 * NS;
+  Block<T, NS, MW> b = block_view<T, NS, MW>(G, raw);
+  const int tid = threadIdx.x, nt = blockDim.x, W = MW ? 1 : G.warps;
   const int wz = P.wz, nc = P.ncol;
   T* sm = reinterpret_cast<T*>(raw);
-  for (int k = tid; k < LZ; k += nt) {
-    const bool in_z = k < wz;
-    sm[k] = in_z ? in.p[IN_ZM][k] : T(0);
-    sm[LZ + k] = in_z ? in.p[IN_HM][k] : T(1);
-    sm[2 * LZ + k] = in_z ? in.p[IN_DM][k] : T(0);
-    sm[3 * LZ + k] = in_z ? in.p[IN_TDN][k] : T(0);
-    sm[4 * LZ + k] = in_z ? in.p[IN_TUP][k] : T(0);
-    sm[5 * LZ + k] = (in_z && P.l_advect) ? in.p[IN_PFX][k] : T(0);
-    const_cast<int*>(b.g.hi)[k] = in_z ? in.ref_hi[k] : -1;
+  if (MW && G.grid_dev) {   // the wrapper's tile, padded as below
+    const T* gt = in.grid_t;
+    b.g.zm = gt;
+    b.g.hm = gt + LZ;
+    b.g.dm = gt + 2 * LZ;
+    b.g.tdn = gt + 3 * LZ;
+    b.g.tup = gt + 4 * LZ;
+    b.g.pfx = gt + 5 * LZ;
+    for (int k = tid; k < LZ; k += nt)
+      const_cast<int*>(b.g.hi)[k] = k < wz ? in.ref_hi[k] : -1;
+  } else {
+    for (int k = tid; k < LZ; k += nt) {
+      const bool in_z = k < wz;
+      sm[k] = in_z ? in.p[IN_ZM][k] : T(0);
+      sm[LZ + k] = in_z ? in.p[IN_HM][k] : T(1);
+      sm[2 * LZ + k] = in_z ? in.p[IN_DM][k] : T(0);
+      sm[3 * LZ + k] = in_z ? in.p[IN_TDN][k] : T(0);
+      sm[4 * LZ + k] = in_z ? in.p[IN_TUP][k] : T(0);
+      sm[5 * LZ + k] = (in_z && P.l_advect) ? in.p[IN_PFX][k] : T(0);
+      const_cast<int*>(b.g.hi)[k] = in_z ? in.ref_hi[k] : -1;
+    }
   }
-  if (NS >= AREF_DEV_MIN_NS && G.aref_dev) {
+  if (MW || (NS >= AREF_DEV_MIN_NS && G.aref_dev)) {
     b.g.arefG = in.aref_t;
   } else {
     T* arefT = sm + 6 * LZ;
@@ -1317,9 +1465,10 @@ KPP_DEV Block<T, NS> load_block(const PassParams& P, const Geometry& G,
   Stager st;
   st.j = tid % W;
   st.k0 = tid / W;
+  st.kstep = nt;
   st.col = size_t(blockIdx.x) * W + st.j;
   st.col_ok = st.col < size_t(nc);
-  T* wb = b.warps + st.j * warp_stride(NS);
+  T* wb = b.cols + st.j * warp_stride(NS);
   // u..sx (pass) or u0..s0 (step), then uo..so, swdk, swfrac: input i
   // goes to slot i, and slots 0..13 match IN_U..IN_SWFRAC
   constexpr int NFIRST = STEP ? 4 : 8, NPROF = NFIRST + 6;
@@ -1327,15 +1476,15 @@ KPP_DEV Block<T, NS> load_block(const PassParams& P, const Geometry& G,
 #pragma unroll
   for (int i = 0; i < NPROF; ++i) {
     const int src = i < NFIRST ? IN_U + i : IN_UO + (i - NFIRST);
-    fetch(st, in.p[src], wz, nc, v[i]);
+    fetch<MW>(st, in.p[src], wz, nc, v[i]);
   }
-  fetch(st, in.p[IN_COLSCAL], NSC, nc, cs);
+  fetch<MW>(st, in.p[IN_COLSCAL], NSC, nc, cs);
 #pragma unroll
   for (int i = 0; i < NPROF; ++i) {
     const int slot = i < NFIRST ? B_U + i : B_UO + (i - NFIRST);
-    stash(st, wb + slot * LZ, wz, v[i]);
+    stash<MW>(st, wb + slot * LZ, wz, v[i]);
   }
-  stash(st, wb + NB * LZ, NSC, cs);
+  stash<MW>(st, wb + NB * LZ, NSC, cs);
   // forcing profiles only under their flags (else the inputs are dummies)
   const int fslot[4] = {B_OCNT, B_SAL, B_FCZ, B_SFCZ};
   const bool fon[4] = {bool(P.l_relax_ocnt), bool(P.l_relax_sal),
@@ -1343,39 +1492,55 @@ KPP_DEV Block<T, NS> load_block(const PassParams& P, const Geometry& G,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     if (!fon[i]) continue;
-    fetch(st, in.p[IN_OCNT + i], wz, nc, v[i]);
-    stash(st, wb + fslot[i] * LZ, wz, v[i]);
+    fetch<MW>(st, in.p[IN_OCNT + i], wz, nc, v[i]);
+    stash<MW>(st, wb + fslot[i] * LZ, wz, v[i]);
   }
   *st_out = st;
   return b;
 }
 
-template <typename T, int NS>
-KPP_DEV Warp<T, NS> warp_of(const Block<T, NS>& b, int wi, int lane) {
-  Warp<T, NS> w;
-  w.b = b.warps + wi * warp_stride(NS);
-  w.cv = w.b + NB * Warp<T, NS>::LZ;
+// the column of warp wi (MW: the block's column, whose warp wi holds
+// levels 128 wi .. 128 wi + 127)
+template <typename T, int NS, bool MW>
+KPP_DEV Col<T, NS, MW> col_of(const Block<T, NS, MW>& b, const Geometry& G,
+                              int wi, int lane) {
+  const int LZ = MW ? 32 * NS * G.cw : 32 * NS;
+  Col<T, NS, MW> w;
+  w.b = MW ? b.cols : b.cols + wi * warp_stride(NS);
+  w.cv = w.b + NB * LZ;
   w.lane = lane;
+  if constexpr (MW) {   // (one warp: lev0() is the lane itself)
+    w.k0 = 32 * NS * wi + lane;
+    w.lzc = LZ;
+  }
   return w;
 }
 
+// does warp wi of this block have a column (MW: the block's)
+template <bool MW>
+KPP_DEV bool has_column(const PassParams& P, const Geometry& G, int wi) {
+  return MW ? size_t(blockIdx.x) < size_t(P.ncol)
+            : size_t(blockIdx.x) * G.warps + wi < size_t(P.ncol);
+}
+
 // fused pass over one block of columns (the body of fused_pass_kernel)
-template <typename T, bool FULL, int NS>
+template <typename T, bool FULL, int NS, bool MW>
 KPP_DEV void pass_block(const PassParams& P, const Geometry& G,
                         const Inputs<T>& in, const Outputs<T>& out,
                         unsigned char* raw) {
-  constexpr int LZ = 32 * NS;
+  const int LZ = MW ? 32 * NS * G.cw : 32 * NS;
   KPP_CLOCK(kpp_b0);
   Stager st;
-  const Block<T, NS> b = load_block<T, false, NS>(P, G, in, raw, &st);
+  const Block<T, NS, MW> b = load_block<T, false, NS, MW>(P, G, in, raw, &st);
   __syncthreads();
   KPP_BMARK(10);   // staging in
   const int wi = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (size_t(blockIdx.x) * G.warps + wi < size_t(P.ncol)) {
-    const Warp<T, NS> w = warp_of(b, wi, lane);
+  if (has_column<MW>(P, G, wi)) {
+    const Col<T, NS, MW> w = col_of(b, G, wi, lane);
+    const int k0 = MW ? w.k0 : lane;
     T u[NS], v[NS], t[NS], s[NS], ux[NS], vx[NS], tx[NS], sx[NS];
     KPP_FOR_Q {
-      const int k = lane + 32 * q;
+      const int k = k0 + 32 * q;
       u[q] = w.slot(B_U)[k];
       v[q] = w.slot(B_V)[k];
       t[q] = w.slot(B_T)[k];
@@ -1389,7 +1554,7 @@ KPP_DEV void pass_block(const PassParams& P, const Geometry& G,
     pass_warp<T, FULL>(P, b.g, w, u, v, t, s, ux, vx, tx, sx, w.cv[CS_F], &co);
     if (!FULL) {
       KPP_FOR_Q {
-        const int k = lane + 32 * q;
+        const int k = k0 + 32 * q;
         w.slot(B_U)[k] = u[q];
         w.slot(B_V)[k] = v[q];
         w.slot(B_T)[k] = t[q];
@@ -1399,7 +1564,7 @@ KPP_DEV void pass_block(const PassParams& P, const Geometry& G,
         w.slot(B_TX)[k] = tx[q];
         w.slot(B_SX)[k] = sx[q];
       }
-      if (lane == 0) {
+      if (k0 == 0) {
         T* c8 = w.cv + NSC;
         c8[0] = co.hbl;
         c8[1] = co.kbl;
@@ -1413,49 +1578,49 @@ KPP_DEV void pass_block(const PassParams& P, const Geometry& G,
   __syncthreads();
   KPP_BMARK(12);   // waiting for the block's slowest warp
   const int wz = P.wz, nc = P.ncol;
-  const T* wb = b.warps + st.j * warp_stride(NS);
+  const T* wb = b.cols + st.j * warp_stride(NS);
   if (FULL) {
 #pragma unroll
     for (int i = 0; i < 4 + N_FO; ++i) {
       if (i == 4 + FO_COLOUT)
-        stage_out<NS>(st, out.p[i], wb + NB * LZ + NSC, 16, nc);
+        stage_out<NS, MW>(st, out.p[i], wb + NB * LZ + NSC, 16, nc);
       else
-        stage_out<NS>(st, out.p[i], wb + full_slot(i) * LZ, wz, nc);
+        stage_out<NS, MW>(st, out.p[i], wb + full_slot(i) * LZ, wz, nc);
     }
   } else {
 #pragma unroll
     for (int i = 0; i < 8; ++i)
-      stage_out<NS>(st, out.p[i], wb + (B_U + i) * LZ, wz, nc);
-    stage_out<NS>(st, out.p[8], wb + NB * LZ + NSC, 8, nc);
+      stage_out<NS, MW>(st, out.p[i], wb + (B_U + i) * LZ, wz, nc);
+    stage_out<NS, MW>(st, out.p[8], wb + NB * LZ + NSC, 8, nc);
   }
   KPP_BMARK(13);   // write-back
 }
 
 // whole step over one block of columns (the body of fused_step_kernel)
-template <typename T, int NS>
+template <typename T, int NS, bool MW>
 KPP_DEV void step_block(const PassParams& P, const Geometry& G,
                         const Inputs<T>& in, const Outputs<T>& out,
                         unsigned char* raw) {
-  constexpr int LZ = 32 * NS;
+  const int LZ = MW ? 32 * NS * G.cw : 32 * NS;
   KPP_CLOCK(kpp_b0);
   Stager st;
-  const Block<T, NS> b = load_block<T, true, NS>(P, G, in, raw, &st);
+  const Block<T, NS, MW> b = load_block<T, true, NS, MW>(P, G, in, raw, &st);
   __syncthreads();
   KPP_BMARK(10);   // staging in
   const int wi = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  // a land column's warp goes straight to the write-back (step_warp skips
-  // its loops); a warp past ncol has no column
-  if (size_t(blockIdx.x) * G.warps + wi < size_t(P.ncol))
-    step_warp<T, NS>(P, b.g, warp_of(b, wi, lane));
+  // a land column's warp (MW: block) goes straight to the write-back
+  // (step_warp skips its loops); a warp past ncol has no column
+  if (has_column<MW>(P, G, wi))
+    step_warp<T, NS>(P, b.g, col_of(b, G, wi, lane));
   KPP_BMARK(11);   // the warp's column
   __syncthreads();
   KPP_BMARK(12);   // waiting for the block's slowest warp
   const int wz = P.wz, nc = P.ncol;
-  const T* wb = b.warps + st.j * warp_stride(NS);
+  const T* wb = b.cols + st.j * warp_stride(NS);
 #pragma unroll
   for (int i = 0; i < 8; ++i)
-    stage_out<NS>(st, out.p[i], wb + (B_U + i) * LZ, wz, nc);
-  stage_out<NS>(st, out.p[8], wb + NB * LZ + NSC, 8, nc);
+    stage_out<NS, MW>(st, out.p[i], wb + (B_U + i) * LZ, wz, nc);
+  stage_out<NS, MW>(st, out.p[8], wb + NB * LZ + NSC, 8, nc);
   KPP_BMARK(13);   // write-back
 }
 

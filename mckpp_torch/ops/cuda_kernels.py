@@ -38,11 +38,20 @@ shared memory beside the warps' areas; where no block of 8 down to 1
 warps holds it (float64 at 8 slots on a stretched grid) the kernels read
 it from a tile in device memory instead (:func:`_ref_tile`).
 
+Past 256 levels (``nz + 2 <= MAXWZ`` = 1024) one column spreads over the
+``cw`` = ceil((nz + 2) / 128) warps of one block, each with ``MW_NS`` = 4
+slots a lane (the library ``MW``, "cw", one per dtype): the column's rows
+in shared memory are shared by its warps, which meet at block barriers
+wherever levels exchange; ``aref`` is always read from device memory,
+and the grid rows too where the column leaves no room (float64 at
+``cw`` = 8, :func:`_grid_tile`).
+
 A wrapper called with CPU tensors runs the plain torch body
 (``ops/fused_pass.py``); with CUDA tensors it launches its kernel or
 raises.  The kernels are built by ``nvcc`` from the sources in ``csrc/``
 on first use, into ``mckpp_torch/_build/``: one library for each dtype
-and number of level slots.
+and number of level slots, and one for each dtype of the multi-warp
+kernels (``LIBS``).
 """
 
 from __future__ import annotations
@@ -78,11 +87,17 @@ _libs: dict = {}
 _lock = threading.Lock()
 
 # launch geometry (the constants of csrc/fused_pass.cuh and fused_kernels.cu)
-WARPS = 8              # columns per block, one warp each (MAX_WARPS)
-SLOTS = (3, 4, 6, 8)   # level slots per lane of the built kernels (NS)
-MAXWZ = 32 * SLOTS[-1]  # the most levels (nz + 2) a kernel takes
-N_SLOTS = 23           # per-warp profile slots (NB)
-N_COLV = 48            # per-warp column values: colscal rows + 16 outputs
+WARPS = 8              # warps per block at most (MAX_WARPS): columns of
+                       # one warp each, or the warps of one column (CW_MAX)
+SLOTS = (3, 4, 6, 8)   # level slots per lane of the one-warp kernels (NS)
+MW = "cw"              # the library of a column over several warps
+MW_NS = 4              # ... its level slots a lane: 128 levels a warp
+LIBS = SLOTS + (MW,)   # the libraries of one dtype
+ONE_WARP_WZ = 32 * SLOTS[-1]      # the most levels one warp takes (256)
+MAXWZ = 32 * MW_NS * WARPS        # the most levels (nz + 2) a kernel takes
+N_SLOTS = 23           # per-column profile rows (NB)
+N_COLV = 48            # per-column values: colscal rows + 16 outputs
+N_BC = 35              # MW: broadcast cells after the column values (NBC)
 SMEM_MAX = 232_448     # dynamic shared memory one block may use (H100)
 AREF_DEV_MIN_NS = 6    # the fewest slots whose kernels read aref from
                        # device memory (below, the shared copy always fits)
@@ -110,18 +125,23 @@ def _source_hash() -> str:
     return h.hexdigest()[:16]
 
 
-def _lib_path(dtype, ns, phases=False) -> str:
+def _lib_tag(lib) -> str:
+    return MW if lib == MW else f"ns{lib}"
+
+
+def _lib_path(dtype, lib, phases=False) -> str:
     tag = "_phases" if phases else ""
-    return os.path.join(
-        _BUILD, f"libkpp_{_REALS[dtype]}_ns{ns}{tag}_{_source_hash()}.so")
+    return os.path.join(_BUILD, f"libkpp_{_REALS[dtype]}_{_lib_tag(lib)}"
+                                f"{tag}_{_source_hash()}.so")
 
 
 def build(dtypes=(torch.float32, torch.float64), phases=False,
-          slots=SLOTS) -> dict:
-    """Compile the kernels for ``dtypes`` and level ``slots`` (one nvcc
-    process per library, all run together) unless an up-to-date library
-    exists.  Returns {(dtype, ns): ptxas report} for the libraries built
-    by this call.  ``phases`` builds the library with the stage clocks of
+          slots=LIBS) -> dict:
+    """Compile the kernels for ``dtypes`` and the libraries ``slots`` (level
+    slots of the one-warp kernels, or ``MW``; one nvcc process per
+    library, all run together) unless an up-to-date library exists.
+    Returns {(dtype, lib): ptxas report} for the libraries built by this
+    call.  ``phases`` builds the library with the stage clocks of
     ``csrc/fused_pass.cuh`` on (``-DKPP_PHASES``, for chip_phases.py)
     under its own name; the port itself always loads the one without.
     Several processes (the ranks of a distributed run) may build into one
@@ -134,8 +154,10 @@ def build(dtypes=(torch.float32, torch.float64), phases=False,
             if os.path.exists(out):
                 continue
             tmp = tmp_name(out)
+            lib_flags = ([f"-DKPP_NS={MW_NS}", "-DKPP_MW=1"] if ns == MW
+                         else [f"-DKPP_NS={ns}"])
             cmd = [_nvcc(), *NVCC_FLAGS, f"-DKPP_REAL={_REALS[dt]}",
-                   f"-DKPP_NS={ns}", *(["-DKPP_PHASES"] if phases else []),
+                   *lib_flags, *(["-DKPP_PHASES"] if phases else []),
                    "-o", tmp, os.path.join(_CSRC, "fused_kernels.cu")]
             procs[dt, ns] = (out, tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -146,8 +168,8 @@ def build(dtypes=(torch.float32, torch.float64), phases=False,
         if p.returncode != 0:
             if os.path.exists(tmp):
                 os.remove(tmp)
-            failed.append(f"nvcc failed for {_REALS[key[0]]}, NS={key[1]}:"
-                          f"\n{log}")
+            failed.append(f"nvcc failed for {_REALS[key[0]]}, "
+                          f"{_lib_tag(key[1])}:\n{log}")
             continue
         os.replace(tmp, out)
         reports[key] = log
@@ -166,8 +188,8 @@ def _lib(dtype, ns):
 
 
 def load(dtype, ns, phases=False):
-    """The kernel library for ``dtype`` at ``ns`` level slots, built if
-    missing (``phases``: see :func:`build`)."""
+    """The kernel library for ``dtype`` at ``ns`` level slots (or ``MW``),
+    built if missing (``phases``: see :func:`build`)."""
     path = _lib_path(dtype, ns, phases)
     if not os.path.exists(path):
         build((dtype,), phases, slots=(ns,))
@@ -185,9 +207,10 @@ def load(dtype, ns, phases=False):
         lib.kpp_phase_zero.restype = ci
     if lib.kpp_real_bytes() != torch.empty((), dtype=dtype).element_size():
         raise RuntimeError(f"{path} was built for another dtype")
-    if lib.kpp_max_wz() != 32 * ns:
+    want = MAXWZ if ns == MW else 32 * ns
+    if lib.kpp_max_wz() != want:
         raise RuntimeError(f"{path}: {lib.kpp_max_wz()} levels, expected "
-                           f"{32 * ns}")
+                           f"{want}")
     return lib
 
 
@@ -282,14 +305,28 @@ def _check(arrays, kw, n_prof):
 
 class Geometry(ctypes.Structure):
     """Field for field the C struct kpp::Geometry (csrc/fused_pass.cuh);
-    ``aref_dev`` is 1 where the kernels read aref from device memory."""
+    ``aref_dev`` is 1 where the kernels read aref from device memory,
+    ``cw`` the warps of one column (1, or 2..8 for the ``MW`` library,
+    whose block is one column) and ``grid_dev`` 1 where the ``MW``
+    kernels read the grid rows from device memory."""
     _fields_ = [("warps", ctypes.c_int), ("blocks", ctypes.c_int),
                 ("kref", ctypes.c_int), ("smem", ctypes.c_int),
-                ("ns", ctypes.c_int), ("aref_dev", ctypes.c_int)]
+                ("ns", ctypes.c_int), ("aref_dev", ctypes.c_int),
+                ("cw", ctypes.c_int), ("grid_dev", ctypes.c_int)]
 
     @property
     def cols_per_block(self) -> int:
-        return self.warps            # one warp per column
+        return self.warps // self.cw
+
+    @property
+    def lib(self):
+        """The library whose kernels take this geometry."""
+        return MW if self.cw > 1 else self.ns
+
+    @property
+    def levels(self) -> int:
+        """The levels of a column's rows in shared memory (LZ)."""
+        return 32 * self.ns * self.cw
 
 
 def _warp_stride(ns: int) -> int:
@@ -308,28 +345,58 @@ def smem_bytes(ns: int, kref: int, warps: int, esize: int) -> int:
     return ((6 + kref) * lz + warps * _warp_stride(ns)) * esize + lz * 4
 
 
-def launch_geometry(nz: int, dtype, ncol: int, kref: int | None = None
-                    ) -> Geometry:
-    """Warps (= columns) per block, blocks, aref columns the reference
-    averages read, dynamic shared-memory bytes, level slots and aref's
-    placement of one launch at ``nz`` levels over ``ncol`` columns.
-    ``kref`` is the number of ``aref`` columns the reference averages read
-    (:func:`row_extents`); the default is the worst case, all ``nz + 2``.
-    The level slots are the fewest of ``SLOTS`` that cover ``nz + 2``; a
-    block takes ``WARPS`` warps, or half as many until its shared memory
-    fits (float64 from 4 slots up, float32 at 8 with a deep aref prefix).
-    Where not even one warp fits beside aref's shared copy, aref is read
-    from device memory (``aref_dev``) and the warps are halved again from
-    8 without it."""
+def smem_bytes_mw(cw: int, grid_dev: int, esize: int) -> int:
+    """Dynamic shared memory of one block of the ``MW`` kernels, one
+    column over ``cw`` warps (csrc/fused_pass.cuh smem_bytes_mw): the grid
+    rows (none where they are read from device memory), the column's
+    rows, values and broadcast cells, and the row extents, at ``128 * cw``
+    levels a row; aref is read from device memory."""
+    lz = 32 * MW_NS * cw
+    ng = 0 if grid_dev else 6
+    return (ng * lz + N_SLOTS * lz + N_COLV + N_BC) * esize + lz * 4
+
+
+def launch_geometry(nz: int, dtype, ncol: int, kref: int | None = None,
+                    cw: int | None = None) -> Geometry:
+    """Warps per block, blocks, aref columns the reference averages read,
+    dynamic shared-memory bytes, level slots, aref's placement, warps a
+    column and the grid rows' placement of one launch at ``nz`` levels
+    over ``ncol`` columns.  ``kref`` is the number of ``aref`` columns the
+    reference averages read (:func:`row_extents`); the default is the
+    worst case, all ``nz + 2``.  Up to 256 levels a column is one warp:
+    the level slots are the fewest of ``SLOTS`` that cover ``nz + 2``; a
+    block takes ``WARPS`` warps (columns), or half as many until its
+    shared memory fits (float64 from 4 slots up, float32 at 8 with a deep
+    aref prefix).  Where not even one warp fits beside aref's shared copy,
+    aref is read from device memory (``aref_dev``) and the warps are
+    halved again from 8 without it.  Past 256 levels (or with ``cw``
+    given, 2..8 warps that cover ``nz + 2``: a width forced for a
+    measurement, which no path of the model asks for) a block is one column over
+    ``cw`` = ceil((nz + 2) / 128) warps of ``MW_NS`` slots, aref read
+    from device memory, the grid rows too where they leave the column no
+    room (``grid_dev``: float64 at 8 warps)."""
     wz = nz + 2
     if wz > MAXWZ:
         raise ValueError(f"nz+2={wz} exceeds the kernels' limit of "
                          f"{MAXWZ} levels (nz <= {MAXWZ - 2})")
-    ns = next(n for n in SLOTS if 32 * n >= wz)
     kref = wz if kref is None else kref
     if not 0 <= kref <= wz:
         raise ValueError(f"kref={kref} outside 0..{wz}")
     esize = torch.empty((), dtype=dtype).element_size()
+    if cw is not None or wz > ONE_WARP_WZ:
+        lzw = 32 * MW_NS
+        cw = -(-wz // lzw) if cw is None else cw
+        if not (2 <= cw <= WARPS and cw * lzw >= wz):
+            raise ValueError(f"cw={cw} warps of {lzw} levels do not take "
+                             f"nz+2={wz} (2..{WARPS} warps)")
+        for grid_dev in (0, 1):
+            smem = smem_bytes_mw(cw, grid_dev, esize)
+            if smem <= SMEM_MAX:
+                return Geometry(warps=cw, blocks=ncol, kref=kref, smem=smem,
+                                ns=MW_NS, aref_dev=1, cw=cw,
+                                grid_dev=grid_dev)
+        raise ValueError(f"{smem} bytes of shared memory exceed {SMEM_MAX}")
+    ns = next(n for n in SLOTS if 32 * n >= wz)
     placements = ((0, kref), (1, 0)) if ns >= AREF_DEV_MIN_NS else \
         ((0, kref),)
     for aref_dev, kept in placements:
@@ -339,7 +406,8 @@ def launch_geometry(nz: int, dtype, ncol: int, kref: int | None = None
         smem = smem_bytes(ns, kept, warps, esize)
         if smem <= SMEM_MAX:
             return Geometry(warps=warps, blocks=-(-ncol // warps),
-                            kref=kref, smem=smem, ns=ns, aref_dev=aref_dev)
+                            kref=kref, smem=smem, ns=ns, aref_dev=aref_dev,
+                            cw=1, grid_dev=0)
     raise ValueError(f"{smem} bytes of shared memory exceed {SMEM_MAX}")
 
 
@@ -353,8 +421,8 @@ def row_extents(aref) -> np.ndarray:
 
 
 # id(aref) -> [weak reference, its _version, row extents on its device,
-# kref, its device tile or None]; the grid is static, so each aref is read
-# back to the host once
+# kref, {levels: its device tile}]; the grid is static, so each aref is
+# read back to the host once
 _extents: dict = {}
 
 
@@ -368,7 +436,7 @@ def _ref_entry(aref: torch.Tensor) -> list:
     if len(_extents) > 64:                   # drop entries of dead tensors
         for key in [k for k, v in _extents.items() if v[0]() is None]:
             del _extents[key]
-    entry = [weakref.ref(aref), aref._version, dev, kref, None]
+    entry = [weakref.ref(aref), aref._version, dev, kref, {}]
     _extents[id(aref)] = entry
     return entry
 
@@ -378,18 +446,58 @@ def _ref_extents(aref: torch.Tensor):
     return tuple(_ref_entry(aref)[2:4])
 
 
-def _ref_tile(aref: torch.Tensor, ns: int) -> torch.Tensor:
-    """``aref`` transposed into a (kref, 32 ns) tile on its device, zero
+def _ref_tile(aref: torch.Tensor, ns: int, cw: int = 1) -> torch.Tensor:
+    """``aref`` transposed into a (kref, 32 ns cw) tile on its device, zero
     past its ``nz + 2`` columns: ``tile[k, n] = aref[n, k]``, the layout of
     the kernels' shared copy, read from device memory where that copy does
-    not fit (``Geometry.aref_dev``).  Made once per aref tensor."""
+    not fit or the column spreads over ``cw`` warps
+    (``Geometry.aref_dev``).  Made once per aref tensor and width."""
     entry = _ref_entry(aref)
-    if entry[4] is None:
+    lz = 32 * ns * cw
+    if lz not in entry[4]:
         kref, wz = entry[3], aref.shape[0]
-        tile = aref.new_zeros((kref, 32 * ns))
+        tile = aref.new_zeros((kref, lz))
         tile[:, :wz] = aref[:, :kref].t()
-        entry[4] = tile
-    return entry[4]
+        entry[4][lz] = tile
+    return entry[4][lz]
+
+
+# id(hm) -> [weak references to the five grid rows, their _version,
+# {(levels, advection): the padded tile}]; the grid is static, so each
+# launch reuses its tile (inside a captured CUDA graph too)
+_grid_tiles: dict = {}
+
+
+def _grid_tile(arrays, pfx, l_advect: bool, lz: int) -> torch.Tensor:
+    """The grid rows zm, hm, dm, tdn, tup (the (nz + 2, 1) inputs before
+    aref) and the depth prefix, padded to ``lz`` levels as the kernels'
+    shared copy pads them (hm with 1, the others with 0, the prefix 0
+    without advection): the ``MW`` kernels read them from device memory
+    where their shared memory leaves no room (``Geometry.grid_dev``).
+    Made once per set of row tensors (the prefix is a function of hm),
+    width and advection flag."""
+    rows = arrays[-6:-1]
+    hit = _grid_tiles.get(id(rows[1]))
+    if hit is None or any(r() is not x for r, x in zip(hit[0], rows)) \
+            or hit[1] != [x._version for x in rows]:
+        if len(_grid_tiles) > 64:            # drop entries of dead tensors
+            for key in [k for k, v in _grid_tiles.items()
+                        if v[0][1]() is None]:
+                del _grid_tiles[key]
+        hit = [[weakref.ref(x) for x in rows], [x._version for x in rows],
+               {}]
+        _grid_tiles[id(rows[1])] = hit
+    key = (lz, bool(l_advect))
+    if key not in hit[2]:
+        wz = rows[0].shape[0]
+        tile = rows[0].new_zeros((6, lz))
+        tile[1] = 1.0
+        for i, r in enumerate(rows):
+            tile[i, :wz] = r[:, 0]
+        if l_advect:
+            tile[5, :wz] = pfx[:, 0]
+        hit[2][key] = tile
+    return hit[2][key]
 
 
 def pass_ops(nz: int, aref, kbl, ldd: bool = False):
@@ -430,19 +538,23 @@ def _ptrs(tensors):
         *[None if t is None else t.data_ptr() for t in tensors])
 
 
-def _launch_args(arrays, kw, ncol, dtype):
+def _launch_args(arrays, kw, ncol, dtype, cw=None):
     """The library, the extra inputs (depth prefix, aref row extents,
-    aref's device tile or None) and the launch geometry."""
+    aref's device tile or None, the grid rows' tile or None) and the
+    launch geometry (``cw``: a forced column width, see
+    :func:`launch_geometry`)."""
     nz = kw["nz"]
     aref = arrays[-1]
     hi, kref = _ref_extents(aref)
-    geom = launch_geometry(nz, dtype, ncol, kref)
-    lib = _lib(dtype, geom.ns)
+    geom = launch_geometry(nz, dtype, ncol, kref, cw)
+    lib = _lib(dtype, geom.lib)
     hm = arrays[-5]
-    pfx = (fp._depth_prefix(hm, nz).contiguous()
-           if kw["flags"].l_advect else hm)
-    tile = _ref_tile(aref, geom.ns) if geom.aref_dev else None
-    return lib, [pfx, hi, tile], geom
+    advect = kw["flags"].l_advect
+    pfx = fp._depth_prefix(hm, nz).contiguous() if advect else hm
+    tile = _ref_tile(aref, geom.ns, geom.cw) if geom.aref_dev else None
+    grid = (_grid_tile(arrays, pfx, advect, geom.levels) if geom.grid_dev
+            else None)
+    return lib, [pfx, hi, tile, grid], geom
 
 
 class FusedPass:
@@ -460,9 +572,12 @@ class FusedPass:
             return fp._pass_body(*arrays, **self.kw)
         return self.launch(*arrays)
 
-    def launch(self, *arrays):
+    def launch(self, *arrays, _cw=None):
+        """Launch the kernel.  ``_cw`` is for measurements only: it forces
+        a column over that many warps where the launch would take one
+        (:func:`launch_geometry`); no path of the model sets it."""
         ncol, dtype = _check(arrays, self.kw, 12)
-        lib, extra, geom = _launch_args(arrays, self.kw, ncol, dtype)
+        lib, extra, geom = _launch_args(arrays, self.kw, ncol, dtype, _cw)
         wz = self.kw["nz"] + 2
         dev = arrays[0].device
         mk = lambda rows: torch.empty((rows, ncol), dtype=dtype, device=dev)
@@ -499,9 +614,10 @@ class FusedStep:
             return fp._step_body(*arrays, **self.kw)
         return self.launch(*arrays)
 
-    def launch(self, *arrays):
+    def launch(self, *arrays, _cw=None):
+        """Launch the kernel (``_cw``: see :meth:`FusedPass.launch`)."""
         ncol, dtype = _check(arrays, self.kw, 8)
-        lib, extra, geom = _launch_args(arrays, self.kw, ncol, dtype)
+        lib, extra, geom = _launch_args(arrays, self.kw, ncol, dtype, _cw)
         wz = self.kw["nz"] + 2
         dev = arrays[0].device
         outs = [torch.empty((wz, ncol), dtype=dtype, device=dev)

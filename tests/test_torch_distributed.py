@@ -576,8 +576,8 @@ def test_concurrent_kernel_builds_leave_whole_libraries(tmp_path,
     cc = _fake_compiler(tmp_path)
     monkeypatch.setattr(ck, "_nvcc", lambda: cc)
     _concurrently(lambda: ck.build((torch.float32, torch.float64)))
-    libs = [ck._lib_path(dt, ns) for dt in (torch.float32, torch.float64)
-            for ns in ck.SLOTS]          # one a dtype and level-slot count
+    libs = [ck._lib_path(dt, lib) for dt in (torch.float32, torch.float64)
+            for lib in ck.LIBS]   # one a dtype and level-slot count or MW
     for path in libs:
         with open(path, "rb") as f:
             assert f.read() == WHOLE

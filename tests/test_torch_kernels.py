@@ -126,10 +126,11 @@ def hold_to_plain(monkeypatch, setups, nz, tol, aref_dev=None, first=None,
     (``serial``: with the reference averages summed serially,
     :func:`serial_sums`): floats within ``tol`` of each output's scale,
     the integer rows equal; each launch on the fewest level slots that
-    cover nz + 2, and (``aref_dev`` not None) with aref in that
+    cover nz + 2 (past 256 levels a column over ceil((nz + 2) / 128) warps
+    of 4 slots), and (``aref_dev`` not None) with aref in that
     placement."""
     names = set()
-    ns = min(n for n in ck.SLOTS if 32 * n >= nz + 2)
+    ns, cw = _expected_slots(nz)
     for m, st, prm, frc in setups:
         rec = Recorder(monkeypatch)
         m.step(st, prm, frc, first_step=True)
@@ -140,7 +141,7 @@ def hold_to_plain(monkeypatch, setups, nz, tol, aref_dev=None, first=None,
                 continue
             g = ck.launch_geometry(nz, a[0].dtype, a[0].shape[1],
                                    ck._ref_extents(a[-1])[1])
-            assert g.ns == ns
+            assert (g.ns, g.cw) == (ns, cw)
             if aref_dev is not None:
                 assert g.aref_dev == aref_dev
             got = w.launch(*a)
@@ -183,13 +184,17 @@ def test_kernels_match_plain(cuda, monkeypatch, dtype, tol, ncol, nz):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-5), ("float64", 1e-10)])
 @pytest.mark.parametrize("nz,dscale", [(127, 0.0), (190, 0.0), (254, 0.0),
-                                       (127, 5.0), (190, 5.0), (254, 5.0)])
+                                       (127, 5.0), (190, 5.0), (254, 5.0),
+                                       (255, 0.0), (383, 5.0), (1022, 0.0),
+                                       (1022, 5.0)])
 def test_deep_kernels_match_plain(cuda, monkeypatch, dtype, tol, nz, dscale):
     """Past 126 levels: 6 slots (nz 127 and 190) and 8 (nz 254), on a
     uniform and a stretched grid, 13 columns (a ragged last block) with a
-    land column.  float64 at nz = 254 on the stretched grid reads aref
-    from device memory (no block holds its shared copy); every other case
-    keeps it in shared memory.  Some column's hmix loop runs to its
+    land column; past 254 a column over 3 (nz 255), 4 (383) and 8 (1022)
+    warps.  float64 at nz = 254 on the stretched grid reads aref from
+    device memory (no block holds its shared copy), as every launch past
+    254 does; every other case keeps it in shared memory.  Some column's
+    hmix loop runs to its
     limit (~200 passes), so the per-pass kernel is held on its first 8
     calls.  The plain bodies sum the reference averages serially
     (:func:`serial_sums`): the stretched grids' aref rows reach 48 to 122
@@ -203,7 +208,7 @@ def test_deep_kernels_match_plain(cuda, monkeypatch, dtype, tol, nz, dscale):
         wet[3] = False
         setups.append((m, st, prm.replace(l_ocean=wet, run_physics=wet),
                        frc))
-    dev = int(dtype == "float64" and nz == 254 and dscale > 0)
+    dev = int(nz > 254 or (dtype == "float64" and nz == 254 and dscale > 0))
     hold_to_plain(monkeypatch, setups, nz, tol, aref_dev=dev, first=8,
                   serial=True)
 
@@ -305,6 +310,13 @@ def _fewest_slots(nz):
     return min(n for n in ck.SLOTS if 32 * n >= nz + 2)
 
 
+def _expected_slots(nz):
+    """(level slots, warps a column) of a launch at nz: the fewest slots
+    of one warp up to WZ = 256, past it 4 slots on ceil(WZ / 128) warps."""
+    wz = nz + 2
+    return (_fewest_slots(nz), 1) if wz <= 256 else (4, -(-wz // 128))
+
+
 @pytest.mark.parametrize("stretch", [False, True])
 @pytest.mark.parametrize("dmax", [120.0, 1000.0])
 @pytest.mark.parametrize("nz", [12, 33, 40, 65, 69, 94, 190, 254])
@@ -341,43 +353,115 @@ def test_ref_extents_and_pass_ops(nz, dmax, stretch):
     assert np.array_equal(dev.numpy(), hi)
 
 
-@pytest.mark.parametrize("nz,dscale", [(69, 2.0), (190, 5.0), (254, 10.0)])
+@pytest.mark.parametrize("nz,dscale", [(69, 2.0), (190, 5.0), (254, 10.0),
+                                       (300, 5.0), (1022, 5.0)])
 def test_ref_tile(nz, dscale):
     """The device-memory placement's tile is aref transposed, cut to its
     kref columns and padded with zeros to the 32 x slots levels of the
-    launch, made once per aref tensor."""
+    launch (x the warps of a column past 254 levels), made once per aref
+    tensor and width."""
     aref = torch.as_tensor(_aref(nz, 250.0, True, dscale))
     kref = ck._ref_extents(aref)[1]
-    ns = _fewest_slots(nz)
-    tile = ck._ref_tile(aref, ns)
-    assert tile.shape == (kref, 32 * ns) and tile.dtype == aref.dtype
+    ns, cw = _expected_slots(nz)
+    tile = ck._ref_tile(aref, ns, cw)
+    assert tile.shape == (kref, 32 * ns * cw) and tile.dtype == aref.dtype
     assert torch.equal(tile[:, :nz + 2], aref[:, :kref].T)
     assert not tile[:, nz + 2:].any()
-    assert ck._ref_tile(aref, ns) is tile
+    assert ck._ref_tile(aref, ns, cw) is tile
+    wider = ck._ref_tile(aref, ns, cw + 1)
+    assert wider.shape == (kref, 32 * ns * (cw + 1))
+    assert torch.equal(wider[:, :32 * ns * cw], tile)
+
+
+@pytest.mark.parametrize("advect", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_grid_tile(dtype, advect):
+    """The grid rows' device tile of a column over several warps holds
+    zm, hm, dm, tdn, tup (the (nz + 2, 1) inputs before aref) and the depth
+    prefix (zero without advection) on the launch's levels, padded as the
+    kernels pad their shared copy: hm with 1, the others with 0."""
+    nz, lz = 300, 384
+    wz = nz + 2
+    rng = np.random.default_rng(3)
+    rows = [torch.as_tensor(rng.uniform(0.5, 2.0, (wz, 1)), dtype=dtype)
+            for _ in range(5)]
+    aref = torch.zeros((wz, wz), dtype=dtype)
+    arrays = [torch.zeros((wz, 4), dtype=dtype)] + rows + [aref]
+    pfx = fp._depth_prefix(rows[1], nz)
+    tile = ck._grid_tile(arrays, pfx, advect, lz)
+    assert tile.shape == (6, lz) and tile.dtype == dtype
+    for i in range(5):
+        assert torch.equal(tile[i, :wz], rows[i][:, 0])
+    assert torch.equal(tile[5, :wz], pfx[:, 0] if advect
+                       else torch.zeros(wz, dtype=dtype))
+    assert bool((tile[1, wz:] == 1.0).all())
+    assert not tile[[0, 2, 3, 4, 5], wz:].any()
+
+
+def test_grid_tile_is_made_once():
+    """A launch on the same grid rows reuses their tile (every float64
+    launch at 8 warps, inside captured CUDA graphs too); a row written in
+    place, or other row tensors, make a new one."""
+    nz, lz = 1000, 1024
+    wz = nz + 2
+    rows = [torch.linspace(1.0, 2.0, wz, dtype=torch.float64)[:, None]
+            .clone() for _ in range(5)]
+    arrays = [torch.zeros((wz, 4), dtype=torch.float64)] + rows + \
+        [torch.zeros((wz, wz), dtype=torch.float64)]
+    pfx = fp._depth_prefix(rows[1], nz)
+    tile = ck._grid_tile(arrays, pfx, True, lz)
+    assert ck._grid_tile(arrays, pfx, True, lz) is tile
+    assert ck._grid_tile(arrays, pfx, False, lz) is not tile
+    rows[2].mul_(2.0)                       # dm written in place
+    again = ck._grid_tile(arrays, pfx, True, lz)
+    assert again is not tile and torch.equal(again[2, :wz], rows[2][:, 0])
+    other = list(arrays)
+    other[-3] = rows[3].clone()             # another tdn tensor
+    assert ck._grid_tile(other, pfx, True, lz) is not again
+
+
+def _check_mw(g, nz, dtype, ncol):
+    """A launch past 256 levels: one column a block over ceil(WZ / 128)
+    warps of 4 slots, aref from device memory, the grid rows too exactly
+    where their shared copy does not fit."""
+    cw = -(-(nz + 2) // 128)
+    assert (g.ns, g.cw, g.warps, g.cols_per_block) == (4, cw, cw, 1)
+    assert (g.blocks, g.aref_dev, g.lib, g.levels) == (ncol, 1, ck.MW,
+                                                      128 * cw)
+    fits = ck.smem_bytes_mw(cw, 0, dtype.itemsize) <= ck.SMEM_MAX
+    assert g.grid_dev == int(not fits)
+    assert g.smem == ck.smem_bytes_mw(cw, g.grid_dev, dtype.itemsize) \
+        <= ck.SMEM_MAX
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_launch_geometry(dtype):
     """Every nz the kernels take fits one block's shared memory, with aref
     kept whole (the worst case) or read from device memory where no block
-    holds it, on the fewest level slots that cover nz + 2, and the grid
-    covers every ncol exactly; past 256 levels the geometry raises."""
-    for nz in range(1, 255):
+    holds it, on the fewest level slots that cover nz + 2 up to 256
+    levels (one warp a column, 8 columns a block or fewer) and past them
+    on a column over ceil((nz + 2) / 128) warps; the grid covers every
+    ncol exactly; past 1024 levels the geometry raises."""
+    for nz in range(1, 1023):
         for kref in (None, 0, 9):
             if kref is not None and kref > nz + 2:
                 continue
             for ncol in (1, 7, 37, 129, 144_507):
                 g = ck.launch_geometry(nz, dtype, ncol, kref)
-                assert g.ns == _fewest_slots(nz)
                 assert g.smem <= 232_448
+                assert g.blocks * g.cols_per_block >= ncol
+                assert (g.blocks - 1) * g.cols_per_block < ncol
+                if nz + 2 > 256:
+                    _check_mw(g, nz, dtype, ncol)
+                    continue
+                assert g.ns == _fewest_slots(nz)
+                assert (g.cw, g.grid_dev, g.lib) == (1, 0, g.ns)
                 assert g.smem == ck.smem_bytes(
                     g.ns, 0 if g.aref_dev else g.kref, g.warps,
                     dtype.itemsize)
                 assert 1 <= g.warps <= 8 and g.warps == g.cols_per_block
-                assert g.blocks * g.cols_per_block >= ncol
-                assert (g.blocks - 1) * g.cols_per_block < ncol
-    with pytest.raises(ValueError, match="256 levels"):
-        ck.launch_geometry(255, dtype, 8)
+    with pytest.raises(ValueError, match="1024 levels"):
+        ck.launch_geometry(1023, dtype, 8)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -388,7 +472,9 @@ def test_launch_geometry_on_real_grids(dtype, dscale):
     geometry never raises, takes the fewest slots, fits SMEM_MAX, and
     reads aref from device memory exactly where its shared copy does not
     fit beside even one warp (then with as many warps as fit without
-    it)."""
+    it).  Past 254 (the edges of each warp count and every 7th nz, so
+    that building the arefs stays cheap): a column over ceil(WZ / 128)
+    warps with the grid's kref."""
     esize = dtype.itemsize
     n_dev = 0
     for nz in range(1, 255):
@@ -407,27 +493,44 @@ def test_launch_geometry_on_real_grids(dtype, dscale):
     # float64 at 8 slots on the stretched grids: 37 and 64 of the 64 nz
     assert n_dev == {(torch.float64, 5.0): 37,
                      (torch.float64, 10.0): 64}.get((dtype, dscale), 0)
+    # past 254: the edges of each warp count, and every 7th nz between
+    edges = {128 * cw + d for cw in range(3, 9) for d in (-3, -2, -1)}
+    for nz in sorted((edges - {1023}) | set(range(255, 1023, 7))):
+        aref = _aref(nz, 250.0, dscale > 0, dscale or 2.0)
+        kref = int(ck.row_extents(aref).max()) + 1
+        g = ck.launch_geometry(nz, dtype, 37, kref)
+        assert g.kref == kref
+        _check_mw(g, nz, dtype, 37)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("nz", [69, 94, 95, 100, 126, 127, 190, 191, 254,
-                                255])
+                                255, 383, 510, 1022, 1023])
 def test_level_slots(dtype, nz):
     """The slots, warps and shared memory a launch takes at the levels of
     the five configurations and at the edges of each instantiation: 3
     slots up to nz 94 (WZ 96), 4 up to nz 126 (WZ 128), 6 up to nz 190
-    (WZ 192), 8 up to nz 254 (WZ 256), a raise naming the limit at 255.
-    With aref's real prefix (kref of a uniform grid) a block keeps 8
-    warps in float32, and in float64 up to 4 slots (4 warps at 6, 2 at
-    8); with aref kept whole a block takes fewer, or reads aref from
-    device memory where no block holds it."""
-    if nz == 255:
-        with pytest.raises(ValueError, match=r"nz\+2=257 .*256 levels"):
+    (WZ 192), 8 up to nz 254 (WZ 256); past it one column a block over 3
+    warps of 4 slots (nz 255 up to 382), 4 (nz 383 to 510), ... 8 (nz
+    1022, WZ 1024), its shared memory pinned below; a raise naming the
+    limit at 1023.  With aref's real prefix (kref of a uniform grid) a
+    one-warp block keeps 8 warps in float32, and in float64 up to 4 slots
+    (4 warps at 6, 2 at 8); with aref kept whole a block takes fewer, or
+    reads aref from device memory where no block holds it."""
+    if nz == 1023:
+        with pytest.raises(ValueError, match=r"nz\+2=1025 .*1024 levels"):
             ck.launch_geometry(nz, dtype, 37)
         return
     esize = dtype.itemsize
     kref = int(ck.row_extents(_aref(nz, 1000.0, False)).max()) + 1
     g = ck.launch_geometry(nz, dtype, 37, kref)
+    if nz > 254:
+        cw, grid_dev, smem = MW_GEOMETRY[esize, nz]
+        assert (g.ns, g.cw, g.warps, g.blocks, g.kref) == (4, cw, cw, 37, kref)
+        assert (g.aref_dev, g.grid_dev, g.smem) == (1, grid_dev, smem)
+        worst = ck.launch_geometry(nz, dtype, 37)
+        assert (worst.cw, worst.grid_dev, worst.smem) == (cw, grid_dev, smem)
+        return
     assert g.ns == _fewest_slots(nz)
     warps = 8 if dtype == torch.float32 else {3: 8, 4: 8, 6: 4, 8: 2}[g.ns]
     assert (g.warps, g.blocks, g.aref_dev) == (warps, -(-37 // warps), 0)
@@ -443,6 +546,23 @@ def test_level_slots(dtype, nz):
         ck.smem_bytes(g.ns, nz + 2, 1, esize) > ck.SMEM_MAX)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_forced_warps_a_column(dtype):
+    """``cw`` spreads a column over that many warps of 4 slots at any nz
+    they cover (the 2-warp step beside the 8-slot one at nz = 254 in
+    chip_smoke.py), and raises where they do not cover nz + 2 or fall
+    outside 2..8."""
+    g = ck.launch_geometry(254, dtype, 37, 26, cw=2)
+    assert (g.ns, g.cw, g.warps, g.blocks, g.lib, g.levels) == \
+        (4, 2, 2, 37, ck.MW, 256)
+    assert (g.aref_dev, g.grid_dev) == (1, 0)
+    assert g.smem == ck.smem_bytes_mw(2, 0, dtype.itemsize)
+    assert ck.launch_geometry(300, dtype, 5, cw=8).cw == 8
+    for nz, cw in ((255, 2), (100, 1), (100, 9)):
+        with pytest.raises(ValueError, match="warps"):
+            ck.launch_geometry(nz, dtype, 37, cw=cw)
+
+
 # (warps, aref_dev) with aref kept whole (kref = nz + 2), by element size
 # and nz: 8 warps and the shared copy unless noted
 WORST = {(4, nz): (8, 0) for nz in (69, 94, 95, 100, 126)}
@@ -451,6 +571,13 @@ WORST.update({(4, 127): (4, 0), (4, 190): (4, 0), (4, 191): (1, 0),
 WORST.update({(8, 69): (8, 0), (8, 94): (8, 0), (8, 95): (4, 0),
               (8, 100): (4, 0), (8, 126): (2, 0), (8, 127): (4, 1),
               (8, 190): (4, 1), (8, 191): (4, 1), (8, 254): (4, 1)})
+# (warps a column, grid_dev, shared-memory bytes) past 254 levels, by
+# element size and nz: float64 at 8 warps reads the grid rows from device
+# memory (242,328 B with them in shared memory, over SMEM_MAX)
+MW_GEOMETRY = {(4, 255): (3, 0, 46_412), (4, 383): (4, 0, 61_772),
+               (4, 510): (4, 0, 61_772), (4, 1022): (8, 0, 123_212),
+               (8, 255): (3, 0, 91_288), (8, 383): (4, 0, 121_496),
+               (8, 510): (4, 0, 121_496), (8, 1022): (8, 1, 193_176)}
 
 
 def test_geometry_constants_match_the_source():
@@ -463,10 +590,25 @@ def test_geometry_constants_match_the_source():
     assert len(re.findall(r"B_\w+", slots)) == ck.N_SLOTS
     assert "constexpr int NCV = NSC + 16;" in src and ck.N_COLV == 32 + 16
     assert "constexpr int NS_MAX = 8;" in src and ck.SLOTS[-1] == 8
-    assert ck.MAXWZ == 256
-    assert "int warps, blocks, kref, smem, ns, aref_dev;" in src
+    assert "constexpr int MW_NS = 4;" in src and ck.MW_NS == 4
+    assert "constexpr int CW_MAX = 8;" in src and ck.WARPS == 8
+    assert "constexpr int MAXWZ = 32 * MW_NS * CW_MAX;" in src
+    assert ck.MAXWZ == 1024 and ck.ONE_WARP_WZ == 256
+    cells = src[src.index("  BC_RHO0 = 0,"):src.index("NBC = ")]
+    # 11 single cells, 9 for blmix's matching, 3 enhance, a crossing per
+    # warp, 4 RMSD sums
+    assert "BC_ENH = BC_MATCH + 9," in cells and \
+        "BC_FX = BC_ENH + 3, BC_RMSD = BC_FX + CW_MAX," in src and \
+        "NBC = BC_RMSD + 4" in src
+    # the single cells, then BC_MATCH
+    assert len(re.findall(r"BC_\w+", cells.split("BC_ENH")[0])) == 11 + 1
+    assert ck.N_BC == 11 + 9 + 3 + 8 + 4
+    assert "KPP_HD int col_stride(int lz) { return NB * lz + NCV + NBC; }" \
+        in src
+    assert "int warps, blocks, kref, smem, ns, aref_dev, cw, grid_dev;" in src
     assert [f[0] for f in ck.Geometry._fields_] == \
-        ["warps", "blocks", "kref", "smem", "ns", "aref_dev"]
+        ["warps", "blocks", "kref", "smem", "ns", "aref_dev", "cw",
+         "grid_dev"]
     with open(ck._CSRC + "/fused_kernels.cu") as f:
         ker = f.read()
     assert "constexpr int MAX_WARPS = 8;" in ker
@@ -474,6 +616,9 @@ def test_geometry_constants_match_the_source():
     assert "constexpr int SMEM_MAX = 232448;" in ker and \
         ck.SMEM_MAX == 232_448
     assert "in->aref_t = static_cast<const Real*>(ip[kpp::N_IN + 1]);" in ker
+    assert "in->grid_t = static_cast<const Real*>(ip[kpp::N_IN + 2]);" in ker
+    assert "int kpp_max_wz() { return 32 * NSL * (MWL ? kpp::CW_MAX : 1); }" \
+        in ker
     assert f"constexpr int AREF_DEV_MIN_NS = {ck.AREF_DEV_MIN_NS};" in src
 
 

@@ -1,13 +1,15 @@
 """The step past 94 levels: single_column's nz = 100, which the CUDA
-kernels take with four level slots a lane (``WZ = nz + 2 <= 128``), and
-nz = 190 on a stretched grid, which they take with six (``<= 192``).
+kernels take with four level slots a lane (``WZ = nz + 2 <= 128``), nz =
+190 on a stretched grid, which they take with six (``<= 192``), and nz =
+300 on a stretched grid, which they take with one column over three warps
+(``<= 384``).
 
 On the CPU the port's plain whole-step body (pass_impl "eager_step") is
 held to the JAX package's traced body ("fused_xla_step", which pads any
 WZ) in float64: 3 columns at nz = 100 over 200 m on a uniform grid, and
-at nz = 190 on a stretched grid (``dscale`` 5), 2 steps each from the
-same warm start, with an inactive land column and the instability trap
-firing on column 0, at rtol 1e-9 with the field scales of
+at nz = 190 and 300 on a stretched grid (``dscale`` 5), 2 steps each from
+the same warm start, with an inactive land column and the instability
+trap firing on column 0, at rtol 1e-9 with the field scales of
 tests/test_fused_parity.py and kmix/old/new equal.  The kernels past 94
 levels are held to their plain versions on the card by the
 ``gpu``-marked cases of tests/test_torch_kernels.py (that file imports no
@@ -187,13 +189,23 @@ def test_eager_step_at_nz190_stretched_matches_jax():
     assert max(spread.values()) < 1e-8, spread
 
 
+def test_eager_step_at_nz300_stretched_matches_jax():
+    """Past 254 levels, where the kernels spread a column over several
+    warps (three at nz = 300), on the stretched grid of the nz = 190 case
+    (0.13 m at the surface, 15.8 m at the bottom): held as that case is,
+    within the larger of the bar and ten times the port's own rounding
+    spread."""
+    spread = hold_to_jax(300, 5.0, calibrate=True)
+    assert max(spread.values()) < 1e-8, spread
+
+
 def test_cpu_model_steps_past_the_kernel_limit():
     """The plain body takes any nz; what limits the kernels is their
     geometry, which only a launch on the card reaches: a CPU model at
-    nz = 255 steps, and launch_geometry raises there naming 256."""
-    model, st, prm, frc = port_start("cuda_step", nz=255, ncol=2)
+    nz = 1023 steps, and launch_geometry raises there naming 1024."""
+    model, st, prm, frc = port_start("cuda_step", nz=1023, ncol=2)
     assert model.pass_impl == "cuda_step"
     out = port_trajectory(model, st, prm, frc, 1)
     assert torch.isfinite(out.x).all()
-    with pytest.raises(ValueError, match="256 levels"):
-        ck.launch_geometry(255, torch.float64, 2)
+    with pytest.raises(ValueError, match="1024 levels"):
+        ck.launch_geometry(1023, torch.float64, 2)
