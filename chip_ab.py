@@ -5,9 +5,10 @@
 
 One process a turn, in the order OTHER_TREE, this tree, this tree,
 OTHER_TREE, each run from its tree's root with that tree's
-``chip_smoke.py`` and ``mckpp_torch``: build the float32 kernels of the
-fewest level slots that take ``--nz`` (3 at the main path's nz = 69, 4
-at single_column's nz = 100), drive the main path's columns (144,507,
+``chip_smoke.py`` and ``mckpp_torch``: build the float32 library whose
+kernels take ``--nz`` (3 level slots at the main path's nz = 69, 4 at
+single_column's nz = 100, a column over 4 warps at nz = 510, over a
+cluster past 1022), drive the main path's columns (144,507,
 ~12% land, float32) at that nz for two steps, capture each kernel's
 inputs on the third and time each kernel three times over ``--reps``
 launches.  Prints the card's name and power limit, then one JSON line a
@@ -31,8 +32,8 @@ def turn(label, reps, nz):
     import chip_smoke as cs
     from mckpp_torch.ops import cuda_kernels as ck
     t0 = time.perf_counter()
-    ns = next(n for n in (3, 4, 6, 8) if 32 * n >= nz + 2)
-    ck.build((torch.float32,), slots=(ns,))
+    geom = ck.launch_geometry(nz, torch.float32, cs.NCOL_MAIN)
+    ck.build((torch.float32,), slots=(geom.lib,))
     build_s = time.perf_counter() - t0
     model, st, prm, frc = cs.build(cs.NCOL_MAIN, nz, land=cs.LAND_SHARE)
     st, frc = cs.run_steps(model, st, prm, frc, 1, 2)
@@ -43,8 +44,8 @@ def turn(label, reps, nz):
         with cs.Capture() as cap:
             cs.run_steps(m, st, prm, frc, 3, 1)
         caps[impl] = cap
-    out = {"tree": label, "path": os.getcwd(), "nz": nz, "level_slots": ns,
-           "build_s": build_s}
+    out = {"tree": label, "path": os.getcwd(), "nz": nz,
+           "library": ck._lib_tag(geom.lib), "build_s": build_s}
     for kname, impl in (("fused_pass_fast", "cuda"),
                         ("fused_pass_full", "cuda_step"),
                         ("fused_step", "cuda_step")):

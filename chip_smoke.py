@@ -9,9 +9,12 @@ Phases, each printing JSON lines; any breach raises, so the script exits
 
 1. device: card name, power limit, versions; build the CUDA kernels (one
    library per dtype and number of level slots a lane carries: 3 for
-   nz + 2 <= 96, 4 for <= 128, 6 for <= 192, 8 for <= 256; and one per
-   dtype of a column over several warps, "cw", for <= 1024; ten nvcc
-   processes at once) and print each one's ptxas table;
+   nz + 2 <= 96, 4 for <= 128, 6 for <= 192, 8 for <= 256; one per
+   dtype of a column over several warps, "cw", for <= 1024; and one per
+   dtype of a column over a cluster of blocks, "cl", for <= 8192; twelve
+   nvcc processes at once) and print each one's ptxas table; then the
+   clusters the card holds at once (cudaOccupancyMaxActiveClusters) at
+   each cluster geometry of nz = 1023, 2046, 3070 and 8190;
 2. kernel gate: each kernel against its plain torch version on the same
    float32 inputs at several (ncol, nz) shapes and flag sets (ragged last
    blocks, and one block mixing a land column, a column the instability
@@ -33,8 +36,16 @@ Phases, each printing JSON lines; any breach raises, so the script exits
    case, a mixed block at nz = 300 (9 columns: land, a trap column,
    uneven pass counts), a deep-mixing case at nz = 1022 whose kmix
    reaches below level 128 (past the first warp), each at the same bar;
-   nz = 1023 raises ValueError naming the 1024 limit, and nz = 511 under
-   pass_impl "auto" runs the step kernel;
+   nz = 511 under pass_impl "auto" runs the step kernel; then past 1022
+   levels (a column over a cluster of 2 to 8 blocks): nz = 1023, 2046
+   and 3070 in float32 and float64 on a uniform and a stretched grid at
+   2 m levels (dmax = 2 nz) at 37 columns with land, double diffusion in
+   one case, and nz = 8190 (8 blocks) in float32 on a uniform grid over
+   8000 m; a mixed block at nz = 1100 (9 columns over 2200 m: land, a
+   trap column, uneven pass counts); a deep-mixing case at nz = 1100 over
+   80 m whose kmix crosses from block 0 into block 1 (past level 640),
+   each at the same bar; nz = 8191 raises ValueError naming the 8192
+   limit, and nz = 2046 under "auto" runs the cluster step kernel;
 3. main path: the production ocean step (``KppModel.step``, pass_impl
    "cuda_step", with the full diagnostics pass on with_diags steps) at the
    TerraMaris width, ncol = 144,507 (453 x 319), nz = 69, ~12% land, with
@@ -93,17 +104,18 @@ Phases, each printing JSON lines; any breach raises, so the script exits
    kernels timed at nz = 100 on 16,384 columns against their plain
    versions and bounds;
 11. deep main path: the step alone at the TerraMaris width at nz = 150
-   (6 slots), 254 (8 slots) and 510 (a column over 4 warps), and at
-   nz = 1022 (8 warps) on 16,384 columns,
+   (6 slots), 254 (8 slots) and 510 (a column over 4 warps), at nz = 1022
+   (8 warps) on 16,384 columns over 2000 m and at nz = 2046 (a cluster
+   of 2 blocks of 8 warps) on 16,384 columns over 4000 m,
    float32, counts from 0 over a few steps of both
    paths, each kernel held to its plain version and timed beside its
-   bound, the phase's peak device memory; the step kernel forced to 2
-   warps a column at nz = 254 beside the 8-slot row on the same inputs;
-   then two deep single columns (250 levels of 1 m, and 1000 levels of 2 m
-   over 2000 m) through the CLI for a model day each in float32, outputs
-   held, and a few steps in float64 with the kernels against the plain
-   step body on the same card (1e-10 of each field's scale, kmix equal),
-   the CPU's run reported beside (the 1000-level column's only);
+   bound, the phase's peak device memory;
+   then three deep single columns (250 levels of 1 m, 1000 levels of 2 m
+   over 2000 m and 2000 levels of 2 m over 4000 m) through the CLI for a
+   model day each in float32, outputs held, and a few steps in float64
+   with the kernels against the plain step body on the same card (1e-10
+   of each field's scale, kmix equal), the CPU's run reported beside (the
+   1000- and 2000-level columns' only);
 12. one model day (72 steps) of the CLI when the script has used less
    than ``CLI_DAY_BEFORE_S``.
 
@@ -401,6 +413,11 @@ def ptxas_table(log):
     return out
 
 
+# the cluster geometries whose occupancy phase 1 prints: 2 blocks of 5
+# and of 8 warps, 3 and 8 blocks of 8
+CL_OCCUPANCY_NZ = (1023, 2046, 3070, 8190)
+
+
 def phase_device():
     import torch
     from mckpp_torch.ops import cuda_kernels as ck
@@ -418,6 +435,20 @@ def phase_device():
     ptxas = {f"{str(dt).replace('torch.', '')}/{ck._lib_tag(lib)}":
              ptxas_table(log) for (dt, lib), log in reports.items()}
     emit({"phase": "build", "seconds": build_s, "ptxas": ptxas})
+    # the clusters of each cluster geometry the card holds at once
+    # (cudaOccupancyMaxActiveClusters; 0 would refuse every launch)
+    rows = []
+    for dt in (torch.float32, torch.float64):
+        for nz in CL_OCCUPANCY_NZ:
+            g = ck.launch_geometry(nz, dt, 16_384)
+            held = {k: ck.max_clusters(dt, g, k) for k in REPLACES}
+            rows.append({"nz": nz, "dtype": str(dt).replace("torch.", ""),
+                         "blocks_per_cluster": g.cb,
+                         "warps_per_block": g.cw, "smem_bytes": g.smem,
+                         "max_active_clusters": held})
+            if min(held.values()) < 1:
+                raise AssertionError(f"the card holds no cluster: {rows[-1]}")
+    emit({"phase": "clusters", "rows": rows})
     return name, smi, ptxas
 
 
@@ -438,7 +469,7 @@ GATE_SHAPES = [(512, 69), (256, 40), (300, 33), (37, 69), (129, 65), (64, 94),
 
 
 def gate_case(ncol, nz, dtype, flags, tol, seed, land=0.1, big=(), warm=2,
-              cold=(), serial_above=None):
+              cold=(), serial_above=None, report=True):
     """Each kernel against its plain version on the inputs of step
     warm+1 (``cold``: see :func:`build`); returns ({kernel: max rel}, the
     plain step's colstep, the step launch's geometry).  Where aref's rows
@@ -448,7 +479,9 @@ def gate_case(ncol, nz, dtype, flags, tol, seed, land=0.1, big=(), warm=2,
     (cuBLAS's order) is reported as ``<kernel>/plain``, beside the
     plain version's own distance from itself on inputs perturbed by a few
     ulp (:func:`ulp_shifted`), ``<kernel>/plain_spread``: the model's own
-    sensitivity to rounding at those inputs (:func:`distance`)."""
+    sensitivity to rounding at those inputs (:func:`distance`); those two
+    reports only with ``report`` (one case a family: they cost two more
+    plain steps)."""
     from mckpp_torch.ops import cuda_kernels as ck
     out, colstep, geom = {}, None, None
     for impl in ("cuda", "cuda_step"):
@@ -463,9 +496,13 @@ def gate_case(ncol, nz, dtype, flags, tol, seed, land=0.1, big=(), warm=2,
         for name in names:
             w, a = cap.first(name)
             got = w.launch(*a)
-            ref = plain_of(w, a)
             kref = ck._ref_extents(a[-1])[1]
-            if serial_above is not None and kref > serial_above:
+            serial = serial_above is not None and kref > serial_above
+            if serial and not report:
+                ref = plain_serial(w, a)
+            else:
+                ref = plain_of(w, a)
+            if serial and report:
                 out[name + "/plain"] = distance(w, got, ref)
                 out[name + "/plain_spread"] = distance(
                     w, plain_of(w, ulp_shifted(w, a)), ref)
@@ -589,7 +626,8 @@ def gate_deep(nz=94, dmax=120.0, below=32, plain_cases=("stratified",)):
     columns turns on the last ulp of the reference averages, which cuBLAS
     rounds otherwise, so there the distance to the plain version is
     reported, not held; at nz = 100 over 60 m (0.6 m levels, 0.003 C a
-    level) the stratified columns turn on it too."""
+    level) the stratified columns turn on it too.  With no
+    ``plain_cases`` the plain version itself is not run."""
     out, kmix = {}, {}
     for impl in ("cuda", "cuda_step"):
         model, st, prm, frc = build(16, nz, "float32", impl, dmax=dmax)
@@ -602,10 +640,13 @@ def gate_deep(nz=94, dmax=120.0, below=32, plain_cases=("stratified",)):
             for case in ("neutral", "stratified"):
                 x = deepened(w, a, case == "stratified")
                 got = w.launch(*x)
-                ref, ser = plain_of(w, x), plain_serial(w, x)
+                ser = plain_serial(w, x)
+                refs = [("plain_serial", ser)]
+                if plain_cases:
+                    refs.insert(0, ("plain", plain_of(w, x)))
                 sync()
                 res = {}
-                for key, r in (("plain", ref), ("plain_serial", ser)):
+                for key, r in refs:
                     try:
                         res[key] = compare(w, got, r, TOL_F32)
                     except AssertionError as e:
@@ -623,8 +664,7 @@ def gate_deep(nz=94, dmax=120.0, below=32, plain_cases=("stratified",)):
                 raise AssertionError(f"deep {case}: {r[key]} against {key}")
     if not any(k > below for k in kmix["stratified"]):
         raise AssertionError(f"deep case: no kmix below level {below}")
-    return {n: max(r[k] for k in ("plain", "plain_serial")
-                   if not isinstance(r[k], str))
+    return {n: max(v for v in r.values() if not isinstance(v, str))
             for (n, c), r in out.items() if c == "stratified"}
 
 
@@ -701,13 +741,14 @@ ONE_WARP_NZ = 254       # the most levels one warp a column takes (WZ = 256)
 # diffusion at (383, float64, stretched)
 GATE_MW = [(nz, dt, ds) for nz in (255, 383, 1022)
            for dt in ("float32", "float64") for ds in (0.0, DEEP_DSCALE)]
-MAXNZ = 1022            # the most levels the kernels take (WZ = 1024)
+MW_MAXNZ = 1022         # the most levels one block takes (WZ = 1024)
 # aref rows longer than this (the stretched grid at nz = 383 and 1022:
 # kref 149 and 402) are summed by cuBLAS in its own order, which moves the
 # reference averages by an ulp and, through the hmix loop, kmix: there
-# the kernels are held to the serial-sum plain version, and the distance
-# to the plain version itself is reported beside the plain version's own
-# spread under a few ulp of T
+# the kernels are held to the serial-sum plain version, and (at one case
+# a family: nz = 1022 float32 and, past it, 2046 float64, both stretched)
+# the distance to the plain version itself is reported beside the plain
+# version's own spread under a few ulp of T
 SERIAL_ABOVE = 128
 
 
@@ -764,16 +805,15 @@ def gate_multiwarp():
     """The kernels past 254 levels, a column over ceil((nz + 2) / 128)
     warps: each case of ``GATE_MW`` held at the phase-2 bar on the first
     step's inputs (to the serial-sum plain version where aref's rows pass
-    ``SERIAL_ABOVE`` entries), with the warps, grid-row and aref
+    ``SERIAL_ABOVE`` entries; the distance to cuBLAS's order reported at
+    nz = 1022 float32 stretched), with the warps, grid-row and aref
     placement its step launch took; the mixed block at nz = 300 (9
     columns: land, a column the trap retries, uneven pass counts); the
     deep-mixing inputs at
     nz = 1022 over 250 m (kmix past level 128, the first warp's last)
-    against the serial-sum plain version; then nz = 1023 raising
-    ValueError naming 1024 from the geometry, the pass wrapper and a
-    model step, and ``auto`` at nz = 511 running the step kernel once.
-    Returns ({kernel: worst f32}, {kernel: worst f64}, the number of
-    cases)."""
+    against the serial-sum plain version; then ``auto`` at nz = 511
+    running the step kernel once.  Returns ({kernel: worst f32},
+    {kernel: worst f64}, the number of cases)."""
     import torch
     from mckpp_torch.ops import cuda_kernels as ck
     worst = {"float32": {}, "float64": {}}
@@ -785,7 +825,9 @@ def gate_multiwarp():
         flags = dict(GATE_FLAGS[fname], dscale=dscale)
         tol = TOL_F32 if dtype == "float32" else TOL_F64
         res, _, g = gate_case(37, nz, dtype, flags, tol, 90 + i, warm=0,
-                              serial_above=SERIAL_ABOVE)
+                              serial_above=SERIAL_ABOVE,
+                              report=(nz, dtype, dscale) == (
+                                  MW_MAXNZ, "float32", DEEP_DSCALE))
         cw = -(-(nz + 2) // 128)
         want_grid = int(dtype == "float64" and cw == 8)
         if (g.cw, g.ns, g.aref_dev, g.grid_dev) != (cw, 4, 1, want_grid):
@@ -808,20 +850,7 @@ def gate_multiwarp():
           "reset": cs[5].tolist()})
     take_worst(worst, "float32", res)
     take_worst(worst, "float32",
-               gate_deep(MAXNZ, 250.0, 128, plain_cases=()))
-    raised = []
-    try:
-        ck.launch_geometry(MAXNZ + 1, torch.float32, 37)
-    except ValueError as e:
-        raised.append(str(e))
-    for impl in ("cuda", "cuda_step"):      # the pass wrapper, the step
-        model, st, prm, frc = build(37, MAXNZ + 1, "float32", impl)
-        try:
-            run_steps(model, st, prm, frc, 1, 1)
-        except ValueError as e:
-            raised.append(str(e))
-    if len(raised) != 3 or not all("1024" in r for r in raised):
-        raise AssertionError(f"nz = 1023 did not raise naming 1024: {raised}")
+               gate_deep(MW_MAXNZ, 250.0, 128, plain_cases=()))
     # nz = 511 under pass_impl "auto": the whole-step kernel, 5 warps
     model, st, prm, frc = build(37, 511, "float32", "auto")
     ck.reset_counts()
@@ -831,10 +860,110 @@ def gate_multiwarp():
             or not torch_all_finite(st):
         raise AssertionError(f"nz = 511, auto: {model.pass_impl}, "
                              f"{ck.LAUNCHES}")
-    emit({"phase": "gate", "nz": MAXNZ + 1, "raises": raised,
-          "nz511_auto": model.pass_impl, "nz511_auto_launches":
-              dict(ck.LAUNCHES)})
+    emit({"phase": "gate", "nz": 511, "nz511_auto": model.pass_impl,
+          "nz511_auto_launches": dict(ck.LAUNCHES)})
     return worst["float32"], worst["float64"], len(GATE_MW) + 2
+
+
+# past 1022 levels, a column over a cluster of blocks: the first nz of 2
+# blocks (5 warps each), 2 and 3 blocks of 8 warps, both dtypes, both
+# grids, at 2 m levels on the uniform grid (dmax = 2 nz, where the hmix
+# loop converges, as at the 1000-level column) and as deep on the
+# stretched one; double diffusion at (2046, float64, stretched); and the
+# most levels, nz = 8190 (8 blocks of 8 warps), in float32 on a uniform
+# grid over 8000 m: (nz, dtype, dscale, dmax)
+GATE_CL = [(nz, dt, ds, 2.0 * nz) for nz in (1023, 2046, 3070)
+           for dt in ("float32", "float64") for ds in (0.0, DEEP_DSCALE)] \
+    + [(8190, "float32", 0.0, 8000.0)]
+MAXNZ = 8190            # the most levels the kernels take (WZ = 8192)
+# the cluster's mixed block and deep-mixing case: 2 blocks of 5 warps,
+# 640 levels each
+CL_MIXED_NZ = 1100
+
+
+def gate_cluster():
+    """The kernels past 1022 levels, a column over a cluster of
+    ceil((nz + 2) / 1024) blocks: each case of ``GATE_CL`` held at the
+    phase-2 bar on the first step's inputs (to the serial-sum plain
+    version where aref's rows pass ``SERIAL_ABOVE`` entries; the distance
+    to cuBLAS's order reported at nz = 2046 float64 stretched), with the
+    blocks, warps and shared memory its step launch took; the mixed block
+    at nz = 1100 over 2200 m (9 columns: land, a column the trap retries,
+    uneven pass counts); the deep-mixing inputs at nz = 1100 over 80 m
+    (kmix past level 640, block 0's last) against the serial-sum plain
+    version; then nz = 8191 raising ValueError naming 8192 from the
+    geometry, the pass wrapper and a model step, and ``auto`` at nz =
+    2046 running the cluster step kernel once.  Returns ({kernel: worst
+    f32}, {kernel: worst f64}, the number of cases)."""
+    import torch
+    from mckpp_torch.ops import cuda_kernels as ck
+    worst = {"float32": {}, "float64": {}}
+
+    for i, (nz, dtype, dscale, dmax) in enumerate(GATE_CL):
+        fname = "ldd" if (nz, dtype, dscale) == (2046, "float64",
+                                                 DEEP_DSCALE) \
+            else "default_analytic"
+        flags = dict(GATE_FLAGS[fname], dscale=dscale, dmax=dmax)
+        tol = TOL_F32 if dtype == "float32" else TOL_F64
+        res, _, g = gate_case(37, nz, dtype, flags, tol, 110 + i, warm=0,
+                              serial_above=SERIAL_ABOVE,
+                              report=(nz, dtype, dscale) == (
+                                  2046, "float64", DEEP_DSCALE))
+        cb = -(-(nz + 2) // 1024)
+        cw = -(-(nz + 2) // (128 * cb))
+        if (g.cb, g.cw, g.ns, g.aref_dev, g.grid_dev) != (cb, cw, 4, 1, 1):
+            raise AssertionError(f"nz = {nz} {dtype} dscale {dscale}: "
+                                 f"{g.cb} blocks of {g.cw} warps, {g.ns} "
+                                 f"slots, aref_dev {g.aref_dev}, grid_dev "
+                                 f"{g.grid_dev}")
+        emit({"phase": "gate", "ncol": 37, "nz": nz, "flags": fname,
+              "dtype": dtype, "dscale": dscale, "dmax": dmax,
+              "blocks_per_cluster": g.cb, "warps_per_block": g.cw,
+              "level_slots": g.ns, "kref": g.kref, "smem_bytes": g.smem,
+              "max_rel": res})
+        take_worst(worst, dtype, res)
+    res, cs, g = gate_case(9, CL_MIXED_NZ, "float32",
+                           dict(GATE_FLAGS["default_analytic"], dmax=2200.0),
+                           TOL_F32, 3, land=(3,), big=(6,), cold=(1,),
+                           warm=0)
+    hold_mixed_block(cs)
+    emit({"phase": "gate", "ncol": 9, "nz": CL_MIXED_NZ,
+          "flags": "mixed_block", "dtype": "float32",
+          "blocks_per_cluster": g.cb, "warps_per_block": g.cw,
+          "max_rel": res, "npass": cs[7].tolist(),
+          "comp_flag": cs[4].tolist(), "reset": cs[5].tolist()})
+    take_worst(worst, "float32", res)
+    take_worst(worst, "float32",
+               gate_deep(CL_MIXED_NZ, 80.0, 640, plain_cases=()))
+    raised = []
+    try:
+        ck.launch_geometry(MAXNZ + 1, torch.float32, 37)
+    except ValueError as e:
+        raised.append(str(e))
+    for impl in ("cuda", "cuda_step"):      # the pass wrapper, the step
+        model, st, prm, frc = build(37, MAXNZ + 1, "float32", impl,
+                                    dmax=8000.0)
+        try:
+            run_steps(model, st, prm, frc, 1, 1)
+        except ValueError as e:
+            raised.append(str(e))
+        del model, st, prm, frc
+    if len(raised) != 3 or not all("8192" in r for r in raised):
+        raise AssertionError(f"nz = 8191 did not raise naming 8192: {raised}")
+    # nz = 2046 under pass_impl "auto": the whole-step kernel, 2 blocks
+    model, st, prm, frc = build(37, 2046, "float32", "auto", dmax=4092.0)
+    ck.reset_counts()
+    st, frc = run_steps(model, st, prm, frc, 1, 1, with_diags=False)
+    sync()
+    g = ck.launch_geometry(2046, torch.float32, 37)
+    if model.pass_impl != "cuda_step" or ck.LAUNCHES["fused_step"] != 1 \
+            or g.lib != ck.CL or not torch_all_finite(st):
+        raise AssertionError(f"nz = 2046, auto: {model.pass_impl}, "
+                             f"{ck.LAUNCHES}, library {g.lib}")
+    emit({"phase": "gate", "nz": MAXNZ + 1, "raises": raised,
+          "nz2046_auto": model.pass_impl, "nz2046_auto_library": g.lib,
+          "nz2046_auto_launches": dict(ck.LAUNCHES)})
+    return worst["float32"], worst["float64"], len(GATE_CL) + 2
 
 
 def phase_gate():
@@ -871,7 +1000,7 @@ def phase_gate():
     for k, v in gate_wide_aref().items():
         worst64[k] = max(worst64.get(k, 0.0), v)
     n_deep = 0
-    for gate in (gate_levels, gate_multiwarp):
+    for gate in (gate_levels, gate_multiwarp, gate_cluster):
         deep32, deep64, n_cases = gate()
         n_deep += n_cases
         for tgt, res in ((worst, deep32), (worst64, deep64)):
@@ -1011,19 +1140,18 @@ def time_cuda(fn, reps):
     return e0.elapsed_time(e1) / reps
 
 
-def kernel_row(kname, w, a, name, ptxas, launches, plain_reps=2, cw=None):
+def kernel_row(kname, w, a, name, ptxas, launches, plain_reps=2):
     """One kernel at one shape, on the inputs ``a`` the path gave it: held
     to its plain version (the phase-2 bar), timed beside it and beside
     the card's bound; ``ptxas``: every library's table, by dtype and
     library ({"float32/ns3": {kernel: registers, spills}, ...,
-    "float32/cw": ...}).  ``plain_reps`` 0: the plain version's time is
-    that of the one call the comparison makes (the deep shapes, where a
-    call takes seconds).  ``cw``: the kernel launched with a column over
-    that many warps (:func:`ck.launch_geometry`)."""
+    "float32/cw": ..., "float32/cl": ...}).  ``plain_reps`` 0: the plain
+    version's time is that of the one call the comparison makes (the deep
+    shapes, where a call takes seconds)."""
     import torch
     from mckpp_torch.ops import cuda_kernels as ck
     flops_peak, bytes_peak = card_peaks(name)
-    got = w.launch(*a, _cw=cw)
+    got = w.launch(*a)
     e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     e0.record()
     ref = plain_of(w, a)
@@ -1031,15 +1159,14 @@ def kernel_row(kname, w, a, name, ptxas, launches, plain_reps=2, cw=None):
     sync()
     err = max(float((x - y).abs().max()) for x, y in zip(got, ref))
     rel = compare(w, got, ref, TOL_F32)
-    ms = time_cuda(lambda: w.launch(*a, _cw=cw),
+    ms = time_cuda(lambda: w.launch(*a),
                    5 if kname != "fused_step" else 3)
     plain_ms = (time_cuda(lambda: plain_of(w, a), plain_reps) if plain_reps
                 else e0.elapsed_time(e1))
     nz = w.kw["nz"]
     ncol = a[0].shape[1]
     aref, ldd = a[-1], w.kw["flags"].ldd
-    geom = ck.launch_geometry(nz, a[0].dtype, ncol, ck._ref_extents(aref)[1],
-                              cw)
+    geom = ck.launch_geometry(nz, a[0].dtype, ncol, ck._ref_extents(aref)[1])
     # bytes: every input read once, every output written once
     nbytes = sum(x.numel() * x.element_size() for x in a) + \
         sum(x.numel() * x.element_size() for x in got)
@@ -1078,8 +1205,10 @@ def kernel_row(kname, w, a, name, ptxas, launches, plain_reps=2, cw=None):
         "library_ms": None, "bytes": nbytes, "ops": ops,
         "bound_bytes_ms": bound_bytes_ms, "bound_ops_ms": bound_ops_ms,
         "shape": [nz + 2, ncol], "level_slots": geom.ns,
-        "library": ck._lib_tag(geom.lib), "warps_per_column": geom.cw,
-        "warps_per_block": geom.warps, "smem_bytes": geom.smem,
+        "library": ck._lib_tag(geom.lib),
+        "warps_per_column": geom.cw * geom.cb,
+        "warps_per_block": geom.warps, "blocks_per_cluster": geom.cb,
+        "smem_bytes": geom.smem,
         "kref": geom.kref, "aref": "device" if geom.aref_dev else "shared",
         "grid_rows": "device" if geom.grid_dev else "shared",
         "registers": regs,
@@ -1133,11 +1262,15 @@ def phase_times_ns4(name, ptxas):
     return rows
 
 
-# the step alone past 126 levels, float32, (nz, columns): 6 slots at
+# the step alone past 126 levels, float32, (nz, columns, dmax): 6 slots at
 # nz = 150 and 8 at 254 at the TerraMaris width, a column over 4 warps at
-# 510 there too, over 8 warps at 1022 on 16,384 columns
-DEEP_MAIN = ((150, NCOL_MAIN), (ONE_WARP_NZ, NCOL_MAIN), (510, NCOL_MAIN),
-             (MAXNZ, 16_384))
+# 510 there too (over 1000 m), over 8 warps at 1022 on 16,384 columns
+# over 2000 m, and over a cluster of 2 blocks of 8 warps at 2046 on 16,384
+# columns over 4000 m (~2 m levels, where the hmix loop converges: at
+# nz = 1022 over 1000 m every active column ran to the 200-pass cap)
+DEEP_MAIN = ((150, NCOL_MAIN, 1000.0), (ONE_WARP_NZ, NCOL_MAIN, 1000.0),
+             (510, NCOL_MAIN, 1000.0), (MW_MAXNZ, 16_384, 2000.0),
+             (2046, 16_384, 4000.0))
 
 
 def phase_deep_main(name, smi, ptxas):
@@ -1149,18 +1282,16 @@ def phase_deep_main(name, smi, ptxas):
     outputs finite with hmix in (0, dmax] on active columns; each kernel
     held to its plain version on the inputs of its first launch in that
     run (the phase-2 bar) and timed beside its bound (:func:`kernel_row`,
-    the plain version timed once); at nz = 254 the step kernel also with
-    a column over 2 warps on the same inputs (a row of the phase line
-    only: no path launches it).  The peak device memory of the path's run
+    the plain version timed once).  The peak device memory of the path's run
     and of the phase with the plain versions' temporaries.  Returns the
     rows, named by kernel and library (``_ns6``, ``_ns8``, ``_cw4``,
-    ``_cw8``)."""
+    ``_cw8``, ``_cl2x8``: blocks of a cluster x warps of a block)."""
     import torch
     from mckpp_torch.ops import cuda_kernels as ck
     rows, lines = [], []
-    for nz, ncol in DEEP_MAIN:
+    for nz, ncol, dmax in DEEP_MAIN:
         torch.cuda.reset_peak_memory_stats()
-        model, st, prm, frc = build(ncol, nz, land=LAND_SHARE)
+        model, st, prm, frc = build(ncol, nz, land=LAND_SHARE, dmax=dmax)
         st, frc = run_steps(model, st, prm, frc, 1, 2)
         sync()
         ck.reset_counts()                # this depth's run starts here
@@ -1170,7 +1301,7 @@ def phase_deep_main(name, smi, ptxas):
             sync()
             step_ms = (time.perf_counter() - t0) / 3 * 1e3
             model_p = build(ncol, nz, pass_impl="cuda",
-                            land=LAND_SHARE)[0]
+                            land=LAND_SHARE, dmax=dmax)[0]
             st_p = run_steps(model_p, st, prm, frc, 6, 1)[0]
             sync()
         counts = dict(ck.LAUNCHES)       # ... and is read here
@@ -1180,33 +1311,32 @@ def phase_deep_main(name, smi, ptxas):
             raise AssertionError(f"nz = {nz}: kernels not launched {zero}")
         wet = prm.run_physics
         hm = st.hmix[wet]
-        if not torch_all_finite(st) or not bool(((hm > 0) & (hm <= 1000.0))
+        if not torch_all_finite(st) or not bool(((hm > 0) & (hm <= dmax))
                                                 .all()):
             raise AssertionError(f"nz = {nz}: non-finite state or hmix "
                                  "outside (0, dmax]")
         peak = torch.cuda.max_memory_allocated()
         n_wet, hm_med = int(wet.sum()), float(hm.median())
         del model, st, prm, frc, wet, hm
-        extra = {}
         for kname in ("fused_pass_fast", "fused_pass_full", "fused_step"):
             w, a = cap.first(kname)
             row = kernel_row(kname, w, a, name, ptxas, counts[kname],
                              plain_reps=0)
-            row["name"] = (f"{kname}_cw{row['warps_per_column']}"
-                           if row["library"] == ck.MW
-                           else f"{kname}_ns{row['level_slots']}")
+            row["name"] = (
+                f"{kname}_cl{row['blocks_per_cluster']}x"
+                f"{row['warps_per_block']}" if row["library"] == ck.CL
+                else f"{kname}_cw{row['warps_per_column']}"
+                if row["library"] == ck.MW
+                else f"{kname}_ns{row['level_slots']}")
             rows.append(row)
-            if kname == "fused_step" and nz == ONE_WARP_NZ:
-                extra["step_cw2"] = dict(kernel_row(
-                    kname, w, a, name, ptxas, None, plain_reps=0, cw=2),
-                    name="fused_step_cw2")
         del cap
-        lines.append({"nz": nz, "ncol": ncol, "active_columns": n_wet,
+        lines.append({"nz": nz, "ncol": ncol, "dmax": dmax,
+                      "active_columns": n_wet,
                       "step_ms_with_diags": step_ms, "launches": counts,
                       "hmix_median_active": hm_med,
                       "peak_memory_bytes": peak,
                       "peak_memory_bytes_with_plain":
-                          torch.cuda.max_memory_allocated(), **extra})
+                          torch.cuda.max_memory_allocated()})
         torch.cuda.empty_cache()
     emit({"phase": "deep_main", "card": name, "nvidia_smi": smi,
           "dtype": "float32", "runs": lines, "rows": rows})
@@ -1218,6 +1348,9 @@ DEEP_COLUMN_STEPS64 = 9
 # single_column's 2000 m at 2 m levels, as KPP single-column studies of
 # deep winter convection resolve it (a column over 8 warps)
 DEEP_COLUMN_1000 = (1000, 2000.0, 6)   # levels, dmax, float64 steps
+# a full-depth open-ocean column, 4000 m at 2 m levels (a column over a
+# cluster of 2 blocks of 8 warps)
+DEEP_COLUMN_2000 = (2000, 4000.0, 6)
 
 
 class plain_step:
@@ -1258,13 +1391,14 @@ def restart_rel(a, b):
 
 def phase_deep_column(name, smi, work, device="cuda", nz=DEEP_COLUMN_NZ,
                       dmax=DEEP_COLUMN_DMAX, steps64=DEEP_COLUMN_STEPS64,
-                      cpu=True):
+                      cpu=True, ptxas=None):
     """A deep single column: the single_column recipe at ``nz`` levels
     over ``dmax`` m (``benchmark_inputs.write_single_column``; 250 over
-    250 m, and 1000 over 2000 m), a model day (72 steps) of the CLI in
-    float32 on ``device``, its outputs held (finite, hmix in [0, dmax])
-    and its kernels those launch_geometry takes there (8 slots at 250, a
-    column over 8 warps at 1000); then the same inputs in float64 for
+    250 m, 1000 over 2000 m and 2000 over 4000 m), a model day (72 steps)
+    of the CLI in float32 on ``device``, its outputs held (finite, hmix in
+    [0, dmax]) and its kernels those launch_geometry takes there (8 slots
+    at 250, a column over 8 warps at 1000, over a cluster of 2 blocks at
+    2000); then the same inputs in float64 for
     ``steps64`` steps through the CLI three times: on ``device`` with the
     kernels, on ``device`` with the plain step body (:class:`plain_step`),
     and (``cpu``) on the CPU (the plain bodies).  The kernels' restart is
@@ -1274,7 +1408,10 @@ def phase_deep_column(name, smi, work, device="cuda", nz=DEEP_COLUMN_NZ,
     the first 9 steps (hbl hops between levels), so where it stops turns
     on the last ulp of each pass, and the CPU's exp, pow and scalar
     division round apart from the card's (ROADMAP §C): the 250-level
-    column's CPU run (~20 s) is left out for the script's time."""
+    column's CPU run (~20 s) is left out for the script's time.  With
+    ``ptxas`` (on the card), each kernel the day launched is held to its
+    plain version on the inputs of its first launch and timed
+    (:func:`kernel_row`, the day's launches); returns those rows."""
     import os
     import shutil
     import numpy as np
@@ -1284,8 +1421,9 @@ def phase_deep_column(name, smi, work, device="cuda", nz=DEEP_COLUMN_NZ,
     data = os.path.join(work, f"deep_column_{nz}")
     grid = write_single_column(data, nz, dmax)
     dmax = grid["dmax"]
-    day = run_cli(data, os.path.join(data, "day"), CLI_DAY_STEPS,
-                  device=device)
+    with Capture() if ptxas is not None else contextlib.nullcontext() as cap:
+        day = run_cli(data, os.path.join(data, "day"), CLI_DAY_STEPS,
+                      device=device)
     n_held = hold_outputs(read_nc_dir(os.path.join(data, "day")),
                           np.zeros((1, 1), dtype=bool), dmax)
     on_card = device == "cuda"
@@ -1305,13 +1443,23 @@ def phase_deep_column(name, smi, work, device="cuda", nz=DEEP_COLUMN_NZ,
         restarts[label] = npz_arrays([p for p in runs[label]["restarts"]
                                       if p.endswith(".npz")][-1])
     rel, kmix_equal = restart_rel(restarts["kernels"], restarts["plain"])
+    rows = []
+    for kname, n in day["launches_read"].items():
+        if ptxas is None or not n:
+            continue
+        w, a = cap.first(kname)
+        row = kernel_row(kname, w, a, name, ptxas, n)
+        row["name"] = (f"{kname}_cl{row['blocks_per_cluster']}x"
+                       f"{row['warps_per_block']}_column")
+        rows.append(row)
     rel_cpu, kmix_cpu = (restart_rel(restarts["kernels"], restarts["cpu"])
                          if cpu else ("not run", None))
     launched = runs["kernels"]["launches_read"]
     shutil.rmtree(data)
     emit({"phase": "deep_column", "card": name, "nvidia_smi": smi,
           "nz": nz, "dmax": dmax, "library": ck._lib_tag(g.lib),
-          "level_slots": g.ns, "warps_per_column": g.cw,
+          "level_slots": g.ns, "warps_per_column": g.cw * g.cb,
+          "blocks_per_cluster": g.cb,
           "day": {k: day.get(k) for k in CLI_KEYS}, "fields_held": n_held,
           "float64_steps": steps64,
           "float64_kernels_vs_plain_max_rel": rel,
@@ -1322,7 +1470,8 @@ def phase_deep_column(name, smi, work, device="cuda", nz=DEEP_COLUMN_NZ,
                            for k, r in restarts.items()},
           "float64_launches": {k: r["launches_read"]
                                for k, r in runs.items()},
-          "float64_wall_s": {k: r["wall_s"] for k, r in runs.items()}})
+          "float64_wall_s": {k: r["wall_s"] for k, r in runs.items()},
+          "rows": rows})
     over = {k: v for k, v in rel.items() if v > TOL_F64}
     if over or not kmix_equal or (on_card and (
             not launched["fused_step"]
@@ -1331,6 +1480,7 @@ def phase_deep_column(name, smi, work, device="cuda", nz=DEEP_COLUMN_NZ,
                              f"plain body: {over}, kmix equal {kmix_equal}, "
                              f"launches {launched} / "
                              f"{runs['plain']['launches_read']}")
+    return rows
 
 
 def phase_trace(model, st, prm, frc, nt, name):
@@ -2448,9 +2598,12 @@ def main():
                  if r["level_slots"] == 4]
         rows += phase_deep_main(name, smi, ptxas)
         phase_deep_column(name, smi, work, cpu=False)
-        nz1000, dmax1000, steps1000 = DEEP_COLUMN_1000
-        phase_deep_column(name, smi, work, nz=nz1000, dmax=dmax1000,
-                          steps64=steps1000)
+        nz_c, dmax_c, steps_c = DEEP_COLUMN_1000
+        phase_deep_column(name, smi, work, nz=nz_c, dmax=dmax_c,
+                          steps64=steps_c)
+        nz_c, dmax_c, steps_c = DEEP_COLUMN_2000
+        rows += phase_deep_column(name, smi, work, nz=nz_c, dmax=dmax_c,
+                                  steps64=steps_c, ptxas=ptxas)
         phase_day(name, t_start, work, data, land, dmax)
     finally:
         shutil.rmtree(work, ignore_errors=True)

@@ -29,6 +29,14 @@
 //   meet, aref (and, for float64 at CW = 8, the grid rows) read from
 //   device memory; a column's input rows are read one level at a time
 //   (stride ncol), so its staging moves whole sectors for one value;
+// * past 1024 levels (WZ <= 8192) one column over a cluster of CB = 2..8
+//   blocks (the "cl" library, KPP_MW=2), each block CW warps of 4 slots
+//   holding its slice of the column's rows; where levels meet, the blocks
+//   read each other's slices through distributed shared memory between
+//   cluster barriers; aref and the grid rows are read from device memory.
+//   It launches with cudaLaunchKernelEx and a cluster dimension of CB, and
+//   refuses (KPP_NO_CLUSTER) a geometry of which the card cannot hold one
+//   cluster at once (cudaOccupancyMaxActiveClusters 0);
 // * each warp runs its own column's convergence and trap loops, so a warp
 //   never waits for a slower column, and a land column's warp skips them;
 // * a block of W >= 8 warps takes W consecutive columns and stages their
@@ -39,13 +47,15 @@
 //   block holds the copy (float64 at 8 slots on a stretched grid).
 // The launch geometry (warps per block, blocks, aref columns kept, dynamic
 // shared-memory bytes, level slots, aref's placement, warps a column, the
-// grid rows' placement) comes from the wrapper; the launcher checks the
-// bytes against smem_bytes() or smem_bytes_mw().  One library holds the
-// three kernels of one type and one number of level slots, or (KPP_MW=1,
-// NS = 4) of a column over several warps.  Build:
+// grid rows' placement, the blocks of a column's cluster) comes from the
+// wrapper; the launcher checks the bytes against smem_bytes(),
+// smem_bytes_mw() or smem_bytes_cl().  One library holds the three
+// kernels of one type and one number of level slots, or (KPP_MW=1, NS =
+// 4) of a column over several warps, or (KPP_MW=2, NS = 4) of a column
+// over a cluster.  Build:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
 //        -shared -Xcompiler -fPIC -DKPP_REAL=float|double -DKPP_NS=3|4|6|8
-//        [-DKPP_MW=1]
+//        [-DKPP_MW=1|2]
 // -fmad=false keeps each multiply and add rounded on its own, as the
 // unfused eager torch ops that the kernels are held against round them.
 #include <cuda_runtime.h>
@@ -78,14 +88,14 @@ template <> struct MinBlocks<float, 3> { static constexpr int value = 2; };
 static_assert(CW_MAX == MAX_WARPS, "a column's warps fill at most a block");
 static_assert(!KPP_MW || KPP_NS == MW_NS, "a column over warps has 4 slots");
 
-template <typename T, bool FULL, int NS, bool MW>
+template <typename T, bool FULL, int NS, Spread MW>
 __global__ void __launch_bounds__(MAX_WARPS * 32, MinBlocks<T, NS>::value)
 fused_pass_kernel(PassParams P, Geometry G, Inputs<T> in, Outputs<T> out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   pass_block<T, FULL, NS, MW>(P, G, in, out, smem_raw);
 }
 
-template <typename T, int NS, bool MW>
+template <typename T, int NS, Spread MW>
 __global__ void __launch_bounds__(MAX_WARPS * 32, MinBlocks<T, NS>::value)
 fused_step_kernel(PassParams P, Geometry G, Inputs<T> in, Outputs<T> out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -98,6 +108,16 @@ bool geometry_ok(const PassParams& P, const Geometry& G,
   const int tsize = int(sizeof(KPP_REAL));
   const bool common = G.ns == KPP_NS && G.kref >= 0 && G.kref <= P.wz
                       && G.smem <= SMEM_MAX;
+  if (KPP_MW == CLUSTER)   // one column over cb blocks of cw warps each,
+                           // every block holding some of its levels
+    return common && G.cb >= 2 && G.cb <= CB_MAX && G.cw >= 1
+           && G.cw <= CW_MAX && G.warps == G.cw
+           && P.wz <= 32 * KPP_NS * G.cw * G.cb
+           && P.wz > 32 * KPP_NS * G.cw * (G.cb - 1)
+           && G.aref_dev == 1 && in.aref_t && G.grid_dev == 1 && in.grid_t
+           && size_t(G.smem) == smem_bytes_cl(G.cw, tsize)
+           && size_t(G.blocks) == size_t(P.ncol) * G.cb;
+  if (G.cb != 1) return false;
   if (KPP_MW)   // one column a block over cw warps, aref from device memory
     return common && G.cw >= 2 && G.cw <= CW_MAX && G.warps == G.cw
            && P.wz <= 32 * KPP_NS * G.cw && G.aref_dev == 1 && in.aref_t
@@ -113,6 +133,30 @@ bool geometry_ok(const PassParams& P, const Geometry& G,
          && size_t(G.blocks) * G.warps >= size_t(P.ncol);
 }
 
+#if KPP_MW == 2
+// the launcher's code for a cluster the card cannot hold (not a CUDA error)
+constexpr int KPP_NO_CLUSTER = -2;
+
+// geometry G's launch: ncol clusters of cb blocks, each cluster one
+// column (``attr`` holds the launch's one attribute, the cluster size)
+inline cudaLaunchConfig_t cluster_launch(const Geometry& G,
+                                         cudaStream_t stream,
+                                         cudaLaunchAttribute* attr) {
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = unsigned(G.cb);
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(unsigned(G.blocks));
+  cfg.blockDim = dim3(unsigned(G.warps * 32));
+  cfg.dynamicSmemBytes = size_t(G.smem);
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+#endif
+
 // A block of fewer than MAX_WARPS warps is taken where the shared memory
 // of 8 would not fit (float64 from NS = 4 up, float at NS = 8 with a deep
 // aref prefix).  With aref_dev (from AREF_DEV_MIN_NS slots up, and always
@@ -126,9 +170,36 @@ int launch(K kern, const PassParams& P, const Geometry& G, cudaStream_t stream,
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, G.smem);
   if (e != cudaSuccess) return int(e);
   if (P.ncol <= 0) return 0;
+#if KPP_MW == 2
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_launch(G, stream, &attr);
+  int clusters = 0;
+  e = cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg);
+  if (e != cudaSuccess) return int(e);
+  if (clusters < 1) return KPP_NO_CLUSTER;
+  e = cudaLaunchKernelEx(&cfg, kern, P, G, in, out);
+  if (e != cudaSuccess) return int(e);
+#else
   kern<<<G.blocks, G.warps * 32, G.smem, stream>>>(P, G, in, out);
+#endif
   return int(cudaGetLastError());
 }
+
+#if KPP_MW == 2
+// the clusters of geometry G the card holds at once, for kernel ``kind``
+// (0 the fast pass, 1 the full pass, 2 the step), or a negative CUDA error
+template <typename K>
+int max_clusters(K kern, const Geometry& G) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, G.smem);
+  if (e != cudaSuccess) return -int(e);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_launch(G, nullptr, &attr);
+  int clusters = 0;
+  e = cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg);
+  return e != cudaSuccess ? -int(e) : clusters;
+}
+#endif
 
 }  // namespace kpp
 
@@ -138,7 +209,8 @@ using kpp::Outputs;
 using kpp::PassParams;
 using Real = KPP_REAL;
 constexpr int NSL = KPP_NS;   // the level slots of this library's kernels
-constexpr bool MWL = KPP_MW;  // ... whose column spreads over several warps
+// ... whose column spreads over one warp, a block's warps or a cluster
+constexpr kpp::Spread MWL = kpp::Spread(KPP_MW);
 
 static void unpack(const void* ins, const void* outs, int n_out,
                    Inputs<Real>* in, Outputs<Real>* out) {
@@ -158,8 +230,27 @@ extern "C" {
 int kpp_real_bytes() { return int(sizeof(Real)); }
 
 // the levels this library's kernels cover (32 x its level slots, times
-// the most warps of a column in the MW library)
-int kpp_max_wz() { return 32 * NSL * (MWL ? kpp::CW_MAX : 1); }
+// the most warps of a block in the MW libraries, times the most blocks of
+// a cluster in the CLUSTER one)
+int kpp_max_wz() {
+  return 32 * NSL * (MWL ? kpp::CW_MAX : 1)
+         * (MWL == kpp::CLUSTER ? kpp::CB_MAX : 1);
+}
+
+#if KPP_MW == 2
+// cudaOccupancyMaxActiveClusters of one kernel (kind 0 the fast pass, 1
+// the full pass, 2 the step) at geometry geom (host Geometry)
+int kpp_max_clusters(int kind, const void* geom) {
+  const Geometry& G = *static_cast<const Geometry*>(geom);
+  if (kind == 0)
+    return kpp::max_clusters(
+        kpp::fused_pass_kernel<Real, false, NSL, MWL>, G);
+  if (kind == 1)
+    return kpp::max_clusters(
+        kpp::fused_pass_kernel<Real, true, NSL, MWL>, G);
+  return kpp::max_clusters(kpp::fused_step_kernel<Real, NSL, MWL>, G);
+}
+#endif
 
 #ifdef KPP_PHASES
 // the stage clocks of fused_pass.cuh: copy the 16 sums out, or zero them

@@ -28,22 +28,43 @@
 // is warp-uniform; each warp runs its own column's convergence and trap
 // loops and never waits for another column.
 //
-// A column over several warps (the template flag MW, the "cw" library):
-// past 256 levels one block holds one column, spread over CW = 2..8 warps
-// of NS = 4 slots (WZ <= 128 CW, MAXWZ = 1024).  Level k sits on warp
-// k / 128, lane k % 32, slot (k % 128) / 32; the column's rows in shared
-// memory hold LZ = 128 CW levels, shared by its warps.  Every exchange
-// across levels goes through those rows with a block barrier (the PCR and
-// scan strides too, whatever their length); a single level's value (lvl)
-// goes through a broadcast cell; bldepth's first crossing is the first of
-// the warps' own in level order; the column-wide AND and count are
-// __syncthreads_and and __syncthreads_count.  The column's scalars are
-// computed alike on every thread from the same shared values, so every
-// branch around a barrier is uniform over the block; a land column's
-// block skips the step's loops whole.  aref is read from device memory,
-// and so are the grid rows where the column's rows leave no room
-// (float64 at CW = 8).  With MW false every function below compiles to
-// the one-warp code (__syncwarp, shuffles, ballots).
+// A column over several warps (the template parameter MW, the spread:
+// WARP, BLOCK or CLUSTER; as a flag, "over several warps"), the "cw"
+// library (MW = BLOCK): past 256 levels one block holds one column, spread
+// over CW = 2..8 warps of NS = 4 slots (WZ <= 128 CW, ONE_BLOCK_WZ =
+// 1024).  Level k sits on warp k / 128, lane k % 32, slot (k % 128) / 32;
+// the column's rows in shared memory hold LZ = 128 CW levels, shared by
+// its warps.  Every exchange across levels goes through those rows with a
+// block barrier (the PCR and scan strides too, whatever their length); a
+// single level's value (lvl) goes through a broadcast cell; bldepth's
+// first crossing is the first of the warps' own in level order; the
+// column-wide AND and count are __syncthreads_and and __syncthreads_count.
+// The column's scalars are computed alike on every thread from the same
+// shared values, so every branch around a barrier is uniform over the
+// block; a land column's block skips the step's loops whole.  aref is read
+// from device memory, and so are the grid rows where the column's rows
+// leave no room (float64 at CW = 8).  With MW = WARP every function below
+// compiles to the one-warp code (__syncwarp, shuffles, ballots).
+//
+// A column over a thread-block cluster (MW = CLUSTER, the "cl" library):
+// past 1024 levels the column spreads over CB = 2..8 blocks of one
+// cluster (MAXWZ = 8192), each of CW warps of 4 slots; block r of the
+// cluster holds the levels [r LB, (r + 1) LB), LB = 128 CW, and only
+// those levels of the column's rows (a ClRow: a read of level k maps the
+// row to block k / LB's shared memory, distributed shared memory).  The
+// body is the multi-warp one with cluster-wide primitives: col_sync is a
+// cluster barrier (release/acquire, so it also orders the remote writes);
+// lvl's holder writes the broadcast cell of every block, which each reads
+// at home; the column AND and count combine the blocks' own through a
+// cell per block (cl_sum); bldepth's first crossing is the first of the
+// blocks' warps' own in level order; the RMSD sums stay serial in level
+// order on block 0's first threads, reading every block's rows.  The
+// column's scalars are computed alike on every thread of every block from
+// the same cells, so every branch around a cluster barrier is uniform
+// over the cluster.  aref and the grid rows are read from device memory
+// (a block's slice holds only its own levels), and a block's shared
+// memory outlives its neighbours' reads of it: the kernel ends on a
+// cluster barrier before the write-back.
 //
 // Order-sensitive pieces keep the plain version's numbers:
 // * bldepth's bulk Richardson scan is the plain max-plus doubling scan,
@@ -61,6 +82,8 @@
 #pragma once
 
 #include <stddef.h>
+
+#include <type_traits>
 
 #include "physics.cuh"
 
@@ -96,8 +119,31 @@ namespace kpp {
 
 constexpr int NS_MAX = 8;         // level slots per lane of a one-warp column
 constexpr int MW_NS = 4;          // ... of a column over several warps (MW)
-constexpr int CW_MAX = 8;         // warps of one column, at most
-constexpr int MAXWZ = 32 * MW_NS * CW_MAX;  // levels a column covers (1024)
+constexpr int CW_MAX = 8;         // warps of one block's share of a column
+constexpr int ONE_BLOCK_WZ = 32 * MW_NS * CW_MAX;  // levels a block covers
+constexpr int CB_MAX = 8;         // blocks of a column's cluster (portable)
+constexpr int MAXWZ = ONE_BLOCK_WZ * CB_MAX;  // levels a column covers (8192)
+// how a column's levels spread: over one warp's lanes, over the warps of
+// one block (the "cw" library), over the blocks of a cluster ("cl")
+enum Spread { WARP = 0, BLOCK = 1, CLUSTER = 2 };
+
+#ifdef __CUDACC__
+// the cluster's barrier (arrive has release and wait acquire semantics at
+// cluster scope, so it orders the blocks' shared-memory writes before
+// their reads) and the map of a generic address in this block's shared
+// memory to block ``rank``'s copy (distributed shared memory); a host
+// build of this file (an emulation of the kernels) defines cl_sync,
+// cl_map and __umulhi itself
+KPP_DEV void cl_sync() {
+  asm volatile("barrier.cluster.arrive.aligned;\n\t"
+               "barrier.cluster.wait.aligned;" ::: "memory");
+}
+template <typename T> KPP_DEV T* cl_map(T* p, int rank) {
+  T* q;
+  asm("mapa.u64 %0, %1, %2;" : "=l"(q) : "l"(p), "r"(rank));
+  return q;
+}
+#endif
 // aref from device memory (Geometry::aref_dev) is compiled in from this
 // many slots up: below it one warp and aref's whole shared copy always
 // fit, and the 3- and 4-slot kernels keep their code without the branch
@@ -140,9 +186,12 @@ struct PassParams {
 // stretched grid) and always by a column over several warps; the warps of
 // one column (cw: 1, or 2..CW_MAX for the MW kernels, whose block is one
 // column); and where the MW kernels read the grid rows: 0 a copy in
-// shared memory, 1 the wrapper's padded (6, LZ) tile (Inputs::grid_t).
+// shared memory, 1 the wrapper's padded (6, LZ) tile (Inputs::grid_t);
+// the blocks of one column's cluster (cb: 1, or 2..CB_MAX for the
+// CLUSTER kernels, whose blocks each hold cw warps of the column and
+// always read aref and the grid rows from device memory).
 struct Geometry {
-  int warps, blocks, kref, smem, ns, aref_dev, cw, grid_dev;
+  int warps, blocks, kref, smem, ns, aref_dev, cw, grid_dev, cb;
 };
 
 // the 25 pass inputs in the order of make_fused_pass plus the depth prefix
@@ -189,6 +238,8 @@ enum {
   BC_SNZ, BC_TNZ, BC_HBL, BC_MATCH, BC_ENH = BC_MATCH + 9,
   BC_FX = BC_ENH + 3, BC_RMSD = BC_FX + CW_MAX, NBC = BC_RMSD + 4
 };
+// CLUSTER: then a block's own column AND and count (cl_sum)
+enum { BC_AND = NBC, BC_CNT, NBC_CL };
 
 // per-warp stride in elements at ns level slots: padded to 4 (mod 32) so
 // that the staging accesses of 8 warps x 4 levels fall on 32 different
@@ -221,6 +272,15 @@ KPP_HD size_t smem_bytes_mw(int cw, int grid_dev, int tsize) {
          + size_t(lz) * sizeof(int);
 }
 
+// dynamic shared memory of one block of a CLUSTER column, cw warps of it
+// (LB = 32 MW_NS cw levels): its slice of the column's rows, the column
+// values and broadcast cells, then its levels' hi (LB ints); aref and the
+// grid rows are read from device memory
+KPP_HD size_t smem_bytes_cl(int cw, int tsize) {
+  const int lb = 32 * MW_NS * cw;
+  return size_t(NB * lb + NCV + NBC_CL) * tsize + size_t(lb) * sizeof(int);
+}
+
 // full-pass diagnostic outputs (ops/fused_pass.py full tuple, after u..s)
 enum {
   FO_COLOUT = 0, FO_DIFM, FO_DIFS, FO_DIFT, FO_GHAT, FO_RHO, FO_CP, FO_ALPHA,
@@ -247,11 +307,43 @@ template <typename T> struct Grid {
   const int* hi;    // LZ: last nonzero k of aref row n, -1 beyond wz
 };
 
+// CLUSTER: one row of the column, whose LB levels held by this block
+// start at p; level k lies in block k / LB (umulhi by mg = ceil(2^32 /
+// LB), exact for k < 2^32 / LB), at k % LB in that block's copy of the
+// row.  Adding n LZ (LZ = lzc, the column's levels) moves n rows on, as
+// adding it to a row pointer of the other spreads does.
+template <typename T> struct ClRow {
+  T* p;
+  int lb, lzc;
+  unsigned mg;
+  KPP_DEV int rank_of(int k) const { return int(__umulhi(unsigned(k), mg)); }
+  KPP_DEV T& operator[](int k) const {
+    const int r = rank_of(k);
+    return *cl_map(p + (k - r * lb), r);
+  }
+  KPP_DEV ClRow operator+(int n) const {
+    return {p + n / lzc * lb, lb, lzc, mg};
+  }
+  KPP_DEV explicit operator bool() const { return p != nullptr; }
+};
+// a row of one column's area: a pointer, or (CLUSTER) a ClRow
+template <typename T, Spread MW>
+using Row = std::conditional_t<MW == CLUSTER, ClRow<T>, T*>;
+
+// CLUSTER: lb, the levels a block holds, mg, its ClRow divisor, and cb,
+// the cluster's blocks (an empty base of the other spreads' Col, which
+// keep the layout they had before the cluster form existed)
+template <Spread MW> struct ColCluster {};
+template <> struct ColCluster<CLUSTER> {
+  int lb, cb;
+  unsigned mg;
+};
+
 // one column's area in shared memory and this thread's place in it: its
 // lane; (MW) k0, the level of its slot 0 (128 x its warp in the column +
-// lane), and lzc, the levels of a row
-template <typename T, int NS, bool MW> struct Col {
-  T* b;     // NB slots of LZ levels
+// lane), and lzc, the levels of a row (CLUSTER: of the whole column)
+template <typename T, int NS, Spread MW> struct Col : ColCluster<MW> {
+  T* b;     // NB slots of LZ levels (CLUSTER: this block's LB of each)
   T* cv;    // colscal [0, NSC), column outputs [NSC, NSC + 16), then (MW)
             // the broadcast cells
   int lane, k0, lzc;
@@ -263,14 +355,22 @@ template <typename T, int NS, bool MW> struct Col {
   KPP_DEV int lev0() const {   // the level of slot 0
     if constexpr (MW) return k0; else return lane;
   }
-  KPP_DEV T* slot(int i) const {
-    if constexpr (MW) return b + i * lzc; else return b + i * (32 * NS);
+  KPP_DEV Row<T, MW> slot(int i) const {
+    if constexpr (MW == CLUSTER)
+      return ClRow<T>{b + i * this->lb, this->lb, lzc, this->mg};
+    else if constexpr (MW)
+      return b + i * lzc;
+    else
+      return b + i * (32 * NS);
   }
 };
 
-// the barrier of one column's threads: its warp, or (MW) its block
-template <bool MW> KPP_DEV void col_sync() {
-  if (MW)
+// the barrier of one column's threads: its warp, (MW) its block or
+// (CLUSTER) its cluster
+template <Spread MW> KPP_DEV void col_sync() {
+  if constexpr (MW == CLUSTER)
+    cl_sync();
+  else if (MW)
     __syncthreads();
   else
     __syncwarp();
@@ -280,7 +380,8 @@ template <bool MW> KPP_DEV void col_sync() {
 
 // level k of x on every thread of the column (k uniform, 0 <= k < LZ): a
 // shuffle, or (MW) through broadcast cell ``cell`` after a barrier
-template <typename T, int NS, bool MW>
+// (CLUSTER: the holder writes the cell of every block of the cluster)
+template <typename T, int NS, Spread MW>
 KPP_DEV T lvl(const Col<T, NS, MW>& w, const T (&x)[NS], int k, int cell) {
   if (!MW) {
     T v = x[0];
@@ -295,13 +396,19 @@ KPP_DEV T lvl(const Col<T, NS, MW>& w, const T (&x)[NS], int k, int cell) {
 #pragma unroll
     for (int q = 1; q < NS; ++q)
       if (kw >= 32 * q) v = x[q];
-    w.cv[NCV + cell] = v;
+    if constexpr (MW == CLUSTER)            // every block's cell
+      for (int r = 0; r < w.cb; ++r) *cl_map(w.cv + NCV + cell, r) = v;
+    else
+      w.cv[NCV + cell] = v;
   }
-  __syncthreads();
+  if constexpr (MW == CLUSTER)
+    cl_sync();
+  else
+    __syncthreads();
   return w.cv[NCV + cell];
 }
 // the plain one-hot gather: 0 outside 0..wz-1 (k uniform)
-template <typename T, int NS, bool MW>
+template <typename T, int NS, Spread MW>
 KPP_DEV T ext_l(const Col<T, NS, MW>& w, const T (&x)[NS], int k, int wz,
                 int cell) {
   return (k >= 0 && k < wz) ? lvl(w, x, k, cell) : T(0);
@@ -314,6 +421,13 @@ template <typename T> KPP_DEV T ext(const T* a, int idx, int wz) {
 template <typename T, int NS>
 KPP_DEV void put(T* xb, const T (&x)[NS], int k0) {
   KPP_FOR_Q xb[k0 + 32 * q] = x[q];
+}
+// CLUSTER: a thread's levels lie in its own block (a warp's 128 levels
+// never straddle two), so it writes them at home
+template <typename T, int NS>
+KPP_DEV void put(const ClRow<T>& xb, const T (&x)[NS], int k0) {
+  T* p = xb.p + (k0 - xb.rank_of(k0) * xb.lb);
+  KPP_FOR_Q p[32 * q] = x[q];
 }
 
 template <typename T>
@@ -354,9 +468,10 @@ KPP_DEV void slot_up(const T (&x)[NS], int s, T fill, T (&out)[NS]) {
 
 // tridiagonal coefficients on rows (solvers.F90:14-44); leaves diff
 // published in xd
-template <typename T, int NS, bool MW>
+template <typename T, int NS, Spread MW>
 KPP_DEV void tridcof(const Col<T, NS, MW>& w, const T (&diff)[NS],
-                     const Grid<T>& g, int nz, int wz, T* xd, T (&cu)[NS],
+                     const Grid<T>& g, int nz, int wz, Row<T, MW> xd,
+                     T (&cu)[NS],
                      T (&cc)[NS], T (&cl)[NS]) {
   const int k0 = w.lev0();
   col_sync<MW>();
@@ -375,12 +490,11 @@ KPP_DEV void tridcof(const Col<T, NS, MW>& w, const T (&diff)[NS],
 }
 
 // scalar RHS on rows (solvers.F90:53-107); xd, xg, xn hold diff, ghat and
-// the non-turbulent flux published (xn == nullptr means zero flux)
-template <typename T, int NS>
-KPP_DEV void tridrhs(const Grid<T>& g, const T* yo, const T* xn,
-                     const T (&diff)[NS], const T* xd, const T (&ghat)[NS],
-                     const T* xg, T sturflux, T ghatflux, T dto, int nz,
-                     int wz, int k0, T (&rhs)[NS]) {
+// the non-turbulent flux published (a null xn means zero flux)
+template <typename T, int NS, typename R>
+KPP_DEV void tridrhs(const Grid<T>& g, R yo, R xn, const T (&diff)[NS], R xd,
+                     const T (&ghat)[NS], R xg, T sturflux, T ghatflux,
+                     T dto, int nz, int wz, int k0, T (&rhs)[NS]) {
   const T bot = yo[nz] * g.tdn[nz] * xd[nz];
   KPP_FOR_Q {
     const int r = k0 + 32 * q;
@@ -402,15 +516,15 @@ KPP_DEV void tridrhs(const Grid<T>& g, const T* yo, const T* xn,
 // (and rhs1 with NR = 2).  Stages s < 32 (every stage, MW) exchange
 // through the five consecutive exchange rows x5; on one warp stages 32, 64
 // and 128 move whole slots.
-template <typename T, int NR, int NS, bool MW>
+template <typename T, int NR, int NS, Spread MW>
 KPP_DEV void pcr_solve(const Col<T, NS, MW>& w, const T (&cu)[NS],
                        const T (&cc)[NS], const T (&cl)[NS], T (&rhs0)[NS],
-                       T (&rhs1)[NS], int nz, int wz, T* x5) {
+                       T (&rhs1)[NS], int nz, int wz, Row<T, MW> x5) {
   const int LZ = MW ? w.lzc : 32 * NS, k0 = w.lev0();
-  T* xa = x5;
-  T* xc = x5 + LZ;
-  T* xb = x5 + 2 * LZ;
-  T* xr = x5 + 3 * LZ;     // NR rows
+  const Row<T, MW> xa = x5;
+  const Row<T, MW> xc = x5 + LZ;
+  const Row<T, MW> xb = x5 + 2 * LZ;
+  const Row<T, MW> xr = x5 + 3 * LZ;     // NR rows
   T a[NS], b[NS], c[NS], r[NR][NS];
   KPP_FOR_Q {
     const bool in = k0 + 32 * q < nz;
@@ -443,8 +557,13 @@ KPP_DEV void pcr_solve(const Col<T, NS, MW>& w, const T (&cu)[NS],
         c_hi[q] = up ? xc[j + s] : T(0);
 #pragma unroll
         for (int i = 0; i < NR; ++i) {
-          r_lo[i][q] = lo ? xr[i * LZ + j - s] : T(0);
-          r_hi[i][q] = up ? xr[i * LZ + j + s] : T(0);
+          if constexpr (MW == CLUSTER) {   // a ClRow indexes one row
+            r_lo[i][q] = lo ? (xr + i * LZ)[j - s] : T(0);
+            r_hi[i][q] = up ? (xr + i * LZ)[j + s] : T(0);
+          } else {
+            r_lo[i][q] = lo ? xr[i * LZ + j - s] : T(0);
+            r_hi[i][q] = up ? xr[i * LZ + j + s] : T(0);
+          }
         }
       }
     } else {
@@ -484,10 +603,10 @@ KPP_DEV void pcr_solve(const Col<T, NS, MW>& w, const T (&cu)[NS],
 // 0..hi, in k order: sum_k aT[k * lz + n] * x[k] for x = x0, x1, x2.  DEV:
 // aT is the tile in device memory, read through the read-only path (one
 // tile for every column, so it stays in L2); else the block's shared copy.
-template <typename T, bool DEV>
-KPP_DEV void ref_sums(const T* aT, int lz, int n, int hi, const T* x0,
-                      const T* x1, const T* x2, T* u_out, T* v_out,
-                      T* b_out) {
+// x0..x2 are rows of the column (R: Row).
+template <typename T, bool DEV, typename R>
+KPP_DEV void ref_sums(const T* aT, int lz, int n, int hi, R x0, R x1, R x2,
+                      T* u_out, T* v_out, T* b_out) {
   T u = T(0), v = T(0), b = T(0);
   for (int k = 0; k <= hi; ++k) {
     const T a = DEV ? __ldg(aT + k * lz + n) : aT[k * lz + n];
@@ -517,15 +636,37 @@ KPP_DEV void band(const T* pfx, T sub, T depth_off, T target, int lo, int nz,
 
 // MW: the column's first bldepth crossing, the first of its warps' own
 // (``firstx``, alike on a warp's lanes; -1 for none) in level order
-template <typename T, int NS, bool MW>
+// (CLUSTER: each warp's in its block's cell, read across the blocks)
+template <typename T, int NS, Spread MW>
 KPP_DEV int first_crossing(const Col<T, NS, MW>& w, int firstx) {
   T* fx = w.cv + NCV + BC_FX;
   const int wc = (w.k0 - w.lane) / (32 * NS), cw = w.lzc / (32 * NS);
+  if constexpr (MW == CLUSTER) {
+    const int wb = w.lb / (32 * NS);        // warps a block
+    if (w.lane == 0) fx[wc % wb] = T(firstx);
+    cl_sync();
+    int f = -1;
+    for (int i = 0; i < cw && f < 0; ++i)
+      f = int(*cl_map(fx + i % wb, i / wb));
+    return f;
+  }
   if (w.lane == 0) fx[wc] = T(firstx);
   __syncthreads();
   int f = -1;
   for (int i = 0; i < cw && f < 0; ++i) f = int(fx[i]);
   return f;
+}
+
+// CLUSTER: the sum over the cluster's blocks of ``v``, alike on every
+// thread of a block (each block's in its own cell ``cell``, then every
+// block's read in rank order after a cluster barrier)
+template <typename T, int NS, Spread MW>
+KPP_DEV int cl_sum(const Col<T, NS, MW>& w, int v, int cell) {
+  if (threadIdx.x == 0) w.cv[NCV + cell] = T(v);
+  cl_sync();
+  int n = 0;
+  for (int r = 0; r < w.cb; ++r) n += int(*cl_map(w.cv + NCV + cell, r));
+  return n;
 }
 
 // One fused pass of the column.  In: u..s (current iterate) and
@@ -534,7 +675,7 @@ KPP_DEV int first_crossing(const Col<T, NS, MW>& w, int firstx) {
 // the Coriolis parameter this pass uses.  With FULL, the diagnostic
 // profiles go to their full_slot slots and colout16 to the column values
 // (the input slots they overwrite are dead by then).
-template <typename T, bool FULL, int NS, bool MW>
+template <typename T, bool FULL, int NS, Spread MW>
 KPP_DEV void pass_warp(const PassParams& P, const Grid<T>& g,
                        const Col<T, NS, MW>& w,
                        T (&u)[NS], T (&v)[NS], T (&t)[NS], T (&s)[NS],
@@ -545,15 +686,15 @@ KPP_DEV void pass_warp(const PassParams& P, const Grid<T>& g,
   const T dto = T(P.dto), grav = T(P.grav), zbot = T(P.zbot);
   const T lam = T(LAMBDA_SMOOTH), oml = T(1.0 - LAMBDA_SMOOTH);
   const T* cv = w.cv;
-  T* X0 = w.slot(B_X0);
-  T* X1 = w.slot(B_X1);
-  T* X2 = w.slot(B_X2);
-  T* X3 = w.slot(B_X3);
-  T* X4 = w.slot(B_X4);
-  const T* UO = w.slot(B_UO);
-  const T* VO = w.slot(B_VO);
-  const T* TO = w.slot(B_TO);
-  const T* SO = w.slot(B_SO);
+  const Row<T, MW> X0 = w.slot(B_X0);
+  const Row<T, MW> X1 = w.slot(B_X1);
+  const Row<T, MW> X2 = w.slot(B_X2);
+  const Row<T, MW> X3 = w.slot(B_X3);
+  const Row<T, MW> X4 = w.slot(B_X4);
+  const Row<T, MW> UO = w.slot(B_UO);
+  const Row<T, MW> VO = w.slot(B_VO);
+  const Row<T, MW> TO = w.slot(B_TO);
+  const Row<T, MW> SO = w.slot(B_SO);
 
   KPP_CLOCK(kpp_t0);
   // ---- under-relaxation: ux..sx := relaxed iterate ----------------------
@@ -599,7 +740,7 @@ KPP_DEV void pass_warp(const PassParams& P, const Grid<T>& g,
           a2j = cv[CS_A2], swf = cv[CS_SWF];
   T wxnt[NS];
   {
-    T* swdk = w.slot(B_SWDK);
+    const Row<T, MW> swdk = w.slot(B_SWDK);
     KPP_FOR_Q {
       const int k = k0 + 32 * q;
       T swdk_new = rfac * k_exp(-g.dm[k] / a1j)
@@ -765,7 +906,7 @@ KPP_DEV void pass_warp(const PassParams& P, const Grid<T>& g,
     const T vtc = T(P.vtc), ocdepth = cv[CS_OCDEPTH];
     const T hek = T(CEKMAN) * ustar / (k_abs(f_cor) + T(EPS16));
     const T dmo_num = div_s(T(CMONOB) * (ustar * ustar * ustar), P.vonk);
-    const T* swfrac = w.slot(B_SWFRAC);
+    const Row<T, MW> swfrac = w.slot(B_SWFRAC);
     col_sync<MW>();
     put(X0, dbloc, k0);
     put(X1, ritop, k0);
@@ -971,7 +1112,7 @@ KPP_DEV void pass_warp(const PassParams& P, const Grid<T>& g,
   }
   if (FULL) {   // swfrac (read across levels by bldepth) is dead now
     col_sync<MW>();
-    T* o = w.slot(full_slot(4 + FO_RIG));
+    const Row<T, MW> o = w.slot(full_slot(4 + FO_RIG));
     KPP_FOR_Q o[k0 + 32 * q] = rig[q];
   }
 
@@ -1027,8 +1168,8 @@ KPP_DEV void pass_warp(const PassParams& P, const Grid<T>& g,
   // per system as two solves).
   bool ts_eq = true;
   KPP_FOR_Q ts_eq = ts_eq && difs[q] == dift[q];
-  const bool same_ts = MW ? __syncthreads_and(ts_eq)
-                          : __all_sync(FULLMASK, ts_eq);
+  bool same_ts = MW ? __syncthreads_and(ts_eq) : __all_sync(FULLMASK, ts_eq);
+  if constexpr (MW == CLUSTER) same_ts = cl_sum(w, !same_ts, BC_AND) == 0;
   tridcof(w, dift, g, nz, wz, X0, cu, cc, cl);
   col_sync<MW>();
   put(X1, ghat, k0);
@@ -1050,8 +1191,8 @@ KPP_DEV void pass_warp(const PassParams& P, const Grid<T>& g,
     rhs_t[0] = rhs_t[0] + dto * cv[CS_FCORR2D] / (rho0 * cp0 * hm_sfc);
   {
     const T relax_ocnt = cv[CS_RELAX_OCNT];
-    T* ocnt = w.slot(B_OCNT);
-    T* fcz = w.slot(B_FCZ);
+    const Row<T, MW> ocnt = w.slot(B_OCNT);
+    const Row<T, MW> fcz = w.slot(B_FCZ);
     KPP_FOR_Q {
       const int r = k0 + 32 * q;
       T tinc = T(0);
@@ -1075,8 +1216,8 @@ KPP_DEV void pass_warp(const PassParams& P, const Grid<T>& g,
     col_sync<MW>();
   }
   // salinity: wXNT(:,2) is identically zero in the reference
-  tridrhs(g, SO, (const T*)nullptr, difs, X0, ghat, X1, wx0s, wx0s, dto, nz,
-          wz, k0, rhs_s);
+  tridrhs(g, SO, Row<T, MW>(), difs, X0, ghat, X1, wx0s, wx0s, dto, nz, wz,
+          k0, rhs_s);
   if (P.l_advect) {
     // steady advection corrections (rhsmod modes 1-7, solvers.F90:176-335):
     // each mode's basis is one value over a band of rows
@@ -1119,8 +1260,8 @@ KPP_DEV void pass_warp(const PassParams& P, const Grid<T>& g,
   }
   {
     const T relax_sal = cv[CS_RELAX_SAL];
-    T* sal = w.slot(B_SAL);
-    T* sfcz = w.slot(B_SFCZ);
+    const Row<T, MW> sal = w.slot(B_SAL);
+    const Row<T, MW> sfcz = w.slot(B_SFCZ);
     KPP_FOR_Q {
       const int r = k0 + 32 * q;
       T sinc = T(0);
@@ -1176,20 +1317,21 @@ KPP_DEV void pass_warp(const PassParams& P, const Grid<T>& g,
 // depend only on that column, so the result equals the plain batch-masked
 // loops.
 // instability's RMSD sum i: lane i's acc, or (MW) broadcast cell i
-template <bool MW, typename T>
+template <Spread MW, typename T>
 KPP_DEV T rmsd_sum(const T* cell, T acc, int i) {
   if constexpr (MW) return cell[i]; else return __shfl_sync(FULLMASK, acc, i);
 }
 
-template <typename T, int NS, bool MW>
+template <typename T, int NS, Spread MW>
 KPP_DEV bool instability(const PassParams& P, const Grid<T>& g,
                          const Col<T, NS, MW>& w, const T (&u)[NS],
                          const T (&v)[NS], const T (&t)[NS], const T (&s)[NS],
                          T* fmul) {
   const int LZ = MW ? w.lzc : 32 * NS;
   const int nz = P.nz, wz = P.wz, k0 = w.lev0();
-  T* X0 = w.slot(B_X0);
-  T* X1 = w.slot(B_X1);   // X1..X4: the four RMSD term rows, consecutive
+  const Row<T, MW> X0 = w.slot(B_X0);
+  // X1..X4: the four RMSD term rows, consecutive
+  const Row<T, MW> X1 = w.slot(B_X1);
   col_sync<MW>();
   put(X0, t, k0);
   col_sync<MW>();
@@ -1204,28 +1346,41 @@ KPP_DEV bool instability(const PassParams& P, const Grid<T>& g,
     nbad += MW ? __syncthreads_count(bad)
                : __popc(__ballot_sync(FULLMASK, bad));
   }
+  if constexpr (MW == CLUSTER) nbad = cl_sum(w, nbad, BC_CNT);
   // RMSD terms (d * d * w per level), summed serially in level order
-  const T* old[4] = {w.slot(B_UO), w.slot(B_VO), w.slot(B_TO), w.slot(B_SO)};
+  const Row<T, MW> old[4] = {w.slot(B_UO), w.slot(B_VO), w.slot(B_TO),
+                             w.slot(B_SO)};
   KPP_FOR_Q {
     const int k = k0 + 32 * q;
     const T wt = k <= nz ? div_s(g.hm[k], P.dm_nz) : T(0);
     T du = u[q] - old[0][k], dv = v[q] - old[1][k];
     T dt = t[q] - old[2][k], ds = s[q] - old[3][k];
-    X1[k] = du * du * wt;
-    X1[LZ + k] = dv * dv * wt;
-    X1[2 * LZ + k] = dt * dt * wt;
-    X1[3 * LZ + k] = ds * ds * wt;
+    if constexpr (MW == CLUSTER) {   // a ClRow indexes one row
+      X1[k] = du * du * wt;
+      (X1 + LZ)[k] = dv * dv * wt;
+      (X1 + 2 * LZ)[k] = dt * dt * wt;
+      (X1 + 3 * LZ)[k] = ds * ds * wt;
+    } else {
+      X1[k] = du * du * wt;
+      X1[LZ + k] = dv * dv * wt;
+      X1[2 * LZ + k] = dt * dt * wt;
+      X1[3 * LZ + k] = ds * ds * wt;
+    }
   }
   col_sync<MW>();
   T acc = T(0);
   if (k0 < 4) {
-    const T* row = X1 + k0 * LZ;
+    const Row<T, MW> row = X1 + k0 * LZ;
     for (int k = 0; k < wz; ++k) acc = acc + row[k];
   }
   // the four sums: lanes 0..3's by shuffle, or (MW) through broadcast
-  // cells after a barrier (rmsd_sum)
+  // cells after a barrier (rmsd_sum; CLUSTER: every block's cells)
   T* cell = w.cv + NCV + BC_RMSD;
-  if (MW) {
+  if constexpr (MW == CLUSTER) {
+    if (k0 < 4)
+      for (int r = 0; r < w.cb; ++r) *cl_map(cell + k0, r) = acc;
+    cl_sync();
+  } else if (MW) {
     if (k0 < 4) cell[k0] = acc;
     __syncthreads();
   }
@@ -1243,15 +1398,15 @@ KPP_DEV bool instability(const PassParams& P, const Grid<T>& g,
 // The step's 8 output profiles go to slots 0..7 and colstep to the column
 // values (rows 0=hmix, 1=kmix, 2=rho0, 3=cp0, 4=comp_flag, 5=reset_flag,
 // 6=f_used, 7=npass, the passes the column ran).
-template <typename T, int NS, bool MW>
+template <typename T, int NS, Spread MW>
 KPP_DEV void step_warp(const PassParams& P, const Grid<T>& g,
                        const Col<T, NS, MW>& w) {
   const int nz = P.nz, k0 = w.lev0();
   const T* cv = w.cv;
-  const T* U0 = w.slot(B_U);
-  const T* V0 = w.slot(B_V);
-  const T* T0 = w.slot(B_T);
-  const T* S0 = w.slot(B_S);
+  const Row<T, MW> U0 = w.slot(B_U);
+  const Row<T, MW> V0 = w.slot(B_V);
+  const Row<T, MW> T0 = w.slot(B_T);
+  const Row<T, MW> S0 = w.slot(B_S);
   T u[NS], v[NS], t[NS], s[NS], ux[NS], vx[NS], tx[NS], sx[NS];
   auto load0 = [&]() {
     KPP_FOR_Q {
@@ -1348,14 +1503,16 @@ KPP_DEV void step_warp(const PassParams& P, const Grid<T>& g,
 // One warp a column: a block of W warps takes W consecutive columns, and
 // each level row of a profile moves as one run of W values (coalesced).
 // A column over CW warps (MW): a block is one column, whose threads stage
-// its rows, level k on thread k % (32 CW).
+// its rows, level k on thread k % (32 CW).  A column over a cluster
+// (CLUSTER): block r stages the levels lo = r LB .. of the column's rows,
+// level lo + k on thread k % (32 CW), and every block the colscal rows.
 
-template <typename T, int NS, bool MW> struct Block {
+template <typename T, int NS, Spread MW> struct Block {
   Grid<T> g;
   T* cols;       // W x warp_stride(NS), or (MW) the column's area
 };
 
-template <typename T, int NS, bool MW>
+template <typename T, int NS, Spread MW>
 KPP_DEV Block<T, NS, MW> block_view(const Geometry& G, unsigned char* raw) {
   const int LZ = MW ? 32 * NS * G.cw : 32 * NS;
   T* sm = reinterpret_cast<T*>(raw);
@@ -1368,6 +1525,11 @@ KPP_DEV Block<T, NS, MW> block_view(const Geometry& G, unsigned char* raw) {
   b.g.pfx = sm + 5 * LZ;
   b.g.arefT = sm + 6 * LZ;
   b.g.arefG = nullptr;
+  if constexpr (MW == CLUSTER) {   // the column's area, then hi of its LZ
+    b.cols = sm;
+    b.g.hi = reinterpret_cast<const int*>(sm + NB * LZ + NCV + NBC_CL);
+    return b;
+  }
   if (MW) {   // aref always, and (grid_dev) the grid rows, in device memory
     b.cols = sm + (G.grid_dev ? 0 : 6) * LZ;
     b.g.hi = reinterpret_cast<const int*>(b.cols + col_stride(LZ));
@@ -1382,15 +1544,22 @@ KPP_DEV Block<T, NS, MW> block_view(const Geometry& G, unsigned char* raw) {
 // This thread's place in the staging loops: column j of the block and
 // level rows k0 + 32 q, q < NS (a block has 32 threads per column); MW:
 // j = 0 and rows k0 + kstep q, kstep = 32 CW, the block's threads
+// (CLUSTER: of the block's slice of the column, block_lo)
 struct Stager {
   int j, k0, kstep;
   bool col_ok;
   size_t col;
 };
 
+// CLUSTER: the first level of this block's slice of the column: LZ, the
+// levels a block holds, times the block's rank in its cluster
+KPP_DEV int block_lo(const Geometry& G, int LZ) {
+  return LZ * int(blockIdx.x % G.cb);
+}
+
 // rows k0 + 32 m (MW: k0 + kstep m) of one input profile, through the
 // read-only path
-template <bool MW, typename T, int NS>
+template <Spread MW, typename T, int NS>
 KPP_DEV void fetch(const Stager& st, const T* src, int rows, int ncol,
                    T (&v)[NS]) {
   KPP_FOR_Q {
@@ -1400,7 +1569,7 @@ KPP_DEV void fetch(const Stager& st, const T* src, int rows, int ncol,
   }
 }
 
-template <bool MW, typename T, int NS>
+template <Spread MW, typename T, int NS>
 KPP_DEV void stash(const Stager& st, T* dst, int rows, const T (&v)[NS]) {
   KPP_FOR_Q {
     const int k = st.k0 + (MW ? st.kstep : 32) * q;
@@ -1408,7 +1577,7 @@ KPP_DEV void stash(const Stager& st, T* dst, int rows, const T (&v)[NS]) {
   }
 }
 
-template <int NS, bool MW, typename T>
+template <int NS, Spread MW, typename T>
 KPP_DEV void stage_out(const Stager& st, T* dst, const T* src, int rows,
                        int ncol) {
   KPP_FOR_Q {
@@ -1417,15 +1586,81 @@ KPP_DEV void stage_out(const Stager& st, T* dst, const T* src, int rows,
   }
 }
 
+// CLUSTER: load this block's slice of the column's inputs (levels lo ..
+// lo + LZ - 1 of each profile into its slots, the colscal rows into the
+// column values, as every block does) and its levels' row extents; aref
+// and the grid rows are read from device memory
+template <typename T, bool STEP, int NS>
+KPP_DEV Block<T, NS, CLUSTER> load_cluster(const PassParams& P,
+                                           const Geometry& G,
+                                           const Inputs<T>& in,
+                                           unsigned char* raw,
+                                           Stager* st_out) {
+  const int LZ = 32 * NS * G.cw;
+  Block<T, NS, CLUSTER> b = block_view<T, NS, CLUSTER>(G, raw);
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int wz = P.wz, nc = P.ncol, lzc = LZ * G.cb;
+  // this block's first level; its slice of every profile starts lo rows
+  // down
+  const int lo = block_lo(G, LZ);
+  const size_t off = size_t(lo) * nc;
+  const T* gt = in.grid_t;         // the tile of the column's levels
+  b.g.zm = gt;
+  b.g.hm = gt + lzc;
+  b.g.dm = gt + 2 * lzc;
+  b.g.tdn = gt + 3 * lzc;
+  b.g.tup = gt + 4 * lzc;
+  b.g.pfx = gt + 5 * lzc;
+  int* hi = const_cast<int*>(b.g.hi);
+  for (int k = tid; k < LZ; k += nt)
+    hi[k] = lo + k < wz ? in.ref_hi[lo + k] : -1;
+  b.g.hi = hi - lo;                // indexed by the column's level
+  b.g.arefG = in.aref_t;
+  Stager st;
+  st.j = 0;
+  st.k0 = tid;
+  st.kstep = nt;
+  st.col = size_t(blockIdx.x / G.cb);
+  st.col_ok = st.col < size_t(nc);
+  T* wb = b.cols;
+  constexpr int NFIRST = STEP ? 4 : 8, NPROF = NFIRST + 6;
+  T v[NPROF][NS], cs[NS];
+#pragma unroll
+  for (int i = 0; i < NPROF; ++i) {
+    const int src = i < NFIRST ? IN_U + i : IN_UO + (i - NFIRST);
+    fetch<CLUSTER>(st, in.p[src] + off, wz - lo, nc, v[i]);
+  }
+  fetch<CLUSTER>(st, in.p[IN_COLSCAL], NSC, nc, cs);
+#pragma unroll
+  for (int i = 0; i < NPROF; ++i) {
+    const int slot = i < NFIRST ? B_U + i : B_UO + (i - NFIRST);
+    stash<CLUSTER>(st, wb + slot * LZ, wz - lo, v[i]);
+  }
+  stash<CLUSTER>(st, wb + NB * LZ, NSC, cs);
+  const int fslot[4] = {B_OCNT, B_SAL, B_FCZ, B_SFCZ};
+  const bool fon[4] = {bool(P.l_relax_ocnt), bool(P.l_relax_sal),
+                       bool(P.l_fcorr_withz), bool(P.l_sfcorr_withz)};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (!fon[i]) continue;
+    fetch<CLUSTER>(st, in.p[IN_OCNT + i] + off, wz - lo, nc, v[i]);
+    stash<CLUSTER>(st, wb + fslot[i] * LZ, wz - lo, v[i]);
+  }
+  *st_out = st;
+  return b;
+}
+
 // Load the grid rows (unless they are read from device memory), aref's
 // nonzero columns (likewise) and the block's column inputs
 // (profiles into their slots, colscal into the column values).  The loads
 // of the profiles every launch stages are all issued before their stores
 // to shared memory, so they are in flight together.
-template <typename T, bool STEP, int NS, bool MW>
+template <typename T, bool STEP, int NS, Spread MW>
 KPP_DEV Block<T, NS, MW> load_block(const PassParams& P, const Geometry& G,
                                     const Inputs<T>& in, unsigned char* raw,
                                     Stager* st_out) {
+  if constexpr (MW == CLUSTER)
+    return load_cluster<T, STEP, NS>(P, G, in, raw, st_out);
   const int LZ = MW ? 32 * NS * G.cw : 32 * NS;
   Block<T, NS, MW> b = block_view<T, NS, MW>(G, raw);
   const int tid = threadIdx.x, nt = blockDim.x, W = MW ? 1 : G.warps;
@@ -1501,7 +1736,7 @@ KPP_DEV Block<T, NS, MW> load_block(const PassParams& P, const Geometry& G,
 
 // the column of warp wi (MW: the block's column, whose warp wi holds
 // levels 128 wi .. 128 wi + 127)
-template <typename T, int NS, bool MW>
+template <typename T, int NS, Spread MW>
 KPP_DEV Col<T, NS, MW> col_of(const Block<T, NS, MW>& b, const Geometry& G,
                               int wi, int lane) {
   const int LZ = MW ? 32 * NS * G.cw : 32 * NS;
@@ -1509,22 +1744,60 @@ KPP_DEV Col<T, NS, MW> col_of(const Block<T, NS, MW>& b, const Geometry& G,
   w.b = MW ? b.cols : b.cols + wi * warp_stride(NS);
   w.cv = w.b + NB * LZ;
   w.lane = lane;
-  if constexpr (MW) {   // (one warp: lev0() is the lane itself)
+  if constexpr (MW == CLUSTER) {   // block r holds levels r LZ ..
+    w.k0 = block_lo(G, LZ) + 32 * NS * wi + lane;
+    w.lzc = LZ * G.cb;
+    w.lb = LZ;
+    w.cb = G.cb;
+    w.mg = unsigned((0x100000000ull + LZ - 1) / LZ);
+  } else if constexpr (MW) {   // (one warp: lev0() is the lane itself)
     w.k0 = 32 * NS * wi + lane;
     w.lzc = LZ;
   }
   return w;
 }
 
-// does warp wi of this block have a column (MW: the block's)
-template <bool MW>
+// does warp wi of this block have a column (MW: the block's; CLUSTER:
+// the cluster's)
+template <Spread MW>
 KPP_DEV bool has_column(const PassParams& P, const Geometry& G, int wi) {
+  if constexpr (MW == CLUSTER)
+    return size_t(blockIdx.x / G.cb) < size_t(P.ncol);
   return MW ? size_t(blockIdx.x) < size_t(P.ncol)
             : size_t(blockIdx.x) * G.warps + wi < size_t(P.ncol);
 }
 
+// CLUSTER: write this block's levels lo.. of the outputs (the full
+// pass's, or the fast pass's and the step's 8), and from block 0 (lo =
+// 0) the column values
+template <typename T, bool FULL, int NS>
+KPP_DEV void store_cluster(const PassParams& P, const Geometry& G,
+                           const Stager& st, const Block<T, NS, CLUSTER>& b,
+                           const Outputs<T>& out) {
+  const int LZ = 32 * NS * G.cw, lo = block_lo(G, LZ);
+  const int wz = P.wz - lo, nc = P.ncol, ncv = lo ? 0 : FULL ? 16 : 8;
+  const size_t off = size_t(lo) * nc;
+  const T* wb = b.cols;
+  if (FULL) {
+#pragma unroll
+    for (int i = 0; i < 4 + N_FO; ++i) {
+      if (i == 4 + FO_COLOUT)
+        stage_out<NS, CLUSTER>(st, out.p[i], wb + NB * LZ + NSC, ncv, nc);
+      else
+        stage_out<NS, CLUSTER>(st, out.p[i] + off, wb + full_slot(i) * LZ,
+                               wz, nc);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      stage_out<NS, CLUSTER>(st, out.p[i] + off, wb + (B_U + i) * LZ, wz,
+                             nc);
+    stage_out<NS, CLUSTER>(st, out.p[8], wb + NB * LZ + NSC, ncv, nc);
+  }
+}
+
 // fused pass over one block of columns (the body of fused_pass_kernel)
-template <typename T, bool FULL, int NS, bool MW>
+template <typename T, bool FULL, int NS, Spread MW>
 KPP_DEV void pass_block(const PassParams& P, const Geometry& G,
                         const Inputs<T>& in, const Outputs<T>& out,
                         unsigned char* raw) {
@@ -1532,7 +1805,10 @@ KPP_DEV void pass_block(const PassParams& P, const Geometry& G,
   KPP_CLOCK(kpp_b0);
   Stager st;
   const Block<T, NS, MW> b = load_block<T, false, NS, MW>(P, G, in, raw, &st);
-  __syncthreads();
+  if constexpr (MW == CLUSTER)
+    cl_sync();
+  else
+    __syncthreads();
   KPP_BMARK(10);   // staging in
   const int wi = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (has_column<MW>(P, G, wi)) {
@@ -1575,8 +1851,14 @@ KPP_DEV void pass_block(const PassParams& P, const Geometry& G,
     }
   }
   KPP_BMARK(11);   // the warp's column
-  __syncthreads();
+  if constexpr (MW == CLUSTER)
+    cl_sync();    // past it no block reads another's shared memory
+  else
+    __syncthreads();
   KPP_BMARK(12);   // waiting for the block's slowest warp
+  if constexpr (MW == CLUSTER) {
+    store_cluster<T, FULL>(P, G, st, b, out);
+  } else {
   const int wz = P.wz, nc = P.ncol;
   const T* wb = b.cols + st.j * warp_stride(NS);
   if (FULL) {
@@ -1593,11 +1875,12 @@ KPP_DEV void pass_block(const PassParams& P, const Geometry& G,
       stage_out<NS, MW>(st, out.p[i], wb + (B_U + i) * LZ, wz, nc);
     stage_out<NS, MW>(st, out.p[8], wb + NB * LZ + NSC, 8, nc);
   }
+  }
   KPP_BMARK(13);   // write-back
 }
 
 // whole step over one block of columns (the body of fused_step_kernel)
-template <typename T, int NS, bool MW>
+template <typename T, int NS, Spread MW>
 KPP_DEV void step_block(const PassParams& P, const Geometry& G,
                         const Inputs<T>& in, const Outputs<T>& out,
                         unsigned char* raw) {
@@ -1605,7 +1888,10 @@ KPP_DEV void step_block(const PassParams& P, const Geometry& G,
   KPP_CLOCK(kpp_b0);
   Stager st;
   const Block<T, NS, MW> b = load_block<T, true, NS, MW>(P, G, in, raw, &st);
-  __syncthreads();
+  if constexpr (MW == CLUSTER)
+    cl_sync();
+  else
+    __syncthreads();
   KPP_BMARK(10);   // staging in
   const int wi = threadIdx.x >> 5, lane = threadIdx.x & 31;
   // a land column's warp (MW: block) goes straight to the write-back
@@ -1613,14 +1899,21 @@ KPP_DEV void step_block(const PassParams& P, const Geometry& G,
   if (has_column<MW>(P, G, wi))
     step_warp<T, NS>(P, b.g, col_of(b, G, wi, lane));
   KPP_BMARK(11);   // the warp's column
-  __syncthreads();
+  if constexpr (MW == CLUSTER)
+    cl_sync();    // past it no block reads another's shared memory
+  else
+    __syncthreads();
   KPP_BMARK(12);   // waiting for the block's slowest warp
+  if constexpr (MW == CLUSTER) {
+    store_cluster<T, false>(P, G, st, b, out);
+  } else {
   const int wz = P.wz, nc = P.ncol;
   const T* wb = b.cols + st.j * warp_stride(NS);
 #pragma unroll
   for (int i = 0; i < 8; ++i)
     stage_out<NS, MW>(st, out.p[i], wb + (B_U + i) * LZ, wz, nc);
   stage_out<NS, MW>(st, out.p[8], wb + NB * LZ + NSC, 8, nc);
+  }
   KPP_BMARK(13);   // write-back
 }
 

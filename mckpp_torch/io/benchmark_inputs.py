@@ -307,7 +307,8 @@ def write_single_column(outdir: str, nz: int = 100,
                         dmax: float = 2000.0) -> dict:
     """The ``single_column`` inputs with ``nz`` uniform levels over
     ``dmax`` m (the configuration's own: 100 over 2000 m; 250 over 250 m
-    is a 1 m column as KPP single-column studies run at a station):
+    is a 1 m column as KPP single-column studies run at a station, 2000
+    over 4000 m a full-depth open-ocean column at 2 m):
     one column at 90 E, 20 S, constant analytic fluxes, one model day."""
     os.makedirs(outdir, exist_ok=True)
     nx = ny = 1

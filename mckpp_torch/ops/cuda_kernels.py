@@ -38,20 +38,29 @@ shared memory beside the warps' areas; where no block of 8 down to 1
 warps holds it (float64 at 8 slots on a stretched grid) the kernels read
 it from a tile in device memory instead (:func:`_ref_tile`).
 
-Past 256 levels (``nz + 2 <= MAXWZ`` = 1024) one column spreads over the
-``cw`` = ceil((nz + 2) / 128) warps of one block, each with ``MW_NS`` = 4
-slots a lane (the library ``MW``, "cw", one per dtype): the column's rows
-in shared memory are shared by its warps, which meet at block barriers
-wherever levels exchange; ``aref`` is always read from device memory,
-and the grid rows too where the column leaves no room (float64 at
-``cw`` = 8, :func:`_grid_tile`).
+Past 256 levels (``nz + 2 <= ONE_BLOCK_WZ`` = 1024) one column spreads
+over the ``cw`` = ceil((nz + 2) / 128) warps of one block, each with
+``MW_NS`` = 4 slots a lane (the library ``MW``, "cw", one per dtype): the
+column's rows in shared memory are shared by its warps, which meet at
+block barriers wherever levels exchange; ``aref`` is always read from
+device memory, and the grid rows too where the column leaves no room
+(float64 at ``cw`` = 8, :func:`_grid_tile`).
+
+Past 1024 levels (``nz + 2 <= MAXWZ`` = 8192) one column spreads over a
+thread-block cluster of ``cb`` = ceil((nz + 2) / 1024) blocks, each of
+``cw`` = ceil((nz + 2) / (128 cb)) warps of 4 slots holding its own
+slice of the column's rows (the library ``CL``, "cl", one per dtype):
+where levels meet, the blocks read each other's slices through
+distributed shared memory between cluster barriers; ``aref`` and the grid
+rows are always read from device memory.  A geometry of which the card
+cannot hold one cluster raises; nothing falls back.
 
 A wrapper called with CPU tensors runs the plain torch body
 (``ops/fused_pass.py``); with CUDA tensors it launches its kernel or
 raises.  The kernels are built by ``nvcc`` from the sources in ``csrc/``
 on first use, into ``mckpp_torch/_build/``: one library for each dtype
-and number of level slots, and one for each dtype of the multi-warp
-kernels (``LIBS``).
+and number of level slots, and one for each dtype of the multi-warp and
+of the cluster kernels (``LIBS``).
 """
 
 from __future__ import annotations
@@ -92,12 +101,18 @@ WARPS = 8              # warps per block at most (MAX_WARPS): columns of
 SLOTS = (3, 4, 6, 8)   # level slots per lane of the one-warp kernels (NS)
 MW = "cw"              # the library of a column over several warps
 MW_NS = 4              # ... its level slots a lane: 128 levels a warp
-LIBS = SLOTS + (MW,)   # the libraries of one dtype
+CL = "cl"              # the library of a column over a cluster of blocks
+CB_MAX = 8             # ... its blocks at most (the portable cluster size)
+LIBS = SLOTS + (MW, CL)   # the libraries of one dtype
 ONE_WARP_WZ = 32 * SLOTS[-1]      # the most levels one warp takes (256)
-MAXWZ = 32 * MW_NS * WARPS        # the most levels (nz + 2) a kernel takes
+ONE_BLOCK_WZ = 32 * MW_NS * WARPS  # ... one block takes (1024)
+MAXWZ = ONE_BLOCK_WZ * CB_MAX     # the most levels (nz + 2) a kernel takes
 N_SLOTS = 23           # per-column profile rows (NB)
 N_COLV = 48            # per-column values: colscal rows + 16 outputs
 N_BC = 35              # MW: broadcast cells after the column values (NBC)
+N_BC_CL = N_BC + 2     # CL: and a block's column AND and count (NBC_CL)
+NO_CLUSTER = -2        # the launcher's code for a cluster the card cannot
+                       # hold (KPP_NO_CLUSTER)
 SMEM_MAX = 232_448     # dynamic shared memory one block may use (H100)
 AREF_DEV_MIN_NS = 6    # the fewest slots whose kernels read aref from
                        # device memory (below, the shared copy always fits)
@@ -126,7 +141,7 @@ def _source_hash() -> str:
 
 
 def _lib_tag(lib) -> str:
-    return MW if lib == MW else f"ns{lib}"
+    return lib if lib in (MW, CL) else f"ns{lib}"
 
 
 def _lib_path(dtype, lib, phases=False) -> str:
@@ -154,8 +169,9 @@ def build(dtypes=(torch.float32, torch.float64), phases=False,
             if os.path.exists(out):
                 continue
             tmp = tmp_name(out)
-            lib_flags = ([f"-DKPP_NS={MW_NS}", "-DKPP_MW=1"] if ns == MW
-                         else [f"-DKPP_NS={ns}"])
+            spread = {MW: 1, CL: 2}.get(ns)
+            lib_flags = ([f"-DKPP_NS={MW_NS}", f"-DKPP_MW={spread}"]
+                         if spread else [f"-DKPP_NS={ns}"])
             cmd = [_nvcc(), *NVCC_FLAGS, f"-DKPP_REAL={_REALS[dt]}",
                    *lib_flags, *(["-DKPP_PHASES"] if phases else []),
                    "-o", tmp, os.path.join(_CSRC, "fused_kernels.cu")]
@@ -188,8 +204,8 @@ def _lib(dtype, ns):
 
 
 def load(dtype, ns, phases=False):
-    """The kernel library for ``dtype`` at ``ns`` level slots (or ``MW``),
-    built if missing (``phases``: see :func:`build`)."""
+    """The kernel library for ``dtype`` at ``ns`` level slots (or ``MW``
+    or ``CL``), built if missing (``phases``: see :func:`build`)."""
     path = _lib_path(dtype, ns, phases)
     if not os.path.exists(path):
         build((dtype,), phases, slots=(ns,))
@@ -201,13 +217,16 @@ def load(dtype, ns, phases=False):
     lib.kpp_fused_step.restype = ci
     lib.kpp_real_bytes.restype = ci
     lib.kpp_max_wz.restype = ci
+    if ns == CL:
+        lib.kpp_max_clusters.argtypes = [ci, vp]
+        lib.kpp_max_clusters.restype = ci
     if phases:
         lib.kpp_phase_read.argtypes = [vp]
         lib.kpp_phase_read.restype = ci
         lib.kpp_phase_zero.restype = ci
     if lib.kpp_real_bytes() != torch.empty((), dtype=dtype).element_size():
         raise RuntimeError(f"{path} was built for another dtype")
-    want = MAXWZ if ns == MW else 32 * ns
+    want = {MW: ONE_BLOCK_WZ, CL: MAXWZ}.get(ns, 32 * ns)
     if lib.kpp_max_wz() != want:
         raise RuntimeError(f"{path}: {lib.kpp_max_wz()} levels, expected "
                            f"{want}")
@@ -306,13 +325,16 @@ def _check(arrays, kw, n_prof):
 class Geometry(ctypes.Structure):
     """Field for field the C struct kpp::Geometry (csrc/fused_pass.cuh);
     ``aref_dev`` is 1 where the kernels read aref from device memory,
-    ``cw`` the warps of one column (1, or 2..8 for the ``MW`` library,
-    whose block is one column) and ``grid_dev`` 1 where the ``MW``
-    kernels read the grid rows from device memory."""
+    ``cw`` the warps of one column in a block (1, or 2..8 for the ``MW``
+    library, whose block is one column, or 1..8 for the ``CL`` library),
+    ``grid_dev`` 1 where the ``MW`` or ``CL`` kernels read the grid rows
+    from device memory and ``cb`` the blocks of a column's cluster (1, or
+    2..8 for the ``CL`` library)."""
     _fields_ = [("warps", ctypes.c_int), ("blocks", ctypes.c_int),
                 ("kref", ctypes.c_int), ("smem", ctypes.c_int),
                 ("ns", ctypes.c_int), ("aref_dev", ctypes.c_int),
-                ("cw", ctypes.c_int), ("grid_dev", ctypes.c_int)]
+                ("cw", ctypes.c_int), ("grid_dev", ctypes.c_int),
+                ("cb", ctypes.c_int)]
 
     @property
     def cols_per_block(self) -> int:
@@ -321,12 +343,13 @@ class Geometry(ctypes.Structure):
     @property
     def lib(self):
         """The library whose kernels take this geometry."""
-        return MW if self.cw > 1 else self.ns
+        return CL if self.cb > 1 else MW if self.cw > 1 else self.ns
 
     @property
     def levels(self) -> int:
-        """The levels of a column's rows in shared memory (LZ)."""
-        return 32 * self.ns * self.cw
+        """The levels of a column's rows (LZ; in a cluster, its blocks'
+        slices together)."""
+        return 32 * self.ns * self.cw * self.cb
 
 
 def _warp_stride(ns: int) -> int:
@@ -356,8 +379,18 @@ def smem_bytes_mw(cw: int, grid_dev: int, esize: int) -> int:
     return (ng * lz + N_SLOTS * lz + N_COLV + N_BC) * esize + lz * 4
 
 
-def launch_geometry(nz: int, dtype, ncol: int, kref: int | None = None,
-                    cw: int | None = None) -> Geometry:
+def smem_bytes_cl(cw: int, esize: int) -> int:
+    """Dynamic shared memory of one block of the ``CL`` kernels, ``cw``
+    warps of a column over a cluster (csrc/fused_pass.cuh smem_bytes_cl):
+    the block's slice of the column's rows, the column values and
+    broadcast cells, and its levels' row extents, at ``128 * cw`` levels;
+    aref and the grid rows are read from device memory."""
+    lb = 32 * MW_NS * cw
+    return (N_SLOTS * lb + N_COLV + N_BC_CL) * esize + lb * 4
+
+
+def launch_geometry(nz: int, dtype, ncol: int,
+                    kref: int | None = None) -> Geometry:
     """Warps per block, blocks, aref columns the reference averages read,
     dynamic shared-memory bytes, level slots, aref's placement, warps a
     column and the grid rows' placement of one launch at ``nz`` levels
@@ -369,12 +402,14 @@ def launch_geometry(nz: int, dtype, ncol: int, kref: int | None = None,
     shared memory fits (float64 from 4 slots up, float32 at 8 with a deep
     aref prefix).  Where not even one warp fits beside aref's shared copy,
     aref is read from device memory (``aref_dev``) and the warps are
-    halved again from 8 without it.  Past 256 levels (or with ``cw``
-    given, 2..8 warps that cover ``nz + 2``: a width forced for a
-    measurement, which no path of the model asks for) a block is one column over
-    ``cw`` = ceil((nz + 2) / 128) warps of ``MW_NS`` slots, aref read
-    from device memory, the grid rows too where they leave the column no
-    room (``grid_dev``: float64 at 8 warps)."""
+    halved again from 8 without it.  Past 256 levels a block is one
+    column over ``cw`` = ceil((nz + 2) / 128) warps of ``MW_NS`` slots,
+    aref read from device memory, the grid rows too where they leave the
+    column no room (``grid_dev``: float64 at 8 warps).  Past 1024 levels a column
+    spreads over a cluster of ``cb`` = ceil((nz + 2) / 1024) blocks of
+    ``cw`` = ceil((nz + 2) / (128 cb)) warps each, ``ncol * cb`` blocks,
+    aref and the grid rows read from device memory (a block holds only its
+    own levels of the column's rows)."""
     wz = nz + 2
     if wz > MAXWZ:
         raise ValueError(f"nz+2={wz} exceeds the kernels' limit of "
@@ -383,18 +418,20 @@ def launch_geometry(nz: int, dtype, ncol: int, kref: int | None = None,
     if not 0 <= kref <= wz:
         raise ValueError(f"kref={kref} outside 0..{wz}")
     esize = torch.empty((), dtype=dtype).element_size()
-    if cw is not None or wz > ONE_WARP_WZ:
-        lzw = 32 * MW_NS
-        cw = -(-wz // lzw) if cw is None else cw
-        if not (2 <= cw <= WARPS and cw * lzw >= wz):
-            raise ValueError(f"cw={cw} warps of {lzw} levels do not take "
-                             f"nz+2={wz} (2..{WARPS} warps)")
+    if wz > ONE_BLOCK_WZ:
+        cb = -(-wz // ONE_BLOCK_WZ)
+        cw = -(-wz // (32 * MW_NS * cb))
+        return Geometry(warps=cw, blocks=ncol * cb, kref=kref,
+                        smem=smem_bytes_cl(cw, esize), ns=MW_NS, aref_dev=1,
+                        cw=cw, grid_dev=1, cb=cb)
+    if wz > ONE_WARP_WZ:
+        cw = -(-wz // (32 * MW_NS))
         for grid_dev in (0, 1):
             smem = smem_bytes_mw(cw, grid_dev, esize)
             if smem <= SMEM_MAX:
                 return Geometry(warps=cw, blocks=ncol, kref=kref, smem=smem,
                                 ns=MW_NS, aref_dev=1, cw=cw,
-                                grid_dev=grid_dev)
+                                grid_dev=grid_dev, cb=1)
         raise ValueError(f"{smem} bytes of shared memory exceed {SMEM_MAX}")
     ns = next(n for n in SLOTS if 32 * n >= wz)
     placements = ((0, kref), (1, 0)) if ns >= AREF_DEV_MIN_NS else \
@@ -407,8 +444,19 @@ def launch_geometry(nz: int, dtype, ncol: int, kref: int | None = None,
         if smem <= SMEM_MAX:
             return Geometry(warps=warps, blocks=-(-ncol // warps),
                             kref=kref, smem=smem, ns=ns, aref_dev=aref_dev,
-                            cw=1, grid_dev=0)
+                            cw=1, grid_dev=0, cb=1)
     raise ValueError(f"{smem} bytes of shared memory exceed {SMEM_MAX}")
+
+
+def max_clusters(dtype, geom: Geometry, kernel: str) -> int:
+    """cudaOccupancyMaxActiveClusters of ``kernel`` ("fused_pass_fast",
+    "fused_pass_full" or "fused_step") at a cluster geometry: the clusters
+    the card holds at once."""
+    kind = ("fused_pass_fast", "fused_pass_full", "fused_step").index(kernel)
+    n = _lib(dtype, CL).kpp_max_clusters(kind, ctypes.addressof(geom))
+    if n < 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters: CUDA error {-n}")
+    return n
 
 
 def row_extents(aref) -> np.ndarray:
@@ -446,14 +494,16 @@ def _ref_extents(aref: torch.Tensor):
     return tuple(_ref_entry(aref)[2:4])
 
 
-def _ref_tile(aref: torch.Tensor, ns: int, cw: int = 1) -> torch.Tensor:
-    """``aref`` transposed into a (kref, 32 ns cw) tile on its device, zero
-    past its ``nz + 2`` columns: ``tile[k, n] = aref[n, k]``, the layout of
-    the kernels' shared copy, read from device memory where that copy does
-    not fit or the column spreads over ``cw`` warps
-    (``Geometry.aref_dev``).  Made once per aref tensor and width."""
+def _ref_tile(aref: torch.Tensor, ns: int, cw: int = 1,
+              cb: int = 1) -> torch.Tensor:
+    """``aref`` transposed into a (kref, 32 ns cw cb) tile on its device,
+    zero past its ``nz + 2`` columns: ``tile[k, n] = aref[n, k]``, the
+    layout of the kernels' shared copy, read from device memory where that
+    copy does not fit or the column spreads over ``cw`` warps (of ``cb``
+    blocks) (``Geometry.aref_dev``).  Made once per aref tensor and
+    width."""
     entry = _ref_entry(aref)
-    lz = 32 * ns * cw
+    lz = 32 * ns * cw * cb
     if lz not in entry[4]:
         kref, wz = entry[3], aref.shape[0]
         tile = aref.new_zeros((kref, lz))
@@ -524,10 +574,15 @@ def pass_ops(nz: int, aref, kbl, ldd: bool = False):
     return base + max(kbl - 1, 0) * 260
 
 
-def _raise_on(rc: int, name: str):
+def _raise_on(rc: int, name: str, geom=None):
     if rc == 1:       # cudaErrorInvalidValue: the launcher's own checks
         raise RuntimeError(f"{name}: launch geometry refused (the shared-"
                            "memory layout of launch_geometry and csrc differ?)")
+    if rc == NO_CLUSTER:
+        raise RuntimeError(
+            f"{name}: the card cannot hold one cluster of {geom.cb} blocks "
+            f"of {32 * geom.warps} threads and {geom.smem} bytes of shared "
+            "memory (cudaOccupancyMaxActiveClusters is 0)")
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
@@ -538,20 +593,20 @@ def _ptrs(tensors):
         *[None if t is None else t.data_ptr() for t in tensors])
 
 
-def _launch_args(arrays, kw, ncol, dtype, cw=None):
+def _launch_args(arrays, kw, ncol, dtype):
     """The library, the extra inputs (depth prefix, aref row extents,
     aref's device tile or None, the grid rows' tile or None) and the
-    launch geometry (``cw``: a forced column width, see
-    :func:`launch_geometry`)."""
+    launch geometry."""
     nz = kw["nz"]
     aref = arrays[-1]
     hi, kref = _ref_extents(aref)
-    geom = launch_geometry(nz, dtype, ncol, kref, cw)
+    geom = launch_geometry(nz, dtype, ncol, kref)
     lib = _lib(dtype, geom.lib)
     hm = arrays[-5]
     advect = kw["flags"].l_advect
     pfx = fp._depth_prefix(hm, nz).contiguous() if advect else hm
-    tile = _ref_tile(aref, geom.ns, geom.cw) if geom.aref_dev else None
+    tile = (_ref_tile(aref, geom.ns, geom.cw, geom.cb) if geom.aref_dev
+            else None)
     grid = (_grid_tile(arrays, pfx, advect, geom.levels) if geom.grid_dev
             else None)
     return lib, [pfx, hi, tile, grid], geom
@@ -572,12 +627,10 @@ class FusedPass:
             return fp._pass_body(*arrays, **self.kw)
         return self.launch(*arrays)
 
-    def launch(self, *arrays, _cw=None):
-        """Launch the kernel.  ``_cw`` is for measurements only: it forces
-        a column over that many warps where the launch would take one
-        (:func:`launch_geometry`); no path of the model sets it."""
+    def launch(self, *arrays):
+        """Launch the kernel."""
         ncol, dtype = _check(arrays, self.kw, 12)
-        lib, extra, geom = _launch_args(arrays, self.kw, ncol, dtype, _cw)
+        lib, extra, geom = _launch_args(arrays, self.kw, ncol, dtype)
         wz = self.kw["nz"] + 2
         dev = arrays[0].device
         mk = lambda rows: torch.empty((rows, ncol), dtype=dtype, device=dev)
@@ -594,7 +647,7 @@ class FusedPass:
                                 ctypes.addressof(params),
                                 ctypes.addressof(geom),
                                 torch.cuda.current_stream(dev).cuda_stream)
-        _raise_on(rc, self.name)
+        _raise_on(rc, self.name, geom)
         LAUNCHES[self.name] += 1
         return tuple(outs)
 
@@ -614,10 +667,10 @@ class FusedStep:
             return fp._step_body(*arrays, **self.kw)
         return self.launch(*arrays)
 
-    def launch(self, *arrays, _cw=None):
-        """Launch the kernel (``_cw``: see :meth:`FusedPass.launch`)."""
+    def launch(self, *arrays):
+        """Launch the kernel."""
         ncol, dtype = _check(arrays, self.kw, 8)
-        lib, extra, geom = _launch_args(arrays, self.kw, ncol, dtype, _cw)
+        lib, extra, geom = _launch_args(arrays, self.kw, ncol, dtype)
         wz = self.kw["nz"] + 2
         dev = arrays[0].device
         outs = [torch.empty((wz, ncol), dtype=dtype, device=dev)
@@ -632,6 +685,6 @@ class FusedStep:
                                 ctypes.addressof(params),
                                 ctypes.addressof(geom),
                                 torch.cuda.current_stream(dev).cuda_stream)
-        _raise_on(rc, self.name)
+        _raise_on(rc, self.name, geom)
         LAUNCHES[self.name] += 1
         return tuple(outs)

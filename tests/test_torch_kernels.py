@@ -127,10 +127,10 @@ def hold_to_plain(monkeypatch, setups, nz, tol, aref_dev=None, first=None,
     :func:`serial_sums`): floats within ``tol`` of each output's scale,
     the integer rows equal; each launch on the fewest level slots that
     cover nz + 2 (past 256 levels a column over ceil((nz + 2) / 128) warps
-    of 4 slots), and (``aref_dev`` not None) with aref in that
-    placement."""
+    of 4 slots, past 1024 over a cluster of ceil((nz + 2) / 1024) blocks),
+    and (``aref_dev`` not None) with aref in that placement."""
     names = set()
-    ns, cw = _expected_slots(nz)
+    ns, cw, cb = _expected_slots(nz)
     for m, st, prm, frc in setups:
         rec = Recorder(monkeypatch)
         m.step(st, prm, frc, first_step=True)
@@ -141,7 +141,7 @@ def hold_to_plain(monkeypatch, setups, nz, tol, aref_dev=None, first=None,
                 continue
             g = ck.launch_geometry(nz, a[0].dtype, a[0].shape[1],
                                    ck._ref_extents(a[-1])[1])
-            assert (g.ns, g.cw) == (ns, cw)
+            assert (g.ns, g.cw, g.cb) == (ns, cw, cb)
             if aref_dev is not None:
                 assert g.aref_dev == aref_dev
             got = w.launch(*a)
@@ -186,12 +186,14 @@ def test_kernels_match_plain(cuda, monkeypatch, dtype, tol, ncol, nz):
 @pytest.mark.parametrize("nz,dscale", [(127, 0.0), (190, 0.0), (254, 0.0),
                                        (127, 5.0), (190, 5.0), (254, 5.0),
                                        (255, 0.0), (383, 5.0), (1022, 0.0),
-                                       (1022, 5.0)])
+                                       (1022, 5.0), (1023, 0.0),
+                                       (2046, 5.0)])
 def test_deep_kernels_match_plain(cuda, monkeypatch, dtype, tol, nz, dscale):
     """Past 126 levels: 6 slots (nz 127 and 190) and 8 (nz 254), on a
     uniform and a stretched grid, 13 columns (a ragged last block) with a
     land column; past 254 a column over 3 (nz 255), 4 (383) and 8 (1022)
-    warps.  float64 at nz = 254 on the stretched grid reads aref from
+    warps; past 1022 a column over a cluster of 2 blocks (nz 1023, 5 warps
+    each, and 2046, 8 each).  float64 at nz = 254 on the stretched grid reads aref from
     device memory (no block holds its shared copy), as every launch past
     254 does; every other case keeps it in shared memory.  Some column's
     hmix loop runs to its
@@ -311,10 +313,15 @@ def _fewest_slots(nz):
 
 
 def _expected_slots(nz):
-    """(level slots, warps a column) of a launch at nz: the fewest slots
-    of one warp up to WZ = 256, past it 4 slots on ceil(WZ / 128) warps."""
+    """(level slots, warps a column in a block, blocks a column) of a
+    launch at nz: the fewest slots of one warp up to WZ = 256, past it 4
+    slots on ceil(WZ / 128) warps, past 1024 on a cluster of cb =
+    ceil(WZ / 1024) blocks of ceil(WZ / (128 cb)) warps."""
     wz = nz + 2
-    return (_fewest_slots(nz), 1) if wz <= 256 else (4, -(-wz // 128))
+    if wz <= 256:
+        return _fewest_slots(nz), 1, 1
+    cb = -(-wz // 1024)
+    return 4, -(-wz // (128 * cb)), cb
 
 
 @pytest.mark.parametrize("stretch", [False, True])
@@ -354,23 +361,25 @@ def test_ref_extents_and_pass_ops(nz, dmax, stretch):
 
 
 @pytest.mark.parametrize("nz,dscale", [(69, 2.0), (190, 5.0), (254, 10.0),
-                                       (300, 5.0), (1022, 5.0)])
+                                       (300, 5.0), (1022, 5.0), (1100, 5.0)])
 def test_ref_tile(nz, dscale):
     """The device-memory placement's tile is aref transposed, cut to its
     kref columns and padded with zeros to the 32 x slots levels of the
-    launch (x the warps of a column past 254 levels), made once per aref
-    tensor and width."""
+    launch (x the warps of a column past 254 levels, x the blocks of its
+    cluster past 1022), made once per aref tensor and width."""
     aref = torch.as_tensor(_aref(nz, 250.0, True, dscale))
     kref = ck._ref_extents(aref)[1]
-    ns, cw = _expected_slots(nz)
-    tile = ck._ref_tile(aref, ns, cw)
-    assert tile.shape == (kref, 32 * ns * cw) and tile.dtype == aref.dtype
+    ns, cw, cb = _expected_slots(nz)
+    geom = ck.launch_geometry(nz, aref.dtype, 3, kref)
+    assert geom.levels == 32 * ns * cw * cb
+    tile = ck._ref_tile(aref, ns, cw, cb)
+    assert tile.shape == (kref, geom.levels) and tile.dtype == aref.dtype
     assert torch.equal(tile[:, :nz + 2], aref[:, :kref].T)
     assert not tile[:, nz + 2:].any()
-    assert ck._ref_tile(aref, ns, cw) is tile
-    wider = ck._ref_tile(aref, ns, cw + 1)
-    assert wider.shape == (kref, 32 * ns * (cw + 1))
-    assert torch.equal(wider[:, :32 * ns * cw], tile)
+    assert ck._ref_tile(aref, ns, cw, cb) is tile
+    wider = ck._ref_tile(aref, ns, cw + 1, cb)
+    assert wider.shape == (kref, 32 * ns * (cw + 1) * cb)
+    assert torch.equal(wider[:, :geom.levels], tile)
 
 
 @pytest.mark.parametrize("advect", [False, True])
@@ -425,7 +434,7 @@ def _check_mw(g, nz, dtype, ncol):
     warps of 4 slots, aref from device memory, the grid rows too exactly
     where their shared copy does not fit."""
     cw = -(-(nz + 2) // 128)
-    assert (g.ns, g.cw, g.warps, g.cols_per_block) == (4, cw, cw, 1)
+    assert (g.ns, g.cw, g.warps, g.cols_per_block, g.cb) == (4, cw, cw, 1, 1)
     assert (g.blocks, g.aref_dev, g.lib, g.levels) == (ncol, 1, ck.MW,
                                                       128 * cw)
     fits = ck.smem_bytes_mw(cw, 0, dtype.itemsize) <= ck.SMEM_MAX
@@ -434,14 +443,56 @@ def _check_mw(g, nz, dtype, ncol):
         <= ck.SMEM_MAX
 
 
+def _check_cl(g, nz, dtype, ncol):
+    """A launch past 1024 levels: one column over a cluster of cb =
+    ceil(WZ / 1024) blocks of cw = ceil(WZ / (128 cb)) warps of 4 slots,
+    ncol * cb blocks; every level on exactly one (block, warp, lane, slot)
+    and every block holding some; aref and the grid rows from device
+    memory; each block's shared memory smem_bytes_cl, within SMEM_MAX."""
+    wz = nz + 2
+    cb = -(-wz // 1024)
+    cw = -(-wz // (128 * cb))
+    assert (g.ns, g.cb, g.cw, g.warps, g.cols_per_block) == (4, cb, cw, cw, 1)
+    assert (g.blocks, g.aref_dev, g.grid_dev, g.lib) == (ncol * cb, 1, 1,
+                                                        ck.CL)
+    assert 2 <= cb <= ck.CB_MAX and 1 <= cw <= 8
+    assert g.levels == 128 * cw * cb >= wz > 128 * cw * (cb - 1)
+    # the kernels' map of level k: block k // LB, warp (k % LB) // 128,
+    # lane k % 32, slot (k % 128) // 32, LB = 128 cw
+    k = np.arange(g.levels)
+    lb = 128 * cw
+    place = np.stack([k // lb, (k % lb) // 128, k % 32, (k % 128) // 32])
+    assert (place[0] < cb).all() and (place[1] < cw).all()
+    assert (place[3] < 4).all()
+    assert len({tuple(p) for p in place.T}) == g.levels
+    back = place[0] * lb + place[1] * 128 + place[3] * 32 + place[2]
+    assert np.array_equal(back, k)
+    assert set(place[0][:wz]) == set(range(cb))
+    assert g.smem == ck.smem_bytes_cl(cw, dtype.itemsize) <= ck.SMEM_MAX
+
+
+# nz past 1022 that the geometry tests take: every 97th, and the edges
+# (the first of 2 blocks, WZ = 1024 + 2 blocks' first whole warp, the
+# last of 2 blocks and the first of 3, 3 blocks' last, the most levels)
+CL_EDGES = (1023, 1024, 2046, 2047, 3070, 8190)
+CL_NZ = sorted(set(range(1023, 8191, 97)) | set(CL_EDGES))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_launch_geometry(dtype):
     """Every nz the kernels take fits one block's shared memory, with aref
     kept whole (the worst case) or read from device memory where no block
     holds it, on the fewest level slots that cover nz + 2 up to 256
     levels (one warp a column, 8 columns a block or fewer) and past them
-    on a column over ceil((nz + 2) / 128) warps; the grid covers every
-    ncol exactly; past 1024 levels the geometry raises."""
+    on a column over ceil((nz + 2) / 128) warps, past 1024 on a cluster of
+    blocks (:func:`_check_cl`, every 97th nz and the edges); the grid
+    covers every ncol exactly; past 8192 levels the geometry raises."""
+    for nz in CL_NZ:
+        for kref in (None, 0, 9):
+            for ncol in (1, 7, 37, 144_507):
+                g = ck.launch_geometry(nz, dtype, ncol, kref)
+                assert g.kref == (nz + 2 if kref is None else kref)
+                _check_cl(g, nz, dtype, ncol)
     for nz in range(1, 1023):
         for kref in (None, 0, 9):
             if kref is not None and kref > nz + 2:
@@ -460,8 +511,8 @@ def test_launch_geometry(dtype):
                     g.ns, 0 if g.aref_dev else g.kref, g.warps,
                     dtype.itemsize)
                 assert 1 <= g.warps <= 8 and g.warps == g.cols_per_block
-    with pytest.raises(ValueError, match="1024 levels"):
-        ck.launch_geometry(1023, dtype, 8)
+    with pytest.raises(ValueError, match="8192 levels"):
+        ck.launch_geometry(8191, dtype, 8)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -474,7 +525,8 @@ def test_launch_geometry_on_real_grids(dtype, dscale):
     fit beside even one warp (then with as many warps as fit without
     it).  Past 254 (the edges of each warp count and every 7th nz, so
     that building the arefs stays cheap): a column over ceil(WZ / 128)
-    warps with the grid's kref."""
+    warps with the grid's kref; past 1022 (the edges up to 3070, whose
+    dense aref is 75 MB in float64): a cluster with the grid's kref."""
     esize = dtype.itemsize
     n_dev = 0
     for nz in range(1, 255):
@@ -501,27 +553,45 @@ def test_launch_geometry_on_real_grids(dtype, dscale):
         g = ck.launch_geometry(nz, dtype, 37, kref)
         assert g.kref == kref
         _check_mw(g, nz, dtype, 37)
+    for nz in CL_EDGES[:-1]:
+        aref = _aref(nz, 250.0, dscale > 0, dscale or 2.0)
+        kref = int(ck.row_extents(aref).max()) + 1
+        g = ck.launch_geometry(nz, dtype, 37, kref)
+        assert g.kref == kref
+        _check_cl(g, nz, dtype, 37)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("nz", [69, 94, 95, 100, 126, 127, 190, 191, 254,
-                                255, 383, 510, 1022, 1023])
+                                255, 383, 510, 1022, 1023, 2000, 2046, 3070,
+                                8190, 8191])
 def test_level_slots(dtype, nz):
     """The slots, warps and shared memory a launch takes at the levels of
     the five configurations and at the edges of each instantiation: 3
     slots up to nz 94 (WZ 96), 4 up to nz 126 (WZ 128), 6 up to nz 190
     (WZ 192), 8 up to nz 254 (WZ 256); past it one column a block over 3
     warps of 4 slots (nz 255 up to 382), 4 (nz 383 to 510), ... 8 (nz
-    1022, WZ 1024), its shared memory pinned below; a raise naming the
-    limit at 1023.  With aref's real prefix (kref of a uniform grid) a
+    1022, WZ 1024), its shared memory pinned below; past it a cluster of
+    blocks (nz 1023: 2 of 5 warps; 2000 and 2046: 2 of 8; 3070: 3 of 8;
+    8190: 8 of 8), pinned below; a raise naming the limit at 8191.  With
+    aref's real prefix (kref of a uniform grid) a
     one-warp block keeps 8 warps in float32, and in float64 up to 4 slots
     (4 warps at 6, 2 at 8); with aref kept whole a block takes fewer, or
     reads aref from device memory where no block holds it."""
-    if nz == 1023:
-        with pytest.raises(ValueError, match=r"nz\+2=1025 .*1024 levels"):
+    if nz == 8191:
+        with pytest.raises(ValueError, match=r"nz\+2=8193 .*8192 levels"):
             ck.launch_geometry(nz, dtype, 37)
         return
     esize = dtype.itemsize
+    if nz > 1022:
+        cb, cw, smem = CL_GEOMETRY[esize, nz]
+        for kref in (nz + 2, 40):
+            g = ck.launch_geometry(nz, dtype, 37, kref)
+            assert (g.ns, g.cb, g.cw, g.warps, g.blocks) == \
+                (4, cb, cw, cw, 37 * cb)
+            assert (g.aref_dev, g.grid_dev, g.smem, g.kref) == \
+                (1, 1, smem, kref)
+        return
     kref = int(ck.row_extents(_aref(nz, 1000.0, False)).max()) + 1
     g = ck.launch_geometry(nz, dtype, 37, kref)
     if nz > 254:
@@ -546,23 +616,6 @@ def test_level_slots(dtype, nz):
         ck.smem_bytes(g.ns, nz + 2, 1, esize) > ck.SMEM_MAX)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_forced_warps_a_column(dtype):
-    """``cw`` spreads a column over that many warps of 4 slots at any nz
-    they cover (the 2-warp step beside the 8-slot one at nz = 254 in
-    chip_smoke.py), and raises where they do not cover nz + 2 or fall
-    outside 2..8."""
-    g = ck.launch_geometry(254, dtype, 37, 26, cw=2)
-    assert (g.ns, g.cw, g.warps, g.blocks, g.lib, g.levels) == \
-        (4, 2, 2, 37, ck.MW, 256)
-    assert (g.aref_dev, g.grid_dev) == (1, 0)
-    assert g.smem == ck.smem_bytes_mw(2, 0, dtype.itemsize)
-    assert ck.launch_geometry(300, dtype, 5, cw=8).cw == 8
-    for nz, cw in ((255, 2), (100, 1), (100, 9)):
-        with pytest.raises(ValueError, match="warps"):
-            ck.launch_geometry(nz, dtype, 37, cw=cw)
-
-
 # (warps, aref_dev) with aref kept whole (kref = nz + 2), by element size
 # and nz: 8 warps and the shared copy unless noted
 WORST = {(4, nz): (8, 0) for nz in (69, 94, 95, 100, 126)}
@@ -578,6 +631,15 @@ MW_GEOMETRY = {(4, 255): (3, 0, 46_412), (4, 383): (4, 0, 61_772),
                (4, 510): (4, 0, 61_772), (4, 1022): (8, 0, 123_212),
                (8, 255): (3, 0, 91_288), (8, 383): (4, 0, 121_496),
                (8, 510): (4, 0, 121_496), (8, 1022): (8, 1, 193_176)}
+# (blocks of the cluster, warps a block, shared-memory bytes a block) past
+# 1022 levels, by element size and nz: a block holds 23 rows of its 128 cw
+# levels, 48 column values, 37 cells and its levels' row extents
+CL_GEOMETRY = {(4, 1023): (2, 5, 61_780), (4, 2000): (2, 8, 98_644),
+               (4, 2046): (2, 8, 98_644), (4, 3070): (3, 8, 98_644),
+               (4, 8190): (8, 8, 98_644),
+               (8, 1023): (2, 5, 121_000), (8, 2000): (2, 8, 193_192),
+               (8, 2046): (2, 8, 193_192), (8, 3070): (3, 8, 193_192),
+               (8, 8190): (8, 8, 193_192)}
 
 
 def test_geometry_constants_match_the_source():
@@ -592,8 +654,11 @@ def test_geometry_constants_match_the_source():
     assert "constexpr int NS_MAX = 8;" in src and ck.SLOTS[-1] == 8
     assert "constexpr int MW_NS = 4;" in src and ck.MW_NS == 4
     assert "constexpr int CW_MAX = 8;" in src and ck.WARPS == 8
-    assert "constexpr int MAXWZ = 32 * MW_NS * CW_MAX;" in src
-    assert ck.MAXWZ == 1024 and ck.ONE_WARP_WZ == 256
+    assert "constexpr int ONE_BLOCK_WZ = 32 * MW_NS * CW_MAX;" in src
+    assert "constexpr int CB_MAX = 8;" in src and ck.CB_MAX == 8
+    assert "constexpr int MAXWZ = ONE_BLOCK_WZ * CB_MAX;" in src
+    assert ck.MAXWZ == 8192 and ck.ONE_BLOCK_WZ == 1024
+    assert ck.ONE_WARP_WZ == 256
     cells = src[src.index("  BC_RHO0 = 0,"):src.index("NBC = ")]
     # 11 single cells, 9 for blmix's matching, 3 enhance, a crossing per
     # warp, 4 RMSD sums
@@ -605,10 +670,16 @@ def test_geometry_constants_match_the_source():
     assert ck.N_BC == 11 + 9 + 3 + 8 + 4
     assert "KPP_HD int col_stride(int lz) { return NB * lz + NCV + NBC; }" \
         in src
-    assert "int warps, blocks, kref, smem, ns, aref_dev, cw, grid_dev;" in src
+    # the cluster's cells after them: a block's column AND and count
+    assert "enum { BC_AND = NBC, BC_CNT, NBC_CL };" in src
+    assert ck.N_BC_CL == ck.N_BC + 2
+    assert "return size_t(NB * lb + NCV + NBC_CL) * tsize" in src
+    assert "int warps, blocks, kref, smem, ns, aref_dev, cw, grid_dev, cb;" \
+        in src
     assert [f[0] for f in ck.Geometry._fields_] == \
         ["warps", "blocks", "kref", "smem", "ns", "aref_dev", "cw",
-         "grid_dev"]
+         "grid_dev", "cb"]
+    assert all(f[1] is ctypes.c_int for f in ck.Geometry._fields_)
     with open(ck._CSRC + "/fused_kernels.cu") as f:
         ker = f.read()
     assert "constexpr int MAX_WARPS = 8;" in ker
@@ -617,8 +688,10 @@ def test_geometry_constants_match_the_source():
         ck.SMEM_MAX == 232_448
     assert "in->aref_t = static_cast<const Real*>(ip[kpp::N_IN + 1]);" in ker
     assert "in->grid_t = static_cast<const Real*>(ip[kpp::N_IN + 2]);" in ker
-    assert "int kpp_max_wz() { return 32 * NSL * (MWL ? kpp::CW_MAX : 1); }" \
-        in ker
+    assert "  return 32 * NSL * (MWL ? kpp::CW_MAX : 1)\n" \
+           "         * (MWL == kpp::CLUSTER ? kpp::CB_MAX : 1);" in ker
+    assert "constexpr int KPP_NO_CLUSTER = -2;" in ker and \
+        ck.NO_CLUSTER == -2
     assert f"constexpr int AREF_DEV_MIN_NS = {ck.AREF_DEV_MIN_NS};" in src
 
 

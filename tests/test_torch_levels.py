@@ -1,8 +1,9 @@
 """The step past 94 levels: single_column's nz = 100, which the CUDA
 kernels take with four level slots a lane (``WZ = nz + 2 <= 128``), nz =
-190 on a stretched grid, which they take with six (``<= 192``), and nz =
-300 on a stretched grid, which they take with one column over three warps
-(``<= 384``).
+190 on a stretched grid, which they take with six (``<= 192``), nz = 300
+on a stretched grid, which they take with one column over three warps
+(``<= 384``), and nz = 1030, which they take with one column over a
+cluster of two blocks (``<= 8192``).
 
 On the CPU the port's plain whole-step body (pass_impl "eager_step") is
 held to the JAX package's traced body ("fused_xla_step", which pads any
@@ -56,10 +57,11 @@ NO_ISOTHERM = dict(l_no_isotherm=True, isotherm_bottom=4,
                    sal_file="clim.nc")
 
 
-def configs(pkg, pass_impl, nz=NZ, ncol=NCOL, dtype="float64", dscale=0.0):
+def configs(pkg, pass_impl, nz=NZ, ncol=NCOL, dtype="float64", dscale=0.0,
+            dmax=DMAX):
     """``dscale`` > 0: a stretched vertical grid."""
     return pkg.KppConfig(
-        domain=pkg.DomainConfig(nx=ncol, ny=1, nz=nz, dmax=DMAX,
+        domain=pkg.DomainConfig(nx=ncol, ny=1, nz=nz, dmax=dmax,
                                 l_stretchgrid=dscale > 0, dscale=dscale),
         time=pkg.TimeConfig(dtsec=2 * DTO, ndtocn=2, startt=0.0, finalt=1.0),
         physics=pkg.PhysicsFlags(pass_impl=pass_impl, wscale_mode="nodal"),
@@ -79,8 +81,9 @@ def taux(ncol=NCOL):
     return np.array([400.0] + [0.05] * (ncol - 1))   # the trap on column 0
 
 
-def jax_trajectory(steps, nz=NZ, dscale=0.0):
-    model = J.KppModel(configs(J, "fused_xla_step", nz, dscale=dscale))
+def jax_trajectory(steps, nz=NZ, dscale=0.0, dmax=DMAX):
+    model = J.KppModel(configs(J, "fused_xla_step", nz, dscale=dscale,
+                               dmax=dmax))
     u0, t0, s0 = profiles(np.asarray(model.grid.zm))
     prm = dataclasses.replace(jinit_params(NCOL, nz + 1),
                               f=jcoriolis(jnp.asarray(LAT)),
@@ -99,8 +102,8 @@ def jax_trajectory(steps, nz=NZ, dscale=0.0):
 
 
 def port_start(pass_impl, device="cpu", dtype="float64", nz=NZ, ncol=NCOL,
-               dscale=0.0):
-    model = T.KppModel(configs(T, pass_impl, nz, ncol, dtype, dscale),
+               dscale=0.0, dmax=DMAX):
+    model = T.KppModel(configs(T, pass_impl, nz, ncol, dtype, dscale, dmax),
                        device=device)
     dt, dev = model.dtype, model.device
     u0, t0, s0 = profiles(model.grid.zm.double().cpu().numpy(), ncol)
@@ -146,13 +149,15 @@ def rounding_spread(model, st, prm, frc, got, steps):
     return {n: float(np.abs(got[n] - other[n]).max()) for n in FIELDS}
 
 
-def hold_to_jax(nz, dscale, calibrate=False):
-    """2 steps at ``nz`` with land and the trap: the port's plain step
-    body against the JAX package's at rtol 1e-9, each field with the atol
-    of its FIELD_SCALE; ``calibrate``: or within ten times the field's
-    :func:`rounding_spread`, where that is the larger."""
-    ref = jax_trajectory(2, nz, dscale)
-    model, st, prm, frc = port_start("eager_step", nz=nz, dscale=dscale)
+def hold_to_jax(nz, dscale, calibrate=False, dmax=DMAX):
+    """2 steps at ``nz`` levels over ``dmax`` m with land and the trap:
+    the port's plain step body against the JAX package's at rtol 1e-9,
+    each field with the atol of its FIELD_SCALE; ``calibrate``: or within
+    ten times the field's :func:`rounding_spread`, where that is the
+    larger."""
+    ref = jax_trajectory(2, nz, dscale, dmax)
+    model, st, prm, frc = port_start("eager_step", nz=nz, dscale=dscale,
+                                     dmax=dmax)
     got = port_trajectory(model, st, prm, frc, 2)
     assert abs(float(ref.reset_flag[0])) == 999.0, "trap did not fire"
     a, b = fields(got), fields(ref)
@@ -199,13 +204,28 @@ def test_eager_step_at_nz300_stretched_matches_jax():
     assert max(spread.values()) < 1e-8, spread
 
 
+def test_eager_step_at_nz1030_matches_jax():
+    """Past 1022 levels, where the kernels spread a column over a cluster
+    of 2 blocks: nz = 1030 on a uniform grid over 500 m (0.49 m levels;
+    over 1000 m and deeper the trap no longer fires on column 0), held as
+    the nz = 190 and 300 cases are, within the larger of the bar and ten
+    times the port's own rounding spread (the few ulp by which XLA's and
+    torch's EOS round apart reach ~5e-11 of u here)."""
+    spread = hold_to_jax(1030, 0.0, calibrate=True, dmax=500.0)
+    assert max(spread.values()) < 1e-8, spread
+
+
 def test_cpu_model_steps_past_the_kernel_limit():
     """The plain body takes any nz; what limits the kernels is their
     geometry, which only a launch on the card reaches: a CPU model at
-    nz = 1023 steps, and launch_geometry raises there naming 1024."""
-    model, st, prm, frc = port_start("cuda_step", nz=1023, ncol=2)
+    nz = 1030, past one block's 1024 levels (on the card a column over a
+    cluster of 2 blocks), steps; launch_geometry takes the cluster there,
+    and raises at nz = 8191 naming the kernels' limit of 8192 levels."""
+    model, st, prm, frc = port_start("cuda_step", nz=1030, ncol=2)
     assert model.pass_impl == "cuda_step"
     out = port_trajectory(model, st, prm, frc, 1)
     assert torch.isfinite(out.x).all()
-    with pytest.raises(ValueError, match="1024 levels"):
-        ck.launch_geometry(1023, torch.float64, 2)
+    g = ck.launch_geometry(1030, torch.float64, 2)
+    assert (g.lib, g.cb, g.cw, g.blocks) == (ck.CL, 2, 5, 4)
+    with pytest.raises(ValueError, match="8192 levels"):
+        ck.launch_geometry(8191, torch.float64, 2)
