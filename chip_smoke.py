@@ -7,14 +7,17 @@ their plain versions.
 Phases, each printing JSON lines; any breach raises, so the script exits
 0 only when every phase passed:
 
-1. device: card name, power limit, versions; build the CUDA kernels (one
-   library per dtype and number of level slots a lane carries: 3 for
-   nz + 2 <= 96, 4 for <= 128, 6 for <= 192, 8 for <= 256; one per
-   dtype of a column over several warps, "cw", for <= 1024; and one per
-   dtype of a column over a cluster of blocks, "cl", for <= 8192; twelve
-   nvcc processes at once) and print each one's ptxas table; then the
-   clusters the card holds at once (cudaOccupancyMaxActiveClusters) at
-   each cluster geometry of nz = 1023, 2046, 3070 and 8190;
+1. device: card name, power limit, versions; build the CUDA kernels in
+   the col_lanes layout (one library per dtype and number of level
+   slots a lane carries: 3 for nz + 2 <= 96, 4 for <= 128, 6 for <= 192,
+   8 for <= 256; one per dtype of a column over several warps, "cw", for
+   <= 1024; and one per dtype of a column over a cluster of blocks,
+   "cl", for <= 8192; twelve nvcc processes at once) and print each
+   one's ptxas table; then the clusters the card holds at once
+   (cudaOccupancyMaxActiveClusters) at each cluster geometry of nz =
+   1023, 2046, 3070 and 8190; then start the same twelve libraries'
+   z_lanes build (``pass_layout="z_lanes"``, profiles (ncol, nz + 2))
+   on a thread, so that nvcc runs while the card runs the gate;
 2. kernel gate: each kernel against its plain torch version on the same
    float32 inputs at several (ncol, nz) shapes and flag sets (ragged last
    blocks, and one block mixing a land column, a column the instability
@@ -45,21 +48,36 @@ Phases, each printing JSON lines; any breach raises, so the script exits
    trap column, uneven pass counts); a deep-mixing case at nz = 1100 over
    80 m whose kmix crosses from block 0 into block 1 (past level 640),
    each at the same bar; nz = 8191 raises ValueError naming the 8192
-   limit, and nz = 2046 under "auto" runs the cluster step kernel;
+   limit, and nz = 2046 under "auto" runs the cluster step kernel; then
+   the z_lanes build joined, its ptxas tables and clusters printed, and
+   in each spread (3, 4, 6 and 8 slots at nz = 69, 100, 190 and 254, a
+   column over 4 and 8 warps at 510 and 1022, a cluster of 2 blocks at
+   2046) and dtype the z_lanes kernels on a col_lanes launch's inputs
+   transposed, every output equal to the col_lanes one transposed bit
+   for bit, and at nz = 69 held to the z_lanes plain version at the
+   same bar; "auto" in z_lanes at nz = 69 launches the step kernel once
+   a step;
 3. main path: the production ocean step (``KppModel.step``, pass_impl
    "cuda_step", with the full diagnostics pass on with_diags steps) at the
    TerraMaris width, ncol = 144,507 (453 x 319), nz = 69, ~12% land, with
-   the flux update on its cadence, timed; then a few steps of the per-pass
-   path ("cuda"), so every kernel runs in this phase;
+   the flux update on its cadence, timed in both layouts in turns; then
+   a few steps of the per-pass path ("cuda") in each, so every kernel
+   runs in this phase in both layouts (each layout's counts set to 0
+   before each of its runs and read after);
 4. full-width comparisons, one step from the same state (the main path's,
    with seeded noise on T, S and u): "cuda_step" vs "eager_step" and
-   "cuda" vs "cuda_step";
-5. each kernel at the main-path shape, on the inputs the main path gave
-   it: held to its plain version (the phase-2 bar), timed beside it and
-   beside the card's bound;
-6. a device trace (``torch.profiler``) of one full step and one
-   prognostic step at the main-path width: device time by kernel name and
-   the device-idle share;
+   "cuda" vs "cuda_step"; "cuda_step" and "cuda" in z_lanes equal to
+   col_lanes in every state field, bit for bit;
+5. each kernel at the main-path shape in both layouts, on the inputs the
+   main path gave it: held to its plain version (the phase-2 bar), timed
+   beside it and beside the card's bound;
+6. a device trace (``torch.profiler``) of one full step and of one
+   prognostic step at the main-path width in each layout: device time by
+   kernel name, the device-idle share, the glue's device ms and
+   launches, and the transposing host ops (z_lanes has none); then the
+   CLI's chained run (``models/chain.py``, spans captured as CUDA graphs
+   and replayed) at that width for 9 steps in each layout, every state
+   field and written variable equal bit for bit;
 7. the reference step (pass_impl "reference", plain torch, no kernel
    launched): float64 at 2,048 columns, Thomas + wscale table on the card
    against the CPU and PCR + nodal against "cuda_step", both within rtol
@@ -106,8 +124,9 @@ Phases, each printing JSON lines; any breach raises, so the script exits
 11. deep main path: the step alone at the TerraMaris width at nz = 150
    (6 slots), 254 (8 slots) and 510 (a column over 4 warps), at nz = 1022
    (8 warps) on 16,384 columns over 2000 m and at nz = 2046 (a cluster
-   of 2 blocks of 8 warps) on 16,384 columns over 4000 m,
-   float32, counts from 0 over a few steps of both
+   of 2 blocks of 8 warps) on 16,384 columns over 4000 m, then in
+   z_lanes at nz = 510 and 2046, float32, counts from 0 over a few steps
+   of both
    paths, each kernel held to its plain version and timed beside its
    bound, the phase's peak device memory;
    then three deep single columns (250 levels of 1 m, 1000 levels of 2 m
@@ -199,13 +218,14 @@ def card_peaks(name):
 
 def build(ncol, nz, dtype="float32", pass_impl="cuda_step", physics=None,
           boundary=None, noise=0.0, seed=0, land=0.0, big=(), dmax=1000.0,
-          device=None, dscale=0.0, cold=()):
+          device=None, dscale=0.0, cold=(), layout="col_lanes"):
     """``land``: a share of land columns drawn at random, or a tuple of
     land column indices; ``big``: columns given large T and u noise;
     ``cold``: columns 15 C colder below level nz // 2, a jump the
     instability trap flags on every attempt (a stable one, so each
     attempt's passes converge); ``device``: the model's (default cuda);
-    ``dscale`` > 0: a stretched vertical grid."""
+    ``dscale`` > 0: a stretched vertical grid; ``layout``: the kernels'
+    ``pass_layout``, "col_lanes" or "z_lanes"."""
     import numpy as np
     import torch
     import mckpp_torch as T
@@ -217,7 +237,8 @@ def build(ncol, nz, dtype="float32", pass_impl="cuda_step", physics=None,
         domain=T.DomainConfig(nx=ncol, ny=1, nz=nz, dmax=dmax,
                               l_stretchgrid=dscale > 0, dscale=dscale),
         time=T.TimeConfig(dtsec=3600.0, ndtocn=3, startt=0.0, finalt=1.0),
-        physics=T.PhysicsFlags(pass_impl=pass_impl, **(physics or {})),
+        physics=T.PhysicsFlags(pass_impl=pass_impl, pass_layout=layout,
+                               **(physics or {})),
         boundary=T.BoundaryConfig(**(boundary or {})),
         dtype=dtype)
     model = T.KppModel(cfg, device=device)     # cuda unless told
@@ -341,11 +362,32 @@ def plain_of(w, args):
 # integer-valued rows of each kernel's per-column output, compared exactly
 INT_ROWS = {"fused_pass_fast": (8, (1,)), "fused_pass_full": (4, (1,)),
             "fused_step": (8, (1, 4, 5, 7))}
+# the kernels' layouts (pass_layout), by zaxis
+LAYOUTS = ("col_lanes", "z_lanes")
+
+
+def zaxis_of(w):
+    """The layout of wrapper ``w``: 0 col_lanes, 1 z_lanes."""
+    return w.kw.get("zaxis", 0)
+
+
+def col_major(w, outs):
+    """``w``'s outputs in the col_lanes orientation ((rows, ncol) views;
+    z_lanes' transposed)."""
+    return [o.T for o in outs] if zaxis_of(w) else list(outs)
+
+
+def z_lanes_of(w, a):
+    """The z_lanes twin of col_lanes wrapper ``w`` and its inputs ``a``
+    as the twin takes them (every array transposed: aref then as
+    build_ref_matrix makes it, ``prof @ aref``)."""
+    return type(w)(dict(w.kw, zaxis=1)), tuple(x.T.contiguous() for x in a)
 
 
 def compare(w, got, ref, tol):
     """Max relative difference over the float outputs; the integer rows
     must be equal."""
+    got, ref = col_major(w, got), col_major(w, ref)
     worst = 0.0
     pos, rows = INT_ROWS[w.name]
     for i, (a, b) in enumerate(zip(got, ref)):
@@ -365,6 +407,7 @@ def distance(w, got, ref):
     """The distance of two results, reported and not held: the max
     relative difference over the float outputs and the columns whose
     integer rows differ."""
+    got, ref = col_major(w, got), col_major(w, ref)
     pos, rows = INT_ROWS[w.name]
     rel = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-6)
               for a, b in zip(got, ref))
@@ -418,7 +461,67 @@ def ptxas_table(log):
 CL_OCCUPANCY_NZ = (1023, 2046, 3070, 8190)
 
 
+def ptxas_tables(reports):
+    """{"float32/ns3": table, ..., "float64/cl_zl": table} of a build's
+    reports: one library per dtype, layout and level slots: "ns3" (nz + 2
+    <= 96), "ns4" (<= 128), ..., "cw" (a column over several warps, <=
+    1024), "cl" (a cluster, <= 8192), "_zl" for the z_lanes build."""
+    from mckpp_torch.ops import cuda_kernels as ck
+    return {f"{str(dt).replace('torch.', '')}/{ck._lib_tag(lib, z)}":
+            ptxas_table(log) for (dt, lib, z), log in reports.items()}
+
+
+def cluster_rows(zaxis):
+    """The clusters of each cluster geometry the card holds at once
+    (cudaOccupancyMaxActiveClusters; 0 would refuse every launch), in
+    layout ``zaxis``."""
+    import torch
+    from mckpp_torch.ops import cuda_kernels as ck
+    rows = []
+    for dt in (torch.float32, torch.float64):
+        for nz in CL_OCCUPANCY_NZ:
+            g = ck.launch_geometry(nz, dt, 16_384)
+            held = {k: ck.max_clusters(dt, g, k, zaxis) for k in REPLACES}
+            rows.append({"nz": nz, "dtype": str(dt).replace("torch.", ""),
+                         "layout": LAYOUTS[zaxis],
+                         "blocks_per_cluster": g.cb,
+                         "warps_per_block": g.cw, "smem_bytes": g.smem,
+                         "max_active_clusters": held})
+            if min(held.values()) < 1:
+                raise AssertionError(f"the card holds no cluster: {rows[-1]}")
+    return rows
+
+
+class Background:
+    """``fn()`` run on a thread (a build, whose nvcc processes run while
+    the card runs the gate); :meth:`result` joins it and returns its
+    value, or raises what it raised, with its seconds."""
+
+    def __init__(self, fn):
+        import threading
+        self.out, self.t0 = {}, time.perf_counter()
+
+        def run():
+            try:
+                self.out["value"] = fn()
+            except Exception as e:              # raised again by result()
+                self.out["error"] = e
+            self.out["seconds"] = time.perf_counter() - self.t0
+        self.thread = threading.Thread(target=run, daemon=True)
+        self.thread.start()
+
+    def result(self):
+        self.thread.join()
+        if "error" in self.out:
+            raise self.out["error"]
+        return self.out["value"], self.out["seconds"]
+
+
 def phase_device():
+    """Build the col_lanes libraries (twelve nvcc processes at once),
+    print their ptxas tables and the clusters the card holds; then start
+    the z_lanes build (twelve more) on a thread: :func:`gate_zlanes`
+    joins it and prints its tables."""
     import torch
     from mckpp_torch.ops import cuda_kernels as ck
     name = torch.cuda.get_device_name(0)
@@ -427,29 +530,13 @@ def phase_device():
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "python": sys.version.split()[0]})
     t0 = time.perf_counter()
-    reports = ck.build()
+    ptxas = ptxas_tables(ck.build(zaxes=(0,)))
     build_s = time.perf_counter() - t0
-    # one library per dtype and level slots: "float32/ns3" (nz + 2 <= 96),
-    # "float32/ns4" (<= 128), ..., "float32/cw" (a column over several
-    # warps, <= 1024), the same in float64
-    ptxas = {f"{str(dt).replace('torch.', '')}/{ck._lib_tag(lib)}":
-             ptxas_table(log) for (dt, lib), log in reports.items()}
-    emit({"phase": "build", "seconds": build_s, "ptxas": ptxas})
-    # the clusters of each cluster geometry the card holds at once
-    # (cudaOccupancyMaxActiveClusters; 0 would refuse every launch)
-    rows = []
-    for dt in (torch.float32, torch.float64):
-        for nz in CL_OCCUPANCY_NZ:
-            g = ck.launch_geometry(nz, dt, 16_384)
-            held = {k: ck.max_clusters(dt, g, k) for k in REPLACES}
-            rows.append({"nz": nz, "dtype": str(dt).replace("torch.", ""),
-                         "blocks_per_cluster": g.cb,
-                         "warps_per_block": g.cw, "smem_bytes": g.smem,
-                         "max_active_clusters": held})
-            if min(held.values()) < 1:
-                raise AssertionError(f"the card holds no cluster: {rows[-1]}")
-    emit({"phase": "clusters", "rows": rows})
-    return name, smi, ptxas
+    emit({"phase": "build", "layout": "col_lanes", "seconds": build_s,
+          "ptxas": ptxas})
+    zl_build = Background(lambda: ck.build(zaxes=(1,)))
+    emit({"phase": "clusters", "rows": cluster_rows(0)})
+    return name, smi, ptxas, zl_build
 
 
 GATE_FLAGS = {
@@ -553,25 +640,59 @@ class serial_matmul:
     (cuBLAS fuses and orders them its own way).  The terms past aref's
     last nonzero column are exact zeros and are skipped, as the kernels
     skip them.  The products of ``chunk`` terms come from one launch (each
-    still rounded once), and the sums from one launch a term."""
+    still rounded once), and the sums from one launch a term.  On the
+    card the launches of each (shapes, dtype, number of terms) are
+    captured once as a CUDA graph and replayed on copies of the inputs:
+    the same kernels in the same order, so the same bits, without the
+    host's dispatch of one launch a term (where the gate's deep cases
+    spent most of their time)."""
 
     chunk = 64
+    # (a's shape, b's shape, dtype, device, terms) -> (graph, a, b, sum)
+    graphs = {}
+
+    @classmethod
+    def terms_sum(cls, a, b, kref):
+        import torch
+        acc = torch.zeros((a.shape[0], b.shape[1]), dtype=b.dtype,
+                          device=b.device)
+        for k0 in range(0, kref, cls.chunk):
+            k1 = min(k0 + cls.chunk, kref)
+            terms = a[:, k0:k1, None] * b[None, k0:k1]
+            for k in range(k1 - k0):
+                acc = acc + terms[:, k]
+        return acc
+
+    @classmethod
+    def replayed(cls, a, b, kref):
+        import torch
+        key = (tuple(a.shape), tuple(b.shape), b.dtype, b.device, kref)
+        hit = cls.graphs.get(key)
+        if hit is None:
+            sa, sb = a.clone(), b.clone()
+            cls.terms_sum(sa, sb, kref)            # warm-up, outside
+            torch.cuda.synchronize()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                out = cls.terms_sum(sa, sb, kref)
+            hit = cls.graphs[key] = (graph, sa, sb, out)
+        graph, sa, sb, out = hit
+        sa.copy_(a)
+        sb.copy_(b)
+        graph.replay()
+        return out.clone()
 
     def __enter__(self):
         import torch
         self.matmul = torch.matmul
 
         def serial(a, b):
-            acc = torch.zeros((a.shape[0], b.shape[1]), dtype=b.dtype,
-                              device=b.device)
             nonzero = (a != 0).any(dim=0).nonzero()
             kref = int(nonzero.max()) + 1 if len(nonzero) else 0
-            for k0 in range(0, kref, self.chunk):
-                k1 = min(k0 + self.chunk, kref)
-                terms = a[:, k0:k1, None] * b[None, k0:k1]
-                for k in range(k1 - k0):
-                    acc = acc + terms[:, k]
-            return acc
+            if b.device.type != "cuda" or \
+                    torch.cuda.is_current_stream_capturing():
+                return self.terms_sum(a, b, kref)
+            return self.replayed(a, b, kref)
         torch.matmul = serial
         return self
 
@@ -966,7 +1087,93 @@ def gate_cluster():
     return worst["float32"], worst["float64"], len(GATE_CL) + 2
 
 
-def phase_gate():
+# the z_lanes gate, (nz, dscale, dmax): each spread of the kernels in both
+# dtypes, one warp a column at 3, 4, 6 and 8 slots (float64 at 254 on the
+# stretched grid reads aref from device memory), a column over 4 and over
+# 8 warps (float64 at 8 reads the grid rows from device memory) and over a
+# cluster of 2 blocks of 8 warps (2 m levels, as GATE_CL)
+GATE_ZL = [(69, 0.0, 1000.0), (100, 0.0, 1000.0), (190, 0.0, 1000.0),
+           (ONE_WARP_NZ, DEEP_DSCALE, 1000.0), (510, 0.0, 1000.0),
+           (MW_MAXNZ, 0.0, 2044.0), (2046, 0.0, 4092.0)]
+ZL_PLAIN_NZ = 69        # the case of each dtype also held to the plain
+
+
+def gate_zlanes(ptxas, zl_build):
+    """The z_lanes kernels: join the z_lanes build of phase 1, print its
+    ptxas tables (added to ``ptxas``) and the clusters the card holds;
+    then at each of ``GATE_ZL`` in float32 and float64, 37 columns (a
+    ragged last block) with ~10% land, each kernel's first launch of a
+    step in col_lanes (the fast and full pass from "cuda", the step from
+    "cuda_step") launched again in z_lanes on its inputs transposed:
+    every output equal to the col_lanes one transposed, bit for bit (the
+    integer rows with them); at nz = ``ZL_PLAIN_NZ`` also held to the
+    z_lanes plain version at the phase-2 bar.  Then "auto" in z_lanes at
+    nz = 69 launches the step kernel once a step.  Returns ({kernel: worst
+    f32}, {kernel: worst f64}, the number of cases)."""
+    import torch
+    from mckpp_torch.ops import cuda_kernels as ck
+    reports, build_s = zl_build.result()
+    tables = ptxas_tables(reports)
+    ptxas.update(tables)
+    emit({"phase": "build", "layout": "z_lanes", "seconds": build_s,
+          "ptxas": tables})
+    emit({"phase": "clusters", "rows": cluster_rows(1)})
+    worst = {"float32": {}, "float64": {}}
+    for dtype in ("float32", "float64"):
+        tol = TOL_F32 if dtype == "float32" else TOL_F64
+        for i, (nz, dscale, dmax) in enumerate(GATE_ZL):
+            res, geoms = {}, {}
+            for impl in ("cuda", "cuda_step"):
+                model, st, prm, frc = build(37, nz, dtype, impl, noise=0.05,
+                                            seed=130 + i, land=0.1,
+                                            dscale=dscale, dmax=dmax)
+                with Capture() as cap:
+                    run_steps(model, st, prm, frc, 1, 1)
+                for w, a in cap.calls:
+                    wz, az = z_lanes_of(w, a)
+                    got, ref = wz.launch(*az), w.launch(*a)
+                    sync()
+                    differ = [j for j, (x, y) in enumerate(zip(got, ref))
+                              if not torch.equal(x, y.T)]
+                    if differ:
+                        raise AssertionError(
+                            f"z_lanes {w.name} at nz = {nz} {dtype}: "
+                            f"outputs {differ} differ from col_lanes")
+                    res[w.name] = "equal"
+                    if nz == ZL_PLAIN_NZ:
+                        res[w.name + "/plain"] = compare(
+                            wz, got, plain_of(wz, az), tol)
+                        worst[dtype][w.name] = max(
+                            worst[dtype].get(w.name, 0.0),
+                            res[w.name + "/plain"])
+                    g = ck.launch_geometry(nz, a[0].dtype, 37,
+                                           ck._ref_extents(a[-1])[1])
+                    geoms[w.name] = ck._lib_tag(g.lib, 1) + (
+                        "/aref_dev" if g.aref_dev and g.cw == 1 else "") + (
+                        "/grid_dev" if g.grid_dev and g.cb == 1 else "")
+                del model, st, prm, frc, cap
+            if set(res) & set(REPLACES) != set(REPLACES):
+                raise AssertionError(f"z_lanes gate at nz = {nz}: {res}")
+            emit({"phase": "gate", "layout": "z_lanes", "ncol": 37,
+                  "nz": nz, "dtype": dtype, "dscale": dscale, "dmax": dmax,
+                  "libraries": geoms, "vs_col_lanes_and_plain": res})
+    model, st, prm, frc = build(37, NZ_MAIN, "float32", "auto",
+                                layout="z_lanes")
+    ck.reset_counts()
+    st, frc = run_steps(model, st, prm, frc, 1, 2, with_diags=False)
+    sync()
+    if model.pass_impl != "cuda_step" or ck.LAUNCHES != {
+            "fused_pass_fast": 0, "fused_pass_full": 0, "fused_step": 2} \
+            or not torch_all_finite(st):
+        raise AssertionError(f"z_lanes nz = 69, auto: {model.pass_impl}, "
+                             f"{ck.LAUNCHES}")
+    emit({"phase": "gate", "layout": "z_lanes", "nz": NZ_MAIN,
+          "auto": model.pass_impl, "auto_launches_2_steps": dict(
+              ck.LAUNCHES)})
+    return worst["float32"], worst["float64"], 2 * len(GATE_ZL) + 1
+
+
+def phase_gate(ptxas, zl_build):
     worst = {}
     n = 0
     for si, (ncol, nz) in enumerate(GATE_SHAPES):
@@ -1000,7 +1207,8 @@ def phase_gate():
     for k, v in gate_wide_aref().items():
         worst64[k] = max(worst64.get(k, 0.0), v)
     n_deep = 0
-    for gate in (gate_levels, gate_multiwarp, gate_cluster):
+    for gate in (gate_levels, gate_multiwarp, gate_cluster,
+                 lambda: gate_zlanes(ptxas, zl_build)):
         deep32, deep64, n_cases = gate()
         n_deep += n_cases
         for tgt, res in ((worst, deep32), (worst64, deep64)):
@@ -1012,37 +1220,58 @@ def phase_gate():
 
 
 def phase_main(name, smi):
+    """The main path in both layouts, on one state: ``KppModel.step``
+    ("cuda_step") timed in blocks of 4 steps, full then prognostic, the
+    two layouts in turns (col_lanes first in even blocks, z_lanes in odd
+    ones); then 2 steps of the per-pass path ("cuda") in each.  Each
+    layout's kernel counts are set to 0 just before each of its runs and
+    read just after.  Returns (the col_lanes model, the state, params,
+    forcing, the next step, {layout: {kernel: launches}})."""
     import torch
     from mckpp_torch.ops import cuda_kernels as ck
     torch.cuda.reset_peak_memory_stats()
     model, st, prm, frc = build(NCOL_MAIN, NZ_MAIN, land=LAND_SHARE)
-    assert model.pass_impl == "cuda_step", model.pass_impl
+    models = {"col_lanes": model,
+              "z_lanes": build(NCOL_MAIN, NZ_MAIN, land=LAND_SHARE,
+                               layout="z_lanes")[0]}
+    for m in models.values():
+        assert m.pass_impl == "cuda_step", m.pass_impl
     st, frc = run_steps(model, st, prm, frc, 1, 2)          # warm-up
+    st, frc = run_steps(models["z_lanes"], st, prm, frc, 3, 1)
     sync()
     steps, blocks = 4, 3
-    ck.reset_counts()                     # the main path's run starts here
-    nt = 3
+    nt = 4
+    counts = {lay: dict.fromkeys(ck.LAUNCHES, 0) for lay in LAYOUTS}
+
+    def counted(layout, fn):
+        ck.reset_counts()                 # this layout's run starts here
+        out = fn()
+        sync()
+        for k, v in ck.LAUNCHES.items():  # ... and is read here
+            counts[layout][k] += v
+        return out
     times = {}
     for with_diags in (True, False):
-        ts = []
-        for _ in range(blocks):
-            t0 = time.perf_counter()
-            st, frc = run_steps(model, st, prm, frc, nt, steps, with_diags)
-            sync()
-            ts.append((time.perf_counter() - t0) / steps * 1e3)
-            nt += steps
-        times[with_diags] = ts
-    step_counts = dict(ck.LAUNCHES)
+        for b in range(blocks):
+            for layout in LAYOUTS[::1 if b % 2 == 0 else -1]:
+                t0 = time.perf_counter()
+                st, frc = counted(layout, lambda: run_steps(
+                    models[layout], st, prm, frc, nt, steps, with_diags))
+                times.setdefault((layout, with_diags), []).append(
+                    (time.perf_counter() - t0) / steps * 1e3)
+                nt += steps
+    step_counts = {lay: dict(c) for lay, c in counts.items()}
     # the per-pass path ("cuda"): same state, a few steps
-    model_p = build(NCOL_MAIN, NZ_MAIN, pass_impl="cuda",
-                    land=LAND_SHARE)[0]
-    st_p, frc_p = run_steps(model_p, st, prm, frc, nt, 2)
-    sync()
-    counts = dict(ck.LAUNCHES)            # ... and is read here
-    pass_counts = {k: counts[k] - step_counts[k] for k in counts}
-    zero = [k for k, v in counts.items() if v == 0]
-    if zero:
-        raise AssertionError(f"kernels not launched on the main path: {zero}")
+    for layout in LAYOUTS:
+        model_p = build(NCOL_MAIN, NZ_MAIN, pass_impl="cuda",
+                        land=LAND_SHARE, layout=layout)[0]
+        counted(layout, lambda: run_steps(model_p, st, prm, frc, nt, 2))
+        del model_p
+    for layout, c in counts.items():
+        zero = [k for k, v in c.items() if v == 0]
+        if zero:
+            raise AssertionError(f"{layout}: kernels not launched on the "
+                                 f"main path: {zero}")
     wet = prm.run_physics
     for fld in ("x", "u"):
         a = getattr(st, fld)
@@ -1051,20 +1280,29 @@ def phase_main(name, smi):
     hm = st.hmix[wet]
     if not bool(((hm > 0) & (hm <= 1000.0)).all()):
         raise AssertionError("hmix outside (0, dmax] on active columns")
-    full_ms = statistics.median(times[True])
-    prog_ms = statistics.median(times[False])
+    out = {}
+    for layout in LAYOUTS:
+        full_ms = statistics.median(times[layout, True])
+        prog_ms = statistics.median(times[layout, False])
+        out[layout] = {
+            "full_step_ms": full_ms, "prognostic_step_ms": prog_ms,
+            "full_step_ms_blocks": times[layout, True],
+            "prognostic_step_ms_blocks": times[layout, False],
+            "column_steps_per_s_full": NCOL_MAIN / (full_ms / 1e3),
+            "column_steps_per_s_prognostic": NCOL_MAIN / (prog_ms / 1e3),
+            "launches": counts[layout],
+            "launches_cuda_step_path": step_counts[layout],
+            "launches_cuda_path": {
+                k: counts[layout][k] - step_counts[layout][k]
+                for k in counts[layout]}}
     emit({"phase": "main_path", "card": name, "nvidia_smi": smi,
           "ncol": NCOL_MAIN, "nz": NZ_MAIN, "active_columns": int(wet.sum()),
           "dtype": "float32", "pass_impl": model.pass_impl,
           "wscale": model.cfg.physics.wscale_mode,
-          "full_step_ms": full_ms, "prognostic_step_ms": prog_ms,
-          "full_step_ms_blocks": times[True],
-          "prognostic_step_ms_blocks": times[False],
-          "column_steps_per_s_full": NCOL_MAIN / (full_ms / 1e3),
-          "column_steps_per_s_prognostic": NCOL_MAIN / (prog_ms / 1e3),
+          "full_step_ms": out["col_lanes"]["full_step_ms"],
+          "prognostic_step_ms": out["col_lanes"]["prognostic_step_ms"],
+          "layouts": out,
           "max_memory_allocated": torch.cuda.max_memory_allocated(),
-          "launches": counts, "launches_cuda_step_path": step_counts,
-          "launches_cuda_path": pass_counts,
           "hmix_median_active": float(hm.median())})
     return model, st, prm, frc, nt, counts
 
@@ -1091,18 +1329,32 @@ def perturbed(st, seed=1):
 
 
 def phase_compare(st, prm, frc, nt):
-    """One step from the same (perturbed) state through three paths;
-    returns the captured kernel inputs at the main-path shapes."""
+    """One step from the same (perturbed) state through three paths, and
+    the two kernel paths again in z_lanes, every state field equal to
+    col_lanes' bit for bit; returns the captured kernel inputs at the
+    main-path shapes ({"cuda_step": ..., "cuda/z_lanes": ...})."""
     import torch
     st = perturbed(st)
     outs, caps = {}, {}
-    for impl in ("cuda_step", "eager_step", "cuda"):
-        model = build(NCOL_MAIN, NZ_MAIN, pass_impl=impl,
-                      land=LAND_SHARE)[0]
+    for impl in ("cuda_step", "eager_step", "cuda", "cuda_step/z_lanes",
+                 "cuda/z_lanes"):
+        p_impl, _, layout = impl.partition("/")
+        model = build(NCOL_MAIN, NZ_MAIN, pass_impl=p_impl,
+                      land=LAND_SHARE, layout=layout or "col_lanes")[0]
         with Capture() as cap:
             outs[impl] = run_steps(model, st, prm, frc, nt, 1)[0]
             sync()
         caps[impl] = cap
+        del model
+    layouts_equal = {}
+    for impl in ("cuda_step", "cuda"):
+        a, b = outs[impl + "/z_lanes"], outs[impl]
+        differ = [f for f in a.__dataclass_fields__
+                  if not torch.equal(getattr(a, f), getattr(b, f))]
+        if differ:
+            raise AssertionError(f"{impl}: z_lanes differs from col_lanes "
+                                 f"in {differ}")
+        layouts_equal[impl] = len(a.__dataclass_fields__)
     wet = prm.run_physics
     res = {}
     for a_impl, b_impl in (("cuda_step", "eager_step"),
@@ -1123,7 +1375,8 @@ def phase_compare(st, prm, frc, nt):
         bad = {f: v for f, v in rel.items() if v > TOL_F32}
         if bad:
             raise AssertionError(f"{a_impl} vs {b_impl}: {bad}")
-    emit({"phase": "compare", **res})
+    emit({"phase": "compare", **res,
+          "z_lanes_vs_col_lanes_fields_equal": layouts_equal})
     return caps
 
 
@@ -1163,10 +1416,11 @@ def kernel_row(kname, w, a, name, ptxas, launches, plain_reps=2):
                    5 if kname != "fused_step" else 3)
     plain_ms = (time_cuda(lambda: plain_of(w, a), plain_reps) if plain_reps
                 else e0.elapsed_time(e1))
-    nz = w.kw["nz"]
-    ncol = a[0].shape[1]
-    aref, ldd = a[-1], w.kw["flags"].ldd
+    nz, zaxis = w.kw["nz"], zaxis_of(w)
+    ncol = a[0].shape[1 - zaxis]
+    aref, ldd = ck._kernel_aref(a[-1], zaxis), w.kw["flags"].ldd
     geom = ck.launch_geometry(nz, a[0].dtype, ncol, ck._ref_extents(aref)[1])
+    outs = col_major(w, got)
     # bytes: every input read once, every output written once
     nbytes = sum(x.numel() * x.element_size() for x in a) + \
         sum(x.numel() * x.element_size() for x in got)
@@ -1175,7 +1429,7 @@ def kernel_row(kname, w, a, name, ptxas, launches, plain_reps=2):
     # bldepth/blmix levels above the column's kmix
     extra = {}
     if kname == "fused_step":
-        kmix, npass = got[8][1].double(), got[8][7].double()
+        kmix, npass = outs[8][1].double(), outs[8][7].double()
         ops = float((npass * ck.pass_ops(nz, aref, kmix, ldd)).sum())
         # a block holds its SM share until its slowest column is done:
         # passes run over passes the blocks' columns were held for
@@ -1187,10 +1441,11 @@ def kernel_row(kname, w, a, name, ptxas, launches, plain_reps=2):
                  "warp_pass_share_of_block_hold": float(npass.sum())
                  / held}
     else:
-        kbl = got[8 if kname == "fused_pass_fast" else 4][1].double()
+        kbl = outs[8 if kname == "fused_pass_fast" else 4][1].double()
         ops = float(ck.pass_ops(nz, aref, kbl, ldd).sum())
     dt = str(a[0].dtype).replace("torch.", "")
-    table = ptxas.get(f"{dt}/{ck._lib_tag(geom.lib)}", {}).get(kname, {})
+    table = ptxas.get(f"{dt}/{ck._lib_tag(geom.lib, zaxis)}",
+                      {}).get(kname, {})
     regs = table.get("registers")
     bound_bytes_ms = nbytes / bytes_peak * 1e3
     bound_ops_ms = ops / flops_peak * 1e3
@@ -1204,8 +1459,8 @@ def kernel_row(kname, w, a, name, ptxas, launches, plain_reps=2):
         else "operations",
         "library_ms": None, "bytes": nbytes, "ops": ops,
         "bound_bytes_ms": bound_bytes_ms, "bound_ops_ms": bound_ops_ms,
-        "shape": [nz + 2, ncol], "level_slots": geom.ns,
-        "library": ck._lib_tag(geom.lib),
+        "shape": [nz + 2, ncol], "layout": LAYOUTS[zaxis],
+        "level_slots": geom.ns, "library": ck._lib_tag(geom.lib),
         "warps_per_column": geom.cw * geom.cb,
         "warps_per_block": geom.warps, "blocks_per_cluster": geom.cb,
         "smem_bytes": geom.smem,
@@ -1220,12 +1475,21 @@ def kernel_row(kname, w, a, name, ptxas, launches, plain_reps=2):
 
 
 def phase_times(caps, counts, name, ptxas):
-    sources = {"fused_pass_fast": caps["cuda"], "fused_pass_full":
-               caps["cuda_step"], "fused_step": caps["cuda_step"]}
+    """Each kernel at the main path's shape in both layouts (z_lanes rows
+    named ``<kernel>_zl``), on the inputs phase 4 captured, with the
+    launches of its layout's main-path run."""
     rows = []
-    for kname in ("fused_pass_fast", "fused_pass_full", "fused_step"):
-        w, a = sources[kname].first(kname)
-        rows.append(kernel_row(kname, w, a, name, ptxas, counts[kname]))
+    for layout in LAYOUTS:
+        tag = "" if layout == "col_lanes" else "/" + layout
+        sources = {"fused_pass_fast": caps["cuda" + tag],
+                   "fused_pass_full": caps["cuda_step" + tag],
+                   "fused_step": caps["cuda_step" + tag]}
+        for kname in ("fused_pass_fast", "fused_pass_full", "fused_step"):
+            w, a = sources[kname].first(kname)
+            row = kernel_row(kname, w, a, name, ptxas, counts[layout][kname])
+            if layout == "z_lanes":
+                row["name"] = kname + "_zl"
+            rows.append(row)
     emit({"phase": "kernel_times", "card": name, "rows": rows})
     return rows
 
@@ -1271,9 +1535,12 @@ def phase_times_ns4(name, ptxas):
 DEEP_MAIN = ((150, NCOL_MAIN, 1000.0), (ONE_WARP_NZ, NCOL_MAIN, 1000.0),
              (510, NCOL_MAIN, 1000.0), (MW_MAXNZ, 16_384, 2000.0),
              (2046, 16_384, 4000.0))
+# ... and in z_lanes: a column over 4 warps at nz = 510 and over a cluster
+# at 2046, where col_lanes stages one value a level at stride ncol
+DEEP_MAIN_ZL = ((510, NCOL_MAIN, 1000.0), (2046, 16_384, 4000.0))
 
 
-def phase_deep_main(name, smi, ptxas):
+def phase_deep_main(name, smi, ptxas, depths=DEEP_MAIN, layout="col_lanes"):
     """The main path past 126 levels: at each of ``DEEP_MAIN``, the
     production step (``KppModel.step``, "cuda_step", the full pass on
     with_diags steps) at that width with ~12% land from
@@ -1285,13 +1552,16 @@ def phase_deep_main(name, smi, ptxas):
     the plain version timed once).  The peak device memory of the path's run
     and of the phase with the plain versions' temporaries.  Returns the
     rows, named by kernel and library (``_ns6``, ``_ns8``, ``_cw4``,
-    ``_cw8``, ``_cl2x8``: blocks of a cluster x warps of a block)."""
+    ``_cw8``, ``_cl2x8``: blocks of a cluster x warps of a block; then
+    ``_zl`` in z_lanes), at ``depths`` in ``layout``."""
     import torch
     from mckpp_torch.ops import cuda_kernels as ck
     rows, lines = [], []
-    for nz, ncol, dmax in DEEP_MAIN:
+    tag = "" if layout == "col_lanes" else "_zl"
+    for nz, ncol, dmax in depths:
         torch.cuda.reset_peak_memory_stats()
-        model, st, prm, frc = build(ncol, nz, land=LAND_SHARE, dmax=dmax)
+        model, st, prm, frc = build(ncol, nz, land=LAND_SHARE, dmax=dmax,
+                                    layout=layout)
         st, frc = run_steps(model, st, prm, frc, 1, 2)
         sync()
         ck.reset_counts()                # this depth's run starts here
@@ -1301,7 +1571,7 @@ def phase_deep_main(name, smi, ptxas):
             sync()
             step_ms = (time.perf_counter() - t0) / 3 * 1e3
             model_p = build(ncol, nz, pass_impl="cuda",
-                            land=LAND_SHARE, dmax=dmax)[0]
+                            land=LAND_SHARE, dmax=dmax, layout=layout)[0]
             st_p = run_steps(model_p, st, prm, frc, 6, 1)[0]
             sync()
         counts = dict(ck.LAUNCHES)       # ... and is read here
@@ -1327,7 +1597,7 @@ def phase_deep_main(name, smi, ptxas):
                 f"{row['warps_per_block']}" if row["library"] == ck.CL
                 else f"{kname}_cw{row['warps_per_column']}"
                 if row["library"] == ck.MW
-                else f"{kname}_ns{row['level_slots']}")
+                else f"{kname}_ns{row['level_slots']}") + tag
             rows.append(row)
         del cap
         lines.append({"nz": nz, "ncol": ncol, "dmax": dmax,
@@ -1339,7 +1609,8 @@ def phase_deep_main(name, smi, ptxas):
                           torch.cuda.max_memory_allocated()})
         torch.cuda.empty_cache()
     emit({"phase": "deep_main", "card": name, "nvidia_smi": smi,
-          "dtype": "float32", "runs": lines, "rows": rows})
+          "dtype": "float32", "layout": layout, "runs": lines,
+          "rows": rows})
     return rows
 
 
@@ -1483,20 +1754,44 @@ def phase_deep_column(name, smi, work, device="cuda", nz=DEEP_COLUMN_NZ,
     return rows
 
 
-def phase_trace(model, st, prm, frc, nt, name):
-    """torch.profiler over one full step and one prognostic step at the
-    main-path width: device time by kernel name and the share of the
-    window (first host event to last device event) the device was idle."""
-    import torch
+# the host ops that transpose (a view, or a copy through one)
+TRANSPOSE_OPS = ("aten::t", "aten::transpose", "aten::permute",
+                 "aten::numpy_T", "aten::mT", "aten::swapaxes")
+
+
+def phase_trace(st, prm, frc, nt, name):
+    """torch.profiler over one full step and, in a window of its own, one
+    prognostic step at the main-path width, in each layout: device time
+    by kernel name, the share of the window (first host event to last
+    device event) the device was idle, the glue's device ms and launches
+    (the device work other than the ``kpp::`` kernels) and the
+    transposing host ops, of which z_lanes has none."""
     from torch.profiler import ProfilerActivity, profile
-    sync()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        st, frc = run_steps(model, st, prm, frc, nt, 1, True)
-        st, frc = run_steps(model, st, prm, frc, nt + 1, 1, False)
+    for layout in LAYOUTS:
+        model = build(NCOL_MAIN, NZ_MAIN, land=LAND_SHARE, layout=layout)[0]
+        run_steps(model, st, prm, frc, nt, 1, True)     # lazy set-up
         sync()
-    emit({"phase": "trace", "card": name, "steps": ["full", "prognostic"],
-          **trace_stats(prof)})
+        for step, with_diags in (("full", True), ("prognostic", False)):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                run_steps(model, st, prm, frc, nt, 1, with_diags)
+                sync()
+            stats = trace_stats(prof, top_n=40)
+            transposes = {}
+            for e in prof.events():
+                if e.name in TRANSPOSE_OPS:
+                    transposes[e.name] = transposes.get(e.name, 0) + 1
+            kpp_launches = sum(n for k, n in
+                               stats["launches_by_kernel"].items()
+                               if "kpp::" in k)
+            emit({"phase": "trace", "card": name, "layout": layout,
+                  "step": step, "glue_device_ms": stats["kernel_ms_other"],
+                  "glue_launches": stats["device_launches"] - kpp_launches,
+                  "transposing_host_ops": transposes, **stats})
+            if layout == "z_lanes" and transposes:
+                raise AssertionError(f"z_lanes step path transposes: "
+                                     f"{transposes}")
+        del model
 
 
 def trace_stats(prof, top_n=12):
@@ -2073,6 +2368,82 @@ def same_restart(a, b, what):
     return len(za)
 
 
+CHAIN_STEPS = 9         # three spans of ndtocn = 3 steps, fluxes between
+
+
+def phase_chain_layouts(name, smi, work):
+    """The chained run of the CLI (``models/chain.py``: each span of steps
+    captured once as a CUDA graph and replayed) at the main path's width
+    in each layout, over the same ``CHAIN_STEPS`` steps from the same
+    start, the flux update between spans on its ndtocn cadence, an instant
+    and an averaging stream of hmix every 3 steps and an instant stream
+    of difm (a wide field) at the last: every state field and every
+    written variable equal bit for bit; the graphs captured and replayed,
+    the launches, and the ms of each span."""
+    import os
+    import torch
+    from mckpp_torch import forcing as forcing_mod
+    from mckpp_torch.io.diagnostics import DiagnosticsManager, Stream
+    from mckpp_torch.models import chain
+    from mckpp_torch.ops import cuda_kernels as ck
+    res, finals, files = {}, {}, {}
+    for layout in LAYOUTS:
+        model, st, prm, frc = build(NCOL_MAIN, NZ_MAIN, land=LAND_SHARE,
+                                    layout=layout)
+        out = os.path.join(work, "chain_" + layout)
+        os.makedirs(out, exist_ok=True)
+        streams = [Stream("inst", "instant", 3, fields=("hmix",)),
+                   Stream("mean", "average", 3, fields=("hmix",)),
+                   Stream("wide", "instant", CHAIN_STEPS, fields=("difm",))]
+        diag = DiagnosticsManager(streams, NCOL_MAIN, 1, model.grid.zm,
+                                  outdir=out, dto_seconds=model.cfg.time.dto,
+                                  async_write=False)
+        stepper = chain.ChainedStepper(model._step, diag, graphs=True)
+        ndtocn = model.cfg.time.ndtocn
+        raw = forcing_mod.constant_test_fluxes(NCOL_MAIN, model.dtype,
+                                               model.device)
+
+        def end(nt):
+            return (chain.emit_due(diag, nt)
+                    or (diag.needs_full(nt) and not stepper.wide_reducing))
+        ck.reset_counts()                 # this layout's run starts here
+        span_ms = []
+        for nt0, k in chain.plan_segments(CHAIN_STEPS, ndtocn=ndtocn,
+                                          end_pred=end):
+            t0 = time.perf_counter()
+            if nt0 > 1 and (nt0 - 1) % ndtocn == 0:
+                st, frc = forcing_mod.update_fluxes(
+                    model.cfg, st, prm, frc, raw, False, model.grid.dm)
+            st = stepper.run(nt0, k, st, prm, frc)
+            sync()
+            span_ms.append((time.perf_counter() - t0) * 1e3)
+        diag.flush()
+        launches = dict(ck.LAUNCHES)      # ... and is read here
+        if launches["fused_step"] < CHAIN_STEPS or stepper.captures < 1 \
+                or stepper.replays != len(span_ms) \
+                or not torch_all_finite(st):
+            raise AssertionError(f"{layout} chain: {launches}, "
+                                 f"{stepper.captures} captures, "
+                                 f"{stepper.replays} replays")
+        finals[layout] = st
+        files[layout] = read_nc_dir(out)
+        res[layout] = {"span_ms": span_ms, "captures": stepper.captures,
+                       "replays": stepper.replays, "launches": launches}
+        del model, stepper, diag
+    a, b = finals["z_lanes"], finals["col_lanes"]
+    differ = [f for f in a.__dataclass_fields__
+              if not torch.equal(getattr(a, f), getattr(b, f))]
+    if differ:
+        raise AssertionError(f"chained z_lanes differs from col_lanes in "
+                             f"{differ}")
+    n_vars = same_bits(files["z_lanes"], files["col_lanes"],
+                       "chained z_lanes vs col_lanes")
+    emit({"phase": "chain_layouts", "card": name, "nvidia_smi": smi,
+          "ncol": NCOL_MAIN, "nz": NZ_MAIN, "steps": CHAIN_STEPS,
+          "state_fields_equal": len(a.__dataclass_fields__),
+          "variables_equal": n_vars, **res})
+
+
 def phase_day(name, t_start, work, data, land, dmax, device="cuda"):
     """One model day (72 steps) of the CLI when the script has used less
     than CLI_DAY_BEFORE_S."""
@@ -2578,18 +2949,21 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     t_start = T_START
-    name, smi, ptxas = phase_device()
-    phase_gate()
+    name, smi, ptxas, zl_build = phase_device()
+    try:
+        phase_gate(ptxas, zl_build)
+    finally:                # its nvcc processes end before the script
+        zl_build.thread.join()
     model, st, prm, frc, nt, counts = phase_main(name, smi)
     del model
     caps = phase_compare(st, prm, frc, nt)
     rows = phase_times(caps, counts, name, ptxas)
-    phase_trace(build(NCOL_MAIN, NZ_MAIN, land=LAND_SHARE)[0], st, prm, frc,
-                nt, name)
+    phase_trace(st, prm, frc, nt, name)
     del st, prm, frc, caps
-    phase_reference(name, smi)
     work = tempfile.mkdtemp(prefix="chip_smoke_cli_")
     try:
+        phase_chain_layouts(name, smi, work)
+        phase_reference(name, smi)
         data, nml, land, dmax, g, straight = phase_cli(name, smi, work)
         phase_distributed(name, smi, work, data, nml, g, straight)
         cfg_rows = phase_configs(name, smi, os.path.join(work, "cfg"), ptxas)
@@ -2597,6 +2971,7 @@ def main():
         rows += [dict(r, name=f"{r['name']}_ns4") for r in cfg_rows
                  if r["level_slots"] == 4]
         rows += phase_deep_main(name, smi, ptxas)
+        rows += phase_deep_main(name, smi, ptxas, DEEP_MAIN_ZL, "z_lanes")
         phase_deep_column(name, smi, work, cpu=False)
         nz_c, dmax_c, steps_c = DEEP_COLUMN_1000
         phase_deep_column(name, smi, work, nz=nz_c, dmax=dmax_c,
@@ -2609,9 +2984,10 @@ def main():
         shutil.rmtree(work, ignore_errors=True)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
-    # each kernel x library a path launched: 3 slots on the main path
-    # (phase 3), 4 on single_column's (phase 10), 6 and 8 slots and a
-    # column over 4 and 8 warps on the deep main path (phase 11)
+    # each kernel x library x layout a path launched: 3 slots on the main
+    # path (phase 3, both layouts), 4 on single_column's (phase 10), 6 and
+    # 8 slots, a column over 4 and 8 warps and a cluster on the deep main
+    # path (phase 11; z_lanes at 4 warps and the cluster)
     emit({"kernels": [{k: r[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}

@@ -121,12 +121,17 @@ class PhysicsFlags:
     pass_block: int = 256             # the JAX package's Pallas column
                                       # tile, kept so configs carry over;
                                       # the CUDA kernels do not read it
-                                      # (one thread per column, 128 per
-                                      # block)
-    pass_layout: str = "col_lanes"    # fused-kernel data layout: only
+                                      # (their launch geometry comes from
+                                      # cuda_kernels.launch_geometry: one
+                                      # warp a column, up to 8 a block,
+                                      # or a column over a block's warps
+                                      # or a cluster's blocks)
+    pass_layout: str = "col_lanes"    # fused-kernel data layout:
                                       # "col_lanes" (profiles (nz+2, ncol)
-                                      # inside the kernels); "z_lanes"
-                                      # raises
+                                      # in the kernels, the glue
+                                      # transposing each step) |
+                                      # "z_lanes" (profiles (ncol, nz+2),
+                                      # the state's own order)
 
 
 @dataclass(frozen=True)

@@ -42,6 +42,16 @@
 // * a block of W >= 8 warps takes W consecutive columns and stages their
 //   inputs and outputs through shared memory, so each level row of a
 //   profile moves as whole 32-byte sectors;
+// * both layouts of the JAX package (its zaxis; the template parameter L
+//   of the staging, one library each, KPP_ZL): COL_LANES (zaxis = 0),
+//   profiles (WZ, ncol), and Z_LANES (zaxis = 1), profiles (ncol, WZ), the
+//   state's own order, so the step's glue transposes nothing.  The bytes
+//   and operations, and so the bounds, are the same in both; in Z_LANES a
+//   block's W columns are one run of W * WZ values, each warp staging its
+//   own column (32 consecutive values an access), and a column over
+//   several warps or a cluster reads its levels as consecutive values where
+//   COL_LANES reads one value a level at stride ncol (a 32-byte sector for
+//   each 4- or 8-byte value);
 // * the reference averages run over each aref row's nonzero prefix, from
 //   a copy in shared memory, or from a tile in device memory where no
 //   block holds the copy (float64 at 8 slots on a stretched grid).
@@ -52,10 +62,10 @@
 // smem_bytes_mw() or smem_bytes_cl().  One library holds the three
 // kernels of one type and one number of level slots, or (KPP_MW=1, NS =
 // 4) of a column over several warps, or (KPP_MW=2, NS = 4) of a column
-// over a cluster.  Build:
+// over a cluster, in one layout (KPP_ZL=0 COL_LANES, 1 Z_LANES).  Build:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
 //        -shared -Xcompiler -fPIC -DKPP_REAL=float|double -DKPP_NS=3|4|6|8
-//        [-DKPP_MW=1|2]
+//        [-DKPP_MW=1|2] [-DKPP_ZL=1]
 // -fmad=false keeps each multiply and add rounded on its own, as the
 // unfused eager torch ops that the kernels are held against round them.
 #include <cuda_runtime.h>
@@ -70,6 +80,9 @@
 #endif
 #ifndef KPP_MW
 #define KPP_MW 0
+#endif
+#ifndef KPP_ZL
+#define KPP_ZL 0
 #endif
 
 namespace kpp {
@@ -88,18 +101,18 @@ template <> struct MinBlocks<float, 3> { static constexpr int value = 2; };
 static_assert(CW_MAX == MAX_WARPS, "a column's warps fill at most a block");
 static_assert(!KPP_MW || KPP_NS == MW_NS, "a column over warps has 4 slots");
 
-template <typename T, bool FULL, int NS, Spread MW>
+template <typename T, bool FULL, int NS, Spread MW, Layout L>
 __global__ void __launch_bounds__(MAX_WARPS * 32, MinBlocks<T, NS>::value)
 fused_pass_kernel(PassParams P, Geometry G, Inputs<T> in, Outputs<T> out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  pass_block<T, FULL, NS, MW>(P, G, in, out, smem_raw);
+  pass_block<T, FULL, NS, MW, L>(P, G, in, out, smem_raw);
 }
 
-template <typename T, int NS, Spread MW>
+template <typename T, int NS, Spread MW, Layout L>
 __global__ void __launch_bounds__(MAX_WARPS * 32, MinBlocks<T, NS>::value)
 fused_step_kernel(PassParams P, Geometry G, Inputs<T> in, Outputs<T> out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  step_block<T, NS, MW>(P, G, in, out, smem_raw);
+  step_block<T, NS, MW, L>(P, G, in, out, smem_raw);
 }
 
 // the checks of one launch's geometry against this library's kernels
@@ -211,6 +224,8 @@ using Real = KPP_REAL;
 constexpr int NSL = KPP_NS;   // the level slots of this library's kernels
 // ... whose column spreads over one warp, a block's warps or a cluster
 constexpr kpp::Spread MWL = kpp::Spread(KPP_MW);
+// ... which take their arrays in this layout
+constexpr kpp::Layout LAYOUT = kpp::Layout(KPP_ZL);
 
 static void unpack(const void* ins, const void* outs, int n_out,
                    Inputs<Real>* in, Outputs<Real>* out) {
@@ -229,6 +244,9 @@ extern "C" {
 // element size of the build, for the wrapper's dtype check
 int kpp_real_bytes() { return int(sizeof(Real)); }
 
+// the layout of the build (the JAX package's zaxis), for the wrapper's check
+int kpp_zaxis() { return int(LAYOUT); }
+
 // the levels this library's kernels cover (32 x its level slots, times
 // the most warps of a block in the MW libraries, times the most blocks of
 // a cluster in the CLUSTER one)
@@ -244,11 +262,11 @@ int kpp_max_clusters(int kind, const void* geom) {
   const Geometry& G = *static_cast<const Geometry*>(geom);
   if (kind == 0)
     return kpp::max_clusters(
-        kpp::fused_pass_kernel<Real, false, NSL, MWL>, G);
+        kpp::fused_pass_kernel<Real, false, NSL, MWL, LAYOUT>, G);
   if (kind == 1)
     return kpp::max_clusters(
-        kpp::fused_pass_kernel<Real, true, NSL, MWL>, G);
-  return kpp::max_clusters(kpp::fused_step_kernel<Real, NSL, MWL>, G);
+        kpp::fused_pass_kernel<Real, true, NSL, MWL, LAYOUT>, G);
+  return kpp::max_clusters(kpp::fused_step_kernel<Real, NSL, MWL, LAYOUT>, G);
 }
 #endif
 
@@ -277,10 +295,12 @@ int kpp_fused_pass(int full, const void* ins, const void* outs,
   Outputs<Real> out;
   unpack(ins, outs, full ? 23 : 9, &in, &out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return full ? kpp::launch(kpp::fused_pass_kernel<Real, true, NSL, MWL>, P,
-                            G, st, in, out)
-              : kpp::launch(kpp::fused_pass_kernel<Real, false, NSL, MWL>, P,
-                            G, st, in, out);
+  return full ? kpp::launch(
+                    kpp::fused_pass_kernel<Real, true, NSL, MWL, LAYOUT>, P,
+                    G, st, in, out)
+              : kpp::launch(
+                    kpp::fused_pass_kernel<Real, false, NSL, MWL, LAYOUT>, P,
+                    G, st, in, out);
 }
 
 // ins: the step's 21 inputs placed in the pass slots (ux..sx repeat
@@ -293,7 +313,7 @@ int kpp_fused_step(const void* ins, const void* outs, const void* params,
   Inputs<Real> in;
   Outputs<Real> out;
   unpack(ins, outs, 9, &in, &out);
-  return kpp::launch(kpp::fused_step_kernel<Real, NSL, MWL>, P, G,
+  return kpp::launch(kpp::fused_step_kernel<Real, NSL, MWL, LAYOUT>, P, G,
                      static_cast<cudaStream_t>(stream), in, out);
 }
 

@@ -3,11 +3,17 @@
 // Twins of _pass_body and _step_body in mckpp_torch/ops/fused_pass.py,
 // which are the plain versions these kernels are held against.
 //
-// Layout in device memory: every profile is (WZ, ncol) row-major, WZ = nz+2;
-// element (k, col) is at k * ncol + col.  A block of W warps takes W
-// consecutive columns and stages their (WZ x W) input tiles through shared
-// memory (each level row of a profile is one run of W values, read and
-// written whole), and its outputs the same way back.
+// Layout in device memory, the template parameter L of the staging (the
+// JAX package's zaxis; WZ = nz + 2): COL_LANES (zaxis = 0) holds every
+// profile as (WZ, ncol) row-major, element (k, col) at k * ncol + col;
+// Z_LANES (zaxis = 1) as (ncol, WZ), element (k, col) at col * WZ + k, the
+// state's own order.  A block of W warps takes W consecutive columns and
+// stages their inputs through shared memory, and its outputs the same way
+// back: in COL_LANES each level row of a profile is one run of W values,
+// read and written whole; in Z_LANES the W columns are one run of W * WZ
+// values, and each warp stages its own column, lane k % 32 on level k, so
+// a warp's access is 32 consecutive values.  Only the staging reads L: the
+// body, the grid rows and aref are the same in both layouts.
 //
 // Levels on lanes: level k of the warp's column sits on lane k % 32, slot
 // k / 32.  The number of slots NS is a template parameter of every
@@ -126,6 +132,12 @@ constexpr int MAXWZ = ONE_BLOCK_WZ * CB_MAX;  // levels a column covers (8192)
 // how a column's levels spread: over one warp's lanes, over the warps of
 // one block (the "cw" library), over the blocks of a cluster ("cl")
 enum Spread { WARP = 0, BLOCK = 1, CLUSTER = 2 };
+// how a launch's arrays lie in device memory (the header above): a
+// profile (WZ, ncol) or (ncol, WZ), colscal (NSC, ncol) or (ncol, NSC),
+// the column outputs (8 or 16, ncol) or (ncol, 8 or 16); the grid rows,
+// aref and the row extents lie alike in both (the wrapper hands Z_LANES'
+// aref over as COL_LANES passes it, transposed once per tensor)
+enum Layout { COL_LANES = 0, Z_LANES = 1 };
 
 #ifdef __CUDACC__
 // the cluster's barrier (arrive has release and wait acquire semantics at
@@ -1500,12 +1512,16 @@ KPP_DEV void step_warp(const PassParams& P, const Grid<T>& g,
 
 // ---- the block: stage the columns' inputs, run each column, write the
 // ---- outputs back ----------------------------------------------------------
-// One warp a column: a block of W warps takes W consecutive columns, and
-// each level row of a profile moves as one run of W values (coalesced).
-// A column over CW warps (MW): a block is one column, whose threads stage
-// its rows, level k on thread k % (32 CW).  A column over a cluster
-// (CLUSTER): block r stages the levels lo = r LB .. of the column's rows,
-// level lo + k on thread k % (32 CW), and every block the colscal rows.
+// One warp a column: a block of W warps takes W consecutive columns; in
+// COL_LANES each level row of a profile moves as one run of W values, in
+// Z_LANES warp j moves its own column's levels, lane k % 32 on level k
+// (coalesced in both).  A column over CW warps (MW): a block is one
+// column, whose threads stage its rows, level k on thread k % (32 CW).  A
+// column over a cluster (CLUSTER): block r stages the levels lo = r LB ..
+// of the column's rows, level lo + k on thread k % (32 CW), and every
+// block the colscal rows.  In Z_LANES a column's levels are contiguous, so
+// the MW and CLUSTER staging reads runs of consecutive values where
+// COL_LANES reads one value a level at stride ncol.
 
 template <typename T, int NS, Spread MW> struct Block {
   Grid<T> g;
@@ -1557,15 +1573,21 @@ KPP_DEV int block_lo(const Geometry& G, int LZ) {
   return LZ * int(blockIdx.x % G.cb);
 }
 
-// rows k0 + 32 m (MW: k0 + kstep m) of one input profile, through the
-// read-only path
-template <Spread MW, typename T, int NS>
-KPP_DEV void fetch(const Stager& st, const T* src, int rows, int ncol,
+// rows k0 + 32 m (MW: k0 + kstep m) of one input array, through the
+// read-only path; ``stride`` is the distance of its rows (COL_LANES:
+// ncol) or of its columns (Z_LANES: WZ for a profile, NSC for colscal)
+template <Spread MW, Layout L, typename T, int NS>
+KPP_DEV void fetch(const Stager& st, const T* src, int rows, int stride,
                    T (&v)[NS]) {
   KPP_FOR_Q {
     const int k = st.k0 + (MW ? st.kstep : 32) * q;
-    v[q] = (st.col_ok && k < rows) ? __ldg(src + size_t(k) * ncol + st.col)
-                                   : T(0);
+    if constexpr (L == Z_LANES)
+      v[q] = (st.col_ok && k < rows) ? __ldg(src + st.col * stride + k)
+                                     : T(0);
+    else
+      v[q] = (st.col_ok && k < rows) ? __ldg(src + size_t(k) * stride
+                                             + st.col)
+                                     : T(0);
   }
 }
 
@@ -1577,12 +1599,18 @@ KPP_DEV void stash(const Stager& st, T* dst, int rows, const T (&v)[NS]) {
   }
 }
 
-template <int NS, Spread MW, typename T>
+// rows k0 + 32 m (MW: k0 + kstep m) of one output array (``stride`` as
+// in fetch: ncol, or WZ for a profile and 8 or 16 for the column outputs)
+template <int NS, Spread MW, Layout L, typename T>
 KPP_DEV void stage_out(const Stager& st, T* dst, const T* src, int rows,
-                       int ncol) {
+                       int stride) {
   KPP_FOR_Q {
     const int k = st.k0 + (MW ? st.kstep : 32) * q;
-    if (st.col_ok && k < rows) dst[size_t(k) * ncol + st.col] = src[k];
+    if constexpr (L == Z_LANES) {
+      if (st.col_ok && k < rows) dst[st.col * stride + k] = src[k];
+    } else {
+      if (st.col_ok && k < rows) dst[size_t(k) * stride + st.col] = src[k];
+    }
   }
 }
 
@@ -1590,7 +1618,7 @@ KPP_DEV void stage_out(const Stager& st, T* dst, const T* src, int rows,
 // lo + LZ - 1 of each profile into its slots, the colscal rows into the
 // column values, as every block does) and its levels' row extents; aref
 // and the grid rows are read from device memory
-template <typename T, bool STEP, int NS>
+template <typename T, bool STEP, int NS, Layout L>
 KPP_DEV Block<T, NS, CLUSTER> load_cluster(const PassParams& P,
                                            const Geometry& G,
                                            const Inputs<T>& in,
@@ -1601,9 +1629,10 @@ KPP_DEV Block<T, NS, CLUSTER> load_cluster(const PassParams& P,
   const int tid = threadIdx.x, nt = blockDim.x;
   const int wz = P.wz, nc = P.ncol, lzc = LZ * G.cb;
   // this block's first level; its slice of every profile starts lo rows
-  // down
+  // down (Z_LANES: lo values into each column); ps: the profiles' stride
   const int lo = block_lo(G, LZ);
-  const size_t off = size_t(lo) * nc;
+  const size_t off = L == Z_LANES ? size_t(lo) : size_t(lo) * nc;
+  const int ps = L == Z_LANES ? wz : nc;
   const T* gt = in.grid_t;         // the tile of the column's levels
   b.g.zm = gt;
   b.g.hm = gt + lzc;
@@ -1628,9 +1657,9 @@ KPP_DEV Block<T, NS, CLUSTER> load_cluster(const PassParams& P,
 #pragma unroll
   for (int i = 0; i < NPROF; ++i) {
     const int src = i < NFIRST ? IN_U + i : IN_UO + (i - NFIRST);
-    fetch<CLUSTER>(st, in.p[src] + off, wz - lo, nc, v[i]);
+    fetch<CLUSTER, L>(st, in.p[src] + off, wz - lo, ps, v[i]);
   }
-  fetch<CLUSTER>(st, in.p[IN_COLSCAL], NSC, nc, cs);
+  fetch<CLUSTER, L>(st, in.p[IN_COLSCAL], NSC, L == Z_LANES ? NSC : nc, cs);
 #pragma unroll
   for (int i = 0; i < NPROF; ++i) {
     const int slot = i < NFIRST ? B_U + i : B_UO + (i - NFIRST);
@@ -1643,7 +1672,7 @@ KPP_DEV Block<T, NS, CLUSTER> load_cluster(const PassParams& P,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     if (!fon[i]) continue;
-    fetch<CLUSTER>(st, in.p[IN_OCNT + i] + off, wz - lo, nc, v[i]);
+    fetch<CLUSTER, L>(st, in.p[IN_OCNT + i] + off, wz - lo, ps, v[i]);
     stash<CLUSTER>(st, wb + fslot[i] * LZ, wz - lo, v[i]);
   }
   *st_out = st;
@@ -1655,12 +1684,12 @@ KPP_DEV Block<T, NS, CLUSTER> load_cluster(const PassParams& P,
 // (profiles into their slots, colscal into the column values).  The loads
 // of the profiles every launch stages are all issued before their stores
 // to shared memory, so they are in flight together.
-template <typename T, bool STEP, int NS, Spread MW>
+template <typename T, bool STEP, int NS, Spread MW, Layout L>
 KPP_DEV Block<T, NS, MW> load_block(const PassParams& P, const Geometry& G,
                                     const Inputs<T>& in, unsigned char* raw,
                                     Stager* st_out) {
   if constexpr (MW == CLUSTER)
-    return load_cluster<T, STEP, NS>(P, G, in, raw, st_out);
+    return load_cluster<T, STEP, NS, L>(P, G, in, raw, st_out);
   const int LZ = MW ? 32 * NS * G.cw : 32 * NS;
   Block<T, NS, MW> b = block_view<T, NS, MW>(G, raw);
   const int tid = threadIdx.x, nt = blockDim.x, W = MW ? 1 : G.warps;
@@ -1698,8 +1727,13 @@ KPP_DEV Block<T, NS, MW> load_block(const PassParams& P, const Geometry& G,
     }
   }
   Stager st;
-  st.j = tid % W;
-  st.k0 = tid / W;
+  if constexpr (L == Z_LANES && MW == WARP) {   // warp j: its own column
+    st.j = tid >> 5;
+    st.k0 = tid & 31;
+  } else {
+    st.j = tid % W;
+    st.k0 = tid / W;
+  }
   st.kstep = nt;
   st.col = size_t(blockIdx.x) * W + st.j;
   st.col_ok = st.col < size_t(nc);
@@ -1711,9 +1745,9 @@ KPP_DEV Block<T, NS, MW> load_block(const PassParams& P, const Geometry& G,
 #pragma unroll
   for (int i = 0; i < NPROF; ++i) {
     const int src = i < NFIRST ? IN_U + i : IN_UO + (i - NFIRST);
-    fetch<MW>(st, in.p[src], wz, nc, v[i]);
+    fetch<MW, L>(st, in.p[src], wz, L == Z_LANES ? wz : nc, v[i]);
   }
-  fetch<MW>(st, in.p[IN_COLSCAL], NSC, nc, cs);
+  fetch<MW, L>(st, in.p[IN_COLSCAL], NSC, L == Z_LANES ? NSC : nc, cs);
 #pragma unroll
   for (int i = 0; i < NPROF; ++i) {
     const int slot = i < NFIRST ? B_U + i : B_UO + (i - NFIRST);
@@ -1727,7 +1761,7 @@ KPP_DEV Block<T, NS, MW> load_block(const PassParams& P, const Geometry& G,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     if (!fon[i]) continue;
-    fetch<MW>(st, in.p[IN_OCNT + i], wz, nc, v[i]);
+    fetch<MW, L>(st, in.p[IN_OCNT + i], wz, L == Z_LANES ? wz : nc, v[i]);
     stash<MW>(st, wb + fslot[i] * LZ, wz, v[i]);
   }
   *st_out = st;
@@ -1770,41 +1804,46 @@ KPP_DEV bool has_column(const PassParams& P, const Geometry& G, int wi) {
 // CLUSTER: write this block's levels lo.. of the outputs (the full
 // pass's, or the fast pass's and the step's 8), and from block 0 (lo =
 // 0) the column values
-template <typename T, bool FULL, int NS>
+template <typename T, bool FULL, int NS, Layout L>
 KPP_DEV void store_cluster(const PassParams& P, const Geometry& G,
                            const Stager& st, const Block<T, NS, CLUSTER>& b,
                            const Outputs<T>& out) {
   const int LZ = 32 * NS * G.cw, lo = block_lo(G, LZ);
   const int wz = P.wz - lo, nc = P.ncol, ncv = lo ? 0 : FULL ? 16 : 8;
-  const size_t off = size_t(lo) * nc;
+  const size_t off = L == Z_LANES ? size_t(lo) : size_t(lo) * nc;
+  // the profiles' and the column outputs' strides
+  const int ps = L == Z_LANES ? P.wz : nc;
+  const int cvs = L == Z_LANES ? (FULL ? 16 : 8) : nc;
   const T* wb = b.cols;
   if (FULL) {
 #pragma unroll
     for (int i = 0; i < 4 + N_FO; ++i) {
       if (i == 4 + FO_COLOUT)
-        stage_out<NS, CLUSTER>(st, out.p[i], wb + NB * LZ + NSC, ncv, nc);
+        stage_out<NS, CLUSTER, L>(st, out.p[i], wb + NB * LZ + NSC, ncv,
+                                  cvs);
       else
-        stage_out<NS, CLUSTER>(st, out.p[i] + off, wb + full_slot(i) * LZ,
-                               wz, nc);
+        stage_out<NS, CLUSTER, L>(st, out.p[i] + off,
+                                  wb + full_slot(i) * LZ, wz, ps);
     }
   } else {
 #pragma unroll
     for (int i = 0; i < 8; ++i)
-      stage_out<NS, CLUSTER>(st, out.p[i] + off, wb + (B_U + i) * LZ, wz,
-                             nc);
-    stage_out<NS, CLUSTER>(st, out.p[8], wb + NB * LZ + NSC, ncv, nc);
+      stage_out<NS, CLUSTER, L>(st, out.p[i] + off, wb + (B_U + i) * LZ, wz,
+                                ps);
+    stage_out<NS, CLUSTER, L>(st, out.p[8], wb + NB * LZ + NSC, ncv, cvs);
   }
 }
 
 // fused pass over one block of columns (the body of fused_pass_kernel)
-template <typename T, bool FULL, int NS, Spread MW>
+template <typename T, bool FULL, int NS, Spread MW, Layout L = COL_LANES>
 KPP_DEV void pass_block(const PassParams& P, const Geometry& G,
                         const Inputs<T>& in, const Outputs<T>& out,
                         unsigned char* raw) {
   const int LZ = MW ? 32 * NS * G.cw : 32 * NS;
   KPP_CLOCK(kpp_b0);
   Stager st;
-  const Block<T, NS, MW> b = load_block<T, false, NS, MW>(P, G, in, raw, &st);
+  const Block<T, NS, MW> b = load_block<T, false, NS, MW, L>(P, G, in, raw,
+                                                             &st);
   if constexpr (MW == CLUSTER)
     cl_sync();
   else
@@ -1857,7 +1896,7 @@ KPP_DEV void pass_block(const PassParams& P, const Geometry& G,
     __syncthreads();
   KPP_BMARK(12);   // waiting for the block's slowest warp
   if constexpr (MW == CLUSTER) {
-    store_cluster<T, FULL>(P, G, st, b, out);
+    store_cluster<T, FULL, NS, L>(P, G, st, b, out);
   } else {
   const int wz = P.wz, nc = P.ncol;
   const T* wb = b.cols + st.j * warp_stride(NS);
@@ -1865,29 +1904,34 @@ KPP_DEV void pass_block(const PassParams& P, const Geometry& G,
 #pragma unroll
     for (int i = 0; i < 4 + N_FO; ++i) {
       if (i == 4 + FO_COLOUT)
-        stage_out<NS, MW>(st, out.p[i], wb + NB * LZ + NSC, 16, nc);
+        stage_out<NS, MW, L>(st, out.p[i], wb + NB * LZ + NSC, 16,
+                             L == Z_LANES ? 16 : nc);
       else
-        stage_out<NS, MW>(st, out.p[i], wb + full_slot(i) * LZ, wz, nc);
+        stage_out<NS, MW, L>(st, out.p[i], wb + full_slot(i) * LZ, wz,
+                             L == Z_LANES ? wz : nc);
     }
   } else {
 #pragma unroll
     for (int i = 0; i < 8; ++i)
-      stage_out<NS, MW>(st, out.p[i], wb + (B_U + i) * LZ, wz, nc);
-    stage_out<NS, MW>(st, out.p[8], wb + NB * LZ + NSC, 8, nc);
+      stage_out<NS, MW, L>(st, out.p[i], wb + (B_U + i) * LZ, wz,
+                           L == Z_LANES ? wz : nc);
+    stage_out<NS, MW, L>(st, out.p[8], wb + NB * LZ + NSC, 8,
+                         L == Z_LANES ? 8 : nc);
   }
   }
   KPP_BMARK(13);   // write-back
 }
 
 // whole step over one block of columns (the body of fused_step_kernel)
-template <typename T, int NS, Spread MW>
+template <typename T, int NS, Spread MW, Layout L = COL_LANES>
 KPP_DEV void step_block(const PassParams& P, const Geometry& G,
                         const Inputs<T>& in, const Outputs<T>& out,
                         unsigned char* raw) {
   const int LZ = MW ? 32 * NS * G.cw : 32 * NS;
   KPP_CLOCK(kpp_b0);
   Stager st;
-  const Block<T, NS, MW> b = load_block<T, true, NS, MW>(P, G, in, raw, &st);
+  const Block<T, NS, MW> b = load_block<T, true, NS, MW, L>(P, G, in, raw,
+                                                            &st);
   if constexpr (MW == CLUSTER)
     cl_sync();
   else
@@ -1905,14 +1949,16 @@ KPP_DEV void step_block(const PassParams& P, const Geometry& G,
     __syncthreads();
   KPP_BMARK(12);   // waiting for the block's slowest warp
   if constexpr (MW == CLUSTER) {
-    store_cluster<T, false>(P, G, st, b, out);
+    store_cluster<T, false, NS, L>(P, G, st, b, out);
   } else {
   const int wz = P.wz, nc = P.ncol;
   const T* wb = b.cols + st.j * warp_stride(NS);
 #pragma unroll
   for (int i = 0; i < 8; ++i)
-    stage_out<NS, MW>(st, out.p[i], wb + (B_U + i) * LZ, wz, nc);
-  stage_out<NS, MW>(st, out.p[8], wb + NB * LZ + NSC, 8, nc);
+    stage_out<NS, MW, L>(st, out.p[i], wb + (B_U + i) * LZ, wz,
+                         L == Z_LANES ? wz : nc);
+  stage_out<NS, MW, L>(st, out.p[8], wb + NB * LZ + NSC, 8,
+                       L == Z_LANES ? 8 : nc);
   }
   KPP_BMARK(13);   // write-back
 }

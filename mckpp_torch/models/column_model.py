@@ -58,10 +58,9 @@ class KppModel:
         self.device = resolve_device(device)
         self.dtype = model_dtype(cfg)
         ph = cfg.physics
-        if ph.pass_layout != "col_lanes":
-            raise NotImplementedError(
-                f"pass_layout={ph.pass_layout!r}: only 'col_lanes' is "
-                "carried over to mckpp_torch")
+        if ph.pass_layout not in ("col_lanes", "z_lanes"):
+            raise ValueError(f"pass_layout={ph.pass_layout!r}: "
+                             "'col_lanes' or 'z_lanes'")
         on_cuda = self.device.type == "cuda"
         self.pass_impl = self._resolve_pass_impl(ph, on_cuda)
         if ph.wscale_mode == "auto":

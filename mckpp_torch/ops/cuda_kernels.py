@@ -55,12 +55,22 @@ distributed shared memory between cluster barriers; ``aref`` and the grid
 rows are always read from device memory.  A geometry of which the card
 cannot hold one cluster raises; nothing falls back.
 
+Both layouts of the JAX package (``kw["zaxis"]``, ``pass_layout``): 0
+("col_lanes"), profiles ``(nz + 2, ncol)``, and 1 ("z_lanes"), profiles
+``(ncol, nz + 2)`` as the state holds them.  Each has its own build of
+every library (``-DKPP_ZL``): only the staging between device and shared
+memory differs (``csrc/fused_pass.cuh``), so the bytes, the operations
+and the bounds are the same; the z_lanes ``aref`` reaches the kernels
+transposed into the col_lanes form, once per tensor (:func:`_kernel_aref`).
+:func:`_check` takes the layout from the wrapper, never from a shape, and
+raises on arrays of the other layout.
+
 A wrapper called with CPU tensors runs the plain torch body
 (``ops/fused_pass.py``); with CUDA tensors it launches its kernel or
 raises.  The kernels are built by ``nvcc`` from the sources in ``csrc/``
-on first use, into ``mckpp_torch/_build/``: one library for each dtype
-and number of level slots, and one for each dtype of the multi-warp and
-of the cluster kernels (``LIBS``).
+on first use, into ``mckpp_torch/_build/``: one library for each dtype,
+layout and number of level slots, and one for each dtype and layout of
+the multi-warp and of the cluster kernels (``LIBS``).
 """
 
 from __future__ import annotations
@@ -103,7 +113,7 @@ MW = "cw"              # the library of a column over several warps
 MW_NS = 4              # ... its level slots a lane: 128 levels a warp
 CL = "cl"              # the library of a column over a cluster of blocks
 CB_MAX = 8             # ... its blocks at most (the portable cluster size)
-LIBS = SLOTS + (MW, CL)   # the libraries of one dtype
+LIBS = SLOTS + (MW, CL)   # the libraries of one dtype and layout
 ONE_WARP_WZ = 32 * SLOTS[-1]      # the most levels one warp takes (256)
 ONE_BLOCK_WZ = 32 * MW_NS * WARPS  # ... one block takes (1024)
 MAXWZ = ONE_BLOCK_WZ * CB_MAX     # the most levels (nz + 2) a kernel takes
@@ -140,23 +150,27 @@ def _source_hash() -> str:
     return h.hexdigest()[:16]
 
 
-def _lib_tag(lib) -> str:
-    return lib if lib in (MW, CL) else f"ns{lib}"
+def _lib_tag(lib, zaxis=0) -> str:
+    """"ns3" .. "ns8", "cw" or "cl", then "_zl" for the z_lanes build."""
+    tag = lib if lib in (MW, CL) else f"ns{lib}"
+    return tag + ("_zl" if zaxis else "")
 
 
-def _lib_path(dtype, lib, phases=False) -> str:
+def _lib_path(dtype, lib, phases=False, zaxis=0) -> str:
     tag = "_phases" if phases else ""
-    return os.path.join(_BUILD, f"libkpp_{_REALS[dtype]}_{_lib_tag(lib)}"
-                                f"{tag}_{_source_hash()}.so")
+    return os.path.join(_BUILD, f"libkpp_{_REALS[dtype]}_"
+                                f"{_lib_tag(lib, zaxis)}{tag}_"
+                                f"{_source_hash()}.so")
 
 
 def build(dtypes=(torch.float32, torch.float64), phases=False,
-          slots=LIBS) -> dict:
-    """Compile the kernels for ``dtypes`` and the libraries ``slots`` (level
-    slots of the one-warp kernels, or ``MW``; one nvcc process per
-    library, all run together) unless an up-to-date library exists.
-    Returns {(dtype, lib): ptxas report} for the libraries built by this
-    call.  ``phases`` builds the library with the stage clocks of
+          slots=LIBS, zaxes=(0,)) -> dict:
+    """Compile the kernels for ``dtypes``, the libraries ``slots`` (level
+    slots of the one-warp kernels, or ``MW`` or ``CL``) and the layouts
+    ``zaxes`` (0 col_lanes, the default, or 1 z_lanes; one nvcc process
+    per library, all run together) unless an up-to-date library exists.
+    Returns {(dtype, lib, zaxis): ptxas report} for the libraries built
+    by this call.  ``phases`` builds the library with the stage clocks of
     ``csrc/fused_pass.cuh`` on (``-DKPP_PHASES``, for chip_phases.py)
     under its own name; the port itself always loads the one without.
     Several processes (the ranks of a distributed run) may build into one
@@ -164,20 +178,22 @@ def build(dtypes=(torch.float32, torch.float64), phases=False,
     os.makedirs(_BUILD, exist_ok=True)
     procs = {}
     for dt in dtypes:
-        for ns in slots:
-            out = _lib_path(dt, ns, phases)
-            if os.path.exists(out):
-                continue
-            tmp = tmp_name(out)
-            spread = {MW: 1, CL: 2}.get(ns)
-            lib_flags = ([f"-DKPP_NS={MW_NS}", f"-DKPP_MW={spread}"]
-                         if spread else [f"-DKPP_NS={ns}"])
-            cmd = [_nvcc(), *NVCC_FLAGS, f"-DKPP_REAL={_REALS[dt]}",
-                   *lib_flags, *(["-DKPP_PHASES"] if phases else []),
-                   "-o", tmp, os.path.join(_CSRC, "fused_kernels.cu")]
-            procs[dt, ns] = (out, tmp, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True))
+        for zaxis in zaxes:
+            for ns in slots:
+                out = _lib_path(dt, ns, phases, zaxis)
+                if os.path.exists(out):
+                    continue
+                tmp = tmp_name(out)
+                spread = {MW: 1, CL: 2}.get(ns)
+                lib_flags = ([f"-DKPP_NS={MW_NS}", f"-DKPP_MW={spread}"]
+                             if spread else [f"-DKPP_NS={ns}"])
+                cmd = [_nvcc(), *NVCC_FLAGS, f"-DKPP_REAL={_REALS[dt]}",
+                       *lib_flags, f"-DKPP_ZL={zaxis}",
+                       *(["-DKPP_PHASES"] if phases else []),
+                       "-o", tmp, os.path.join(_CSRC, "fused_kernels.cu")]
+                procs[dt, ns, zaxis] = (out, tmp, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True))
     reports, failed = {}, []
     for key, (out, tmp, p) in procs.items():
         log, _ = p.communicate()
@@ -185,7 +201,7 @@ def build(dtypes=(torch.float32, torch.float64), phases=False,
             if os.path.exists(tmp):
                 os.remove(tmp)
             failed.append(f"nvcc failed for {_REALS[key[0]]}, "
-                          f"{_lib_tag(key[1])}:\n{log}")
+                          f"{_lib_tag(key[1], key[2])}:\n{log}")
             continue
         os.replace(tmp, out)
         reports[key] = log
@@ -194,21 +210,22 @@ def build(dtypes=(torch.float32, torch.float64), phases=False,
     return reports
 
 
-def _lib(dtype, ns):
+def _lib(dtype, ns, zaxis=0):
     with _lock:
-        lib = _libs.get((dtype, ns))
+        lib = _libs.get((dtype, ns, zaxis))
         if lib is None:
-            lib = load(dtype, ns)
-            _libs[dtype, ns] = lib
+            lib = load(dtype, ns, zaxis=zaxis)
+            _libs[dtype, ns, zaxis] = lib
         return lib
 
 
-def load(dtype, ns, phases=False):
+def load(dtype, ns, phases=False, zaxis=0):
     """The kernel library for ``dtype`` at ``ns`` level slots (or ``MW``
-    or ``CL``), built if missing (``phases``: see :func:`build`)."""
-    path = _lib_path(dtype, ns, phases)
+    or ``CL``) in layout ``zaxis``, built if missing (``phases``: see
+    :func:`build`)."""
+    path = _lib_path(dtype, ns, phases, zaxis)
     if not os.path.exists(path):
-        build((dtype,), phases, slots=(ns,))
+        build((dtype,), phases, slots=(ns,), zaxes=(zaxis,))
     lib = ctypes.CDLL(path)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.kpp_fused_pass.argtypes = [ci, vp, vp, vp, vp, vp]
@@ -217,6 +234,7 @@ def load(dtype, ns, phases=False):
     lib.kpp_fused_step.restype = ci
     lib.kpp_real_bytes.restype = ci
     lib.kpp_max_wz.restype = ci
+    lib.kpp_zaxis.restype = ci
     if ns == CL:
         lib.kpp_max_clusters.argtypes = [ci, vp]
         lib.kpp_max_clusters.restype = ci
@@ -230,6 +248,8 @@ def load(dtype, ns, phases=False):
     if lib.kpp_max_wz() != want:
         raise RuntimeError(f"{path}: {lib.kpp_max_wz()} levels, expected "
                            f"{want}")
+    if lib.kpp_zaxis() != zaxis:
+        raise RuntimeError(f"{path} was built for zaxis={lib.kpp_zaxis()}")
     return lib
 
 
@@ -286,17 +306,27 @@ def _params(kw: dict, ncol: int) -> PassParams:
 
 def _check(arrays, kw, n_prof):
     """Device, dtype, shape and contiguity of the inputs; returns
-    (ncol, dtype).  ``n_prof`` leading arrays are (WZ, ncol) profiles."""
+    (ncol, dtype).  ``n_prof`` leading arrays are profiles, (WZ, ncol)
+    with ``kw["zaxis"]`` 0 and (ncol, WZ) with 1: the layout is the
+    wrapper's, never inferred from a shape (ncol may equal WZ), and the
+    grid rows, (WZ, 1) or (1, WZ), tell the layouts apart at any ncol."""
     nz = kw["nz"]
     wz = nz + 2
+    zaxis = kw.get("zaxis", 0)
+    if zaxis not in (0, 1):
+        raise ValueError(f"zaxis={zaxis!r}: 0 or 1")
+    # the shape of a (rows x columns) array in this layout
+    shape = (lambda rows, n: (n, rows)) if zaxis else (lambda rows, n:
+                                                       (rows, n))
     u = arrays[0]
     dtype, dev = u.dtype, u.device
     if dtype not in _REALS:
         raise TypeError(f"fused kernels take float32 or float64, not {dtype}")
-    if u.dim() != 2 or u.shape[0] != wz:
-        raise ValueError(f"profiles must be (nz+2={wz}, ncol), got "
+    if u.dim() != 2 or u.shape[zaxis] != wz:
+        raise ValueError(f"zaxis={zaxis}: profiles must be "
+                         f"{shape(f'nz+2={wz}', 'ncol')}, got "
                          f"{tuple(u.shape)}")
-    ncol = u.shape[1]
+    ncol = u.shape[1 - zaxis]
     for i, a in enumerate(arrays):
         if a.device != dev or a.dtype != dtype:
             raise TypeError(f"input {i}: {a.device}/{a.dtype}, expected "
@@ -307,16 +337,22 @@ def _check(arrays, kw, n_prof):
     sw = n_prof              # index of swdk; then swfrac, the 4 forcing
     on = [True, True, flags.l_relax_ocnt, flags.l_relax_sal,
           flags.l_fcorr_withz, flags.l_sfcorr_withz]
-    # forcing profiles are (WZ, ncol) when their flag is on, else dummies
-    for i in list(range(n_prof)) + [sw + j for j in range(6) if on[j]]:
-        if tuple(arrays[i].shape) != (wz, ncol):
-            raise ValueError(f"input {i}: shape {tuple(arrays[i].shape)}, "
-                             f"expected {(wz, ncol)}")
-    if tuple(arrays[sw + 6].shape) != (fp.NSC, ncol):
-        raise ValueError(f"colscal must be ({fp.NSC}, ncol)")
+    # forcing profiles are profiles when their flag is on, else dummies
+    # (one grid row's shape, or a whole profile's)
+    for i in list(range(n_prof)) + [sw + j for j in range(6)]:
+        ok = [shape(wz, ncol)] + ([] if i < sw or on[i - sw]
+                                  else [shape(wz, 1)])
+        if tuple(arrays[i].shape) not in ok:
+            raise ValueError(f"zaxis={zaxis}: input {i} has shape "
+                             f"{tuple(arrays[i].shape)}, expected "
+                             f"{' or '.join(map(str, ok))}")
+    if tuple(arrays[sw + 6].shape) != shape(fp.NSC, ncol):
+        raise ValueError(f"zaxis={zaxis}: colscal must be "
+                         f"{shape(fp.NSC, ncol)}")
     for i in range(sw + 7, sw + 12):
-        if tuple(arrays[i].shape) != (wz, 1):
-            raise ValueError(f"grid row {i} must be ({wz}, 1)")
+        if tuple(arrays[i].shape) != shape(wz, 1):
+            raise ValueError(f"zaxis={zaxis}: grid row {i} must be "
+                             f"{shape(wz, 1)}")
     if tuple(arrays[sw + 12].shape) != (wz, wz):
         raise ValueError(f"aref must be ({wz}, {wz})")
     return ncol, dtype
@@ -448,12 +484,13 @@ def launch_geometry(nz: int, dtype, ncol: int,
     raise ValueError(f"{smem} bytes of shared memory exceed {SMEM_MAX}")
 
 
-def max_clusters(dtype, geom: Geometry, kernel: str) -> int:
+def max_clusters(dtype, geom: Geometry, kernel: str, zaxis=0) -> int:
     """cudaOccupancyMaxActiveClusters of ``kernel`` ("fused_pass_fast",
-    "fused_pass_full" or "fused_step") at a cluster geometry: the clusters
-    the card holds at once."""
+    "fused_pass_full" or "fused_step") in layout ``zaxis`` at a cluster
+    geometry: the clusters the card holds at once."""
     kind = ("fused_pass_fast", "fused_pass_full", "fused_step").index(kernel)
-    n = _lib(dtype, CL).kpp_max_clusters(kind, ctypes.addressof(geom))
+    n = _lib(dtype, CL, zaxis).kpp_max_clusters(kind,
+                                                ctypes.addressof(geom))
     if n < 0:
         raise RuntimeError(f"cudaOccupancyMaxActiveClusters: CUDA error {-n}")
     return n
@@ -489,6 +526,30 @@ def _ref_entry(aref: torch.Tensor) -> list:
     return entry
 
 
+# id(aref) -> [weak reference, its _version, its transpose]: a z_lanes
+# aref in the col_lanes form the kernels read, made once per tensor
+_kernel_arefs: dict = {}
+
+
+def _kernel_aref(aref: torch.Tensor, zaxis: int) -> torch.Tensor:
+    """The ``aref`` memory the kernels read in either layout: the col_lanes
+    one as given, the z_lanes one (``ref_avg(prof) = prof @ aref``)
+    transposed into that form, contiguous, once per tensor, so that both
+    layouts' kernels see the same memory and sum in the same k order (and
+    the caches keyed on it, :func:`_ref_entry`, hit on every launch)."""
+    if not zaxis:
+        return aref
+    hit = _kernel_arefs.get(id(aref))
+    if hit is None or hit[0]() is not aref or hit[1] != aref._version:
+        if len(_kernel_arefs) > 64:            # drop entries of dead tensors
+            for key in [k for k, v in _kernel_arefs.items()
+                        if v[0]() is None]:
+                del _kernel_arefs[key]
+        hit = [weakref.ref(aref), aref._version, aref.t().contiguous()]
+        _kernel_arefs[id(aref)] = hit
+    return hit[2]
+
+
 def _ref_extents(aref: torch.Tensor):
     """(row extents on aref's device, kref) of ``aref``, once per tensor."""
     return tuple(_ref_entry(aref)[2:4])
@@ -519,11 +580,11 @@ _grid_tiles: dict = {}
 
 
 def _grid_tile(arrays, pfx, l_advect: bool, lz: int) -> torch.Tensor:
-    """The grid rows zm, hm, dm, tdn, tup (the (nz + 2, 1) inputs before
-    aref) and the depth prefix, padded to ``lz`` levels as the kernels'
-    shared copy pads them (hm with 1, the others with 0, the prefix 0
-    without advection): the ``MW`` kernels read them from device memory
-    where their shared memory leaves no room (``Geometry.grid_dev``).
+    """The grid rows zm, hm, dm, tdn, tup (the (nz + 2, 1) or (1, nz + 2)
+    inputs before aref) and the depth prefix, padded to ``lz`` levels as
+    the kernels' shared copy pads them (hm with 1, the others with 0, the
+    prefix 0 without advection): the ``MW`` kernels read them from device
+    memory where their shared memory leaves no room (``Geometry.grid_dev``).
     Made once per set of row tensors (the prefix is a function of hm),
     width and advection flag."""
     rows = arrays[-6:-1]
@@ -539,11 +600,11 @@ def _grid_tile(arrays, pfx, l_advect: bool, lz: int) -> torch.Tensor:
         _grid_tiles[id(rows[1])] = hit
     key = (lz, bool(l_advect))
     if key not in hit[2]:
-        wz = rows[0].shape[0]
+        wz = rows[0].numel()
         tile = rows[0].new_zeros((6, lz))
         tile[1] = 1.0
         for i, r in enumerate(rows):
-            tile[i, :wz] = r[:, 0]
+            tile[i, :wz] = r.reshape(-1)
         if l_advect:
             tile[5, :wz] = pfx[:, 0]
         hit[2][key] = tile
@@ -587,6 +648,14 @@ def _raise_on(rc: int, name: str, geom=None):
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
 
+def _out_maker(kw, ncol, like):
+    """An output of ``rows`` values a column in the wrapper's layout:
+    (rows, ncol) for zaxis 0, (ncol, rows) for 1."""
+    zaxis = kw.get("zaxis", 0)
+    return lambda rows: torch.empty((ncol, rows) if zaxis else (rows, ncol),
+                                    dtype=like.dtype, device=like.device)
+
+
 def _ptrs(tensors):
     """The tensors' device pointers (None: a null pointer)."""
     return (ctypes.c_void_p * len(tensors))(
@@ -594,22 +663,25 @@ def _ptrs(tensors):
 
 
 def _launch_args(arrays, kw, ncol, dtype):
-    """The library, the extra inputs (depth prefix, aref row extents,
+    """The library, the inputs in the kernels' order (``arrays`` with
+    aref in its col_lanes form, then the depth prefix, aref row extents,
     aref's device tile or None, the grid rows' tile or None) and the
     launch geometry."""
     nz = kw["nz"]
-    aref = arrays[-1]
+    zaxis = kw.get("zaxis", 0)
+    aref = _kernel_aref(arrays[-1], zaxis)
     hi, kref = _ref_extents(aref)
     geom = launch_geometry(nz, dtype, ncol, kref)
-    lib = _lib(dtype, geom.lib)
-    hm = arrays[-5]
+    lib = _lib(dtype, geom.lib, zaxis)
+    # a grid row is the same memory in both layouts: (WZ, 1) or (1, WZ)
+    hm = arrays[-5].reshape(-1, 1)
     advect = kw["flags"].l_advect
     pfx = fp._depth_prefix(hm, nz).contiguous() if advect else hm
     tile = (_ref_tile(aref, geom.ns, geom.cw, geom.cb) if geom.aref_dev
             else None)
     grid = (_grid_tile(arrays, pfx, advect, geom.levels) if geom.grid_dev
             else None)
-    return lib, [pfx, hi, tile, grid], geom
+    return lib, list(arrays[:-1]) + [aref, pfx, hi, tile, grid], geom
 
 
 class FusedPass:
@@ -630,17 +702,16 @@ class FusedPass:
     def launch(self, *arrays):
         """Launch the kernel."""
         ncol, dtype = _check(arrays, self.kw, 12)
-        lib, extra, geom = _launch_args(arrays, self.kw, ncol, dtype)
+        lib, ins, geom = _launch_args(arrays, self.kw, ncol, dtype)
         wz = self.kw["nz"] + 2
-        dev = arrays[0].device
-        mk = lambda rows: torch.empty((rows, ncol), dtype=dtype, device=dev)
+        mk = _out_maker(self.kw, ncol, arrays[0])
         if self.full:
             outs = [mk(wz) for _ in range(4)] + [mk(16)] + \
                    [mk(wz) for _ in range(18)]
         else:
             outs = [mk(wz) for _ in range(8)] + [mk(8)]
-        ins = list(arrays) + extra
         params = _params(self.kw, ncol)
+        dev = arrays[0].device
         pin, pout = _ptrs(ins), _ptrs(outs)   # alive across the call
         rc = lib.kpp_fused_pass(int(self.full), ctypes.addressof(pin),
                                 ctypes.addressof(pout),
@@ -670,15 +741,14 @@ class FusedStep:
     def launch(self, *arrays):
         """Launch the kernel."""
         ncol, dtype = _check(arrays, self.kw, 8)
-        lib, extra, geom = _launch_args(arrays, self.kw, ncol, dtype)
+        lib, ins, geom = _launch_args(arrays, self.kw, ncol, dtype)
         wz = self.kw["nz"] + 2
-        dev = arrays[0].device
-        outs = [torch.empty((wz, ncol), dtype=dtype, device=dev)
-                for _ in range(8)]
-        outs.append(torch.empty((8, ncol), dtype=dtype, device=dev))
+        mk = _out_maker(self.kw, ncol, arrays[0])
+        outs = [mk(wz) for _ in range(8)] + [mk(8)]
         # the pass slots: u0..s0 stand in for ux..sx (unused by the step)
-        ins = list(arrays[:4]) + list(arrays[:4]) + list(arrays[4:]) + extra
+        ins = ins[:4] + ins
         params = _params(self.kw, ncol)
+        dev = arrays[0].device
         pin, pout = _ptrs(ins), _ptrs(outs)   # alive across the call
         rc = lib.kpp_fused_step(ctypes.addressof(pin),
                                 ctypes.addressof(pout),

@@ -10,10 +10,22 @@ and :func:`_step_body` are the plain versions of the three CUDA kernels in
 ``csrc/``: the CPU path and the tests run them, and ``chip_smoke.py``
 holds each kernel against them on the card.
 
-Layout: profiles are ``(WZ, ncol)`` with ``WZ = nz + 2`` (z on rows,
-columns along the fast axis); ``colscal`` is ``(NSC, ncol)``; grid rows
-are ``(WZ, 1)``; ``aref`` is the pre-transposed ``(WZ, WZ)`` matrix with
-``ref_avg(prof) = aref @ prof``.
+Layout (``zaxis``, the JAX package's argument of the same name):
+
+* ``zaxis=0`` ("col_lanes"): profiles are ``(WZ, ncol)`` with ``WZ = nz +
+  2`` (z on rows, columns along the fast axis); ``colscal`` is ``(NSC,
+  ncol)``; grid rows are ``(WZ, 1)``; ``aref`` is the pre-transposed
+  ``(WZ, WZ)`` matrix with ``ref_avg(prof) = aref @ prof``; the column
+  outputs are ``(8 or 16, ncol)``;
+* ``zaxis=1`` ("z_lanes"): profiles ``(ncol, WZ)``, ``colscal`` ``(ncol,
+  NSC)``, grid rows and forcing dummies ``(1, WZ)``, ``aref`` as
+  :func:`build_ref_matrix` returns it (``ref_avg(prof) = prof @ aref``),
+  column outputs ``(ncol, 8 or 16)``.
+
+The bodies below are written over ``zaxis=0``; with ``zaxis=1`` they run
+on their arguments transposed and transpose their outputs back
+(:func:`_either_layout`), so the two layouts' plain results are equal bit
+for bit.
 
 Index conventions (row ``j`` of a profile):
 
@@ -30,6 +42,7 @@ Index conventions (row ``j`` of a profile):
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -89,20 +102,26 @@ N_IN_TOTAL = 25        # pass inputs
 N_STEP_IN = 21         # step inputs: the pass inputs without ux..sx
 
 
-def _shr(v, s, fill=0.0):
-    """z shift down the rows: out[j] = v[j-s] (fill for j < s)."""
+def _shr(v, s, fill=0.0, dim=0):
+    """z shift down the rows (or along ``dim``): out[j] = v[j-s] (fill
+    for j < s)."""
     if s == 0:
         return v
-    z = v.new_full((s,) + tuple(v.shape[1:]), fill)
-    return torch.cat([z, v[:-s]], dim=0)
+    shape = list(v.shape)
+    shape[dim] = s
+    z = v.new_full(shape, fill)
+    return torch.cat([z, v.narrow(dim, 0, v.shape[dim] - s)], dim=dim)
 
 
-def _shl(v, s, fill=0.0):
-    """z shift up the rows: out[j] = v[j+s] (fill for j >= WZ-s)."""
+def _shl(v, s, fill=0.0, dim=0):
+    """z shift up the rows (or along ``dim``): out[j] = v[j+s] (fill for
+    j >= WZ-s)."""
     if s == 0:
         return v
-    z = v.new_full((s,) + tuple(v.shape[1:]), fill)
-    return torch.cat([v[s:], z], dim=0)
+    shape = list(v.shape)
+    shape[dim] = s
+    z = v.new_full(shape, fill)
+    return torch.cat([v.narrow(dim, s, v.shape[dim] - s), z], dim=dim)
 
 
 def build_ref_matrix(zm: np.ndarray, wz: int) -> np.ndarray:
@@ -205,11 +224,28 @@ def _tridrhs(hm, yo, ntflux, diff, ghat, sturflux, ghatflux, dto, tdn,
     return rhs + torch.where(row == nz - 1, bot, 0.0)
 
 
+def _either_layout(body):
+    """``body``, written over ``zaxis=0`` arguments, taking ``zaxis``: with
+    ``zaxis=1`` every argument (all are 2-D) is transposed to the
+    ``zaxis=0`` layout and every output transposed back, each as a
+    contiguous copy, so the arithmetic is the ``zaxis=0`` call's."""
+    @functools.wraps(body)
+    def run(*arrays, zaxis=0, **kw):
+        if zaxis == 0:
+            return body(*arrays, **kw)
+        if zaxis != 1:
+            raise ValueError(f"zaxis={zaxis!r}: 0 or 1")
+        outs = body(*(a.T.contiguous() for a in arrays), **kw)
+        return tuple(o.T.contiguous() for o in outs)
+    return run
+
+
 def _ws_fn(flags: PassFlags):
     fn = wscale_analytic if flags.wscale == "analytic" else wscale_nodal
     return lambda sig, h, us, bf: fn(sig, h, us, bf, vonk=flags.vonk)
 
 
+@_either_layout
 def _pass_body(u, v, t, s, ux, vx, tx, sx, uo, vo, to, so,
                swdk_c, swfrac_c, ocnt_clim, sal_clim, fcorr_z, sfcorr_z,
                colscal, zm, hm, dm, tdn, tup, aref,
@@ -684,6 +720,7 @@ def _advect_total(colscal, dm, hm, kbl, li, nz, wz, adv_st):
     return total
 
 
+@_either_layout
 def _step_body(u0, v0, t0, s0, uo, vo, to, so, swdk_c, swfrac_c,
                ocnt_clim, sal_clim, fcorr_z, sfcorr_z, colscal,
                zm, hm, dm, tdn, tup, aref,
@@ -838,19 +875,22 @@ def _statics(grid, flags: PassFlags):
 
 
 def make_fused_pass(grid, dtype, flags: PassFlags, dto: float, *,
-                    full: bool, impl: str = "eager"):
+                    full: bool, impl: str = "eager", zaxis: int = 0):
     """Build the pass callable fn(*25 inputs) -> tuple of outputs; the
     inputs are (u, v, t, s, ux, vx, tx, sx, uo, vo, to, so, swdk, swfrac,
     ocnt_clim, sal_clim, fcorr_z, sfcorr_z, colscal, zm, hm, dm, tdn, tup,
-    aref) in the layout of the module docstring.  Forcing profiles may be
-    ``(WZ, 1)`` dummies when their flag is off.
+    aref) in the layout ``zaxis`` of the module docstring.  Forcing
+    profiles may be ``(WZ, 1)`` (``zaxis=1``: ``(1, WZ)``) dummies when
+    their flag is off.  The default ``zaxis=0`` differs from the JAX
+    package's default of 1: it is the layout of the port's default
+    ``pass_layout``, "col_lanes", as of the JAX package's config.
 
     impl: "eager" (the plain body) | "cuda" (the CUDA kernel for CUDA
     tensors, the plain body for CPU tensors).
     """
     adv_st, zbot = _statics(grid, flags)
     kw = dict(nz=grid.nz, flags=flags, dto=dto, full=full, zbot=zbot,
-              adv_st=adv_st)
+              adv_st=adv_st, zaxis=zaxis)
     if impl == "eager":
         return lambda *a: _pass_body(*a, **kw)
     if impl == "cuda":
@@ -861,13 +901,13 @@ def make_fused_pass(grid, dtype, flags: PassFlags, dto: float, *,
 
 def make_fused_step(grid, dtype, flags: PassFlags, dto: float, *,
                     itermax: int, hmixtolfrac: float, extra_iters: int,
-                    impl: str = "eager"):
+                    impl: str = "eager", zaxis: int = 0):
     """Build the whole-step callable (see :func:`_step_body`):
     fn(*21 inputs) -> (u, v, t, s, ux, vx, tx, sx, colstep); the inputs are
     (u0, v0, t0, s0, uo, vo, to, so, swdk, swfrac, ocnt_clim, sal_clim,
     fcorr_z, sfcorr_z, colscal, zm, hm, dm, tdn, tup, aref).
 
-    impl: "eager" | "cuda", as in :func:`make_fused_pass`.
+    impl, zaxis: as in :func:`make_fused_pass`.
     """
     adv_st, zbot = _statics(grid, flags)
     nz = grid.nz
@@ -875,7 +915,8 @@ def make_fused_step(grid, dtype, flags: PassFlags, dto: float, *,
               itermax=itermax, hmixtolfrac=hmixtolfrac,
               extra_iters=extra_iters, comp_iter_max=int(c.COMP_ITER_MAX),
               rmsd_thr=tuple(float(x) for x in c.RMSD_THRESHOLD),
-              hm_bot=float(grid.hm[nz - 1]), dm_nz=float(grid.dm[nz]))
+              hm_bot=float(grid.hm[nz - 1]), dm_nz=float(grid.dm[nz]),
+              zaxis=zaxis)
     if impl == "eager":
         return lambda *a: _step_body(*a, **kw)
     if impl == "cuda":

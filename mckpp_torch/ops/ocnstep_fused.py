@@ -17,7 +17,11 @@ Loop structure (mirroring the reference):
 step body (``fused_pass.make_fused_step``); the other impls run the
 batch-level loops here around one pass call per iteration.  Both give the
 same per-column results.  The state stays ``(ncol, ...)`` outside the
-pass; profiles are transposed to ``(WZ, ncol)`` once per step.
+pass.  ``pass_layout`` picks the kernels' layout (``zaxis``, as the JAX
+glue does): "col_lanes" transposes the profiles to ``(WZ, ncol)`` once
+per step and the outputs back; "z_lanes" hands the kernels the state's
+own ``(ncol, WZ)`` order, padded, and transposes nothing.  Both give the
+same results bit for bit.
 """
 
 from __future__ import annotations
@@ -44,11 +48,6 @@ def pass_flags(cfg: KppConfig) -> fp.PassFlags:
         grav=cst.grav, vonk=cst.vonk, sice=cst.sice)
 
 
-def _tok(a, wz):
-    """(ncol, nzp1) batch profile -> (WZ, ncol) kernel layout."""
-    return torch.nn.functional.pad(a, (0, wz - a.shape[1])).T.contiguous()
-
-
 def make_ocnstep_fused(grid, cfg: KppConfig, dtype, *, impl="eager_step"):
     """Build step_fn(st, prm, frc, first_step, with_diags) ->
     (new_state, comp_flag).  impl: "eager" | "eager_step" | "cuda" |
@@ -64,6 +63,8 @@ def make_ocnstep_fused(grid, cfg: KppConfig, dtype, *, impl="eager_step"):
     dto = cfg.time.dto
     flags = pass_flags(cfg)
     dev = grid.zm.device
+    # the kernels' layout (mckpp_tpu/ops/ocnstep_fused.py:87)
+    zaxis = 0 if ph.pass_layout == "col_lanes" else 1
 
     # grid rows: hm padding row set to 1 to keep divisions finite
     zm_np = np.pad(grid.zm.cpu().numpy(), (0, 1))
@@ -71,23 +72,38 @@ def make_ocnstep_fused(grid, cfg: KppConfig, dtype, *, impl="eager_step"):
     dm_np = np.pad(grid.dm.cpu().numpy(), (0, 1))
     tdn_np = np.pad(grid.tri_dn.cpu().numpy(), (0, 1))
     tup_np = np.pad(grid.tri_up.cpu().numpy(), (0, 1))
-    col = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)[:, None]
+    # kernel-layout grid rows: (WZ, 1), or (1, WZ) for zaxis 1
+    orient = (lambda a: a[None, :]) if zaxis else (lambda a: a[:, None])
+    col = lambda a: orient(torch.as_tensor(a, dtype=dtype, device=dev))
     zm_r, hm_r, dm_r = col(zm_np), col(hm_np), col(dm_np)
     tdn_r, tup_r = col(tdn_np), col(tup_np)
-    hm_row = hm_r.T                                  # (1, WZ) batch layout
+    hm_row = hm_r if zaxis else hm_r.T               # (1, WZ) batch layout
     aref_np = fp.build_ref_matrix(zm_np[:nzp1], wz)
-    aref = torch.as_tensor(aref_np.T, dtype=dtype, device=dev).contiguous()
+    aref = torch.as_tensor(aref_np if zaxis else aref_np.T, dtype=dtype,
+                           device=dev).contiguous()
     hm_lvl = grid.hm.to(dtype)
     thr = torch.tensor(c.RMSD_THRESHOLD, dtype=dtype, device=dev)
 
     fast = (fp.make_fused_pass(grid, dtype, flags, dto, full=False,
-                               impl=base_impl) if not whole_step else None)
+                               impl=base_impl, zaxis=zaxis)
+            if not whole_step else None)
     fullp = fp.make_fused_pass(grid, dtype, flags, dto, full=True,
-                               impl=base_impl)
+                               impl=base_impl, zaxis=zaxis)
     fstep = (fp.make_fused_step(
         grid, dtype, flags, dto, itermax=ph.itermax,
         hmixtolfrac=ph.hmixtolfrac, extra_iters=ph.extra_iters,
-        impl=base_impl) if whole_step else None)
+        impl=base_impl, zaxis=zaxis) if whole_step else None)
+    def tok(a):
+        """(ncol, nzp1) batch profile -> the kernel layout: (WZ, ncol) for
+        zaxis 0, (ncol, WZ), padded only, for 1."""
+        p = torch.nn.functional.pad(a, (0, wz - a.shape[1]))
+        return p if zaxis else p.T.contiguous()
+
+    # kernel layout -> batch (ncol, WZ), a column output's row k, and the
+    # z shift of the kernel layout
+    tob = (lambda a: a) if zaxis else (lambda a: a.T)
+    co = (lambda c_, k: c_[:, k]) if zaxis else (lambda c_, k: c_[k])
+    kshl = lambda a, s: fp._shl(a, s, dim=zaxis)
 
     def step_fn(st: State, prm: ColumnParams, frc: Forcing, first_step,
                 with_diags: bool = True):
@@ -98,7 +114,8 @@ def make_ocnstep_fused(grid, cfg: KppConfig, dtype, *, impl="eager_step"):
         ncol = st.u.shape[0]
         active = prm.run_physics
         mcol = lambda mask, a, b: torch.where(
-            mask if a.dim() == 1 else mask[None, :], a, b)
+            mask if a.dim() == 1 else
+            (mask[:, None] if zaxis else mask[None, :]), a, b)
 
         # ---- history-phase repair + extrapolation (:91-112) --------------
         old = torch.where((st.old < 0) | (st.old > 1), st.new, st.old)
@@ -112,16 +129,16 @@ def make_ocnstep_fused(grid, cfg: KppConfig, dtype, *, impl="eager_step"):
         u_ex3 = 2.0 * us_new - us_old                  # (ncol, nzp1, 2)
         x_ex3 = 2.0 * xs_new - xs_old
 
-        u_e = _tok(u_ex3[:, :, 0], wz)
-        v_e = _tok(u_ex3[:, :, 1], wz)
-        t_e = _tok(x_ex3[:, :, 0], wz)
-        s_e = _tok(x_ex3[:, :, 1], wz)
-        uo = _tok(st.u[:, :, 0], wz)
-        vo = _tok(st.u[:, :, 1], wz)
-        to = _tok(st.x[:, :, 0], wz)
-        so = _tok(st.x[:, :, 1], wz)
-        swdk_c = _tok(st.swdk_opt, wz)
-        swfrac_c = _tok(st.swfrac, wz)
+        u_e = tok(u_ex3[:, :, 0])
+        v_e = tok(u_ex3[:, :, 1])
+        t_e = tok(x_ex3[:, :, 0])
+        s_e = tok(x_ex3[:, :, 1])
+        uo = tok(st.u[:, :, 0])
+        vo = tok(st.u[:, :, 1])
+        to = tok(st.x[:, :, 0])
+        so = tok(st.x[:, :, 1])
+        swdk_c = tok(st.swdk_opt)
+        swfrac_c = tok(st.swfrac)
 
         one = torch.ones((ncol,), dtype=dtype, device=dev)
         zero = torch.zeros((ncol,), dtype=dtype, device=dev)
@@ -154,14 +171,14 @@ def make_ocnstep_fused(grid, cfg: KppConfig, dtype, *, impl="eager_step"):
             # step rows (27-29): active mask + previous surface rho/cp
             cols += [prm.run_physics, st.rho[:, 0], st.cp[:, 0]]
             cols += [zero] * (fp.NSC - len(cols))
-            return torch.stack([cc.to(dtype) for cc in cols], dim=0)
+            return torch.stack([cc.to(dtype) for cc in cols], dim=zaxis)
 
-        dummy = torch.zeros((wz, 1), dtype=dtype, device=dev)
-        ocnt_p = _tok(frc.ocnt_clim, wz) if flags.l_relax_ocnt else dummy
-        sal_p = _tok(frc.sal_clim, wz) if flags.l_relax_sal else dummy
-        fcz_p = _tok(frc.fcorr_withz, wz) if flags.l_fcorr_withz else dummy
-        sfcz_p = (_tok(frc.sfcorr_withz, wz) if flags.l_sfcorr_withz
-                  else dummy)
+        dummy = torch.zeros((1, wz) if zaxis else (wz, 1), dtype=dtype,
+                            device=dev)
+        ocnt_p = tok(frc.ocnt_clim) if flags.l_relax_ocnt else dummy
+        sal_p = tok(frc.sal_clim) if flags.l_relax_sal else dummy
+        fcz_p = tok(frc.fcorr_withz) if flags.l_fcorr_withz else dummy
+        sfcz_p = tok(frc.sfcorr_withz) if flags.l_sfcorr_withz else dummy
 
         def run_pass(fn, u, v, t, s, ux, vx, tx, sx, csc):
             return fn(u, v, t, s, ux, vx, tx, sx, uo, vo, to, so,
@@ -176,9 +193,9 @@ def make_ocnstep_fused(grid, cfg: KppConfig, dtype, *, impl="eager_step"):
             for _ in range(3):            # compulsory passes (:122-135)
                 u, v, t, s, ux, vx, tx, sx, colout = run_pass(
                     fast, u, v, t, s, ux, vx, tx, sx, csc)
-            hmixn = colout[0]
-            kmixn = colout[1].to(torch.int32)
-            rho0n, cp0n = colout[2], colout[3]
+            hmixn = co(colout, 0)
+            kmixn = co(colout, 1).to(torch.int32)
+            rho0n, cp0n = co(colout, 2), co(colout, 3)
             if not ph.lkpp:
                 return u, v, t, s, ux, vx, tx, sx, hmixn, kmixn, rho0n, cp0n
             hmixe, kmixe = hmixn, kmixn
@@ -188,9 +205,9 @@ def make_ocnstep_fused(grid, cfg: KppConfig, dtype, *, impl="eager_step"):
             while bool(cont.any()):
                 (u_n, v_n, t_n, s_n, ux_n, vx_n, tx_n, sx_n,
                  colout) = run_pass(fast, u, v, t, s, ux, vx, tx, sx, csc)
-                hmix_p = colout[0]
-                kmix_p = colout[1].to(torch.int32)
-                rho0_p, cp0_p = colout[2], colout[3]
+                hmix_p = co(colout, 0)
+                kmix_p = co(colout, 1).to(torch.int32)
+                rho0_p, cp0_p = co(colout, 2), co(colout, 3)
                 it_n = it + 1
                 tol = ph.hmixtolfrac * torch.where(
                     kmix_p == nzp1, hm_lvl[nz - 1],
@@ -214,20 +231,20 @@ def make_ocnstep_fused(grid, cfg: KppConfig, dtype, *, impl="eager_step"):
             return u, v, t, s, ux, vx, tx, sx, hmixn, kmixn, rho0n, cp0n
 
         # ---- instability trap (:89, :194-236) -----------------------------
-        li_k = torch.arange(wz, device=dev)[:, None]
+        li_k = orient(torch.arange(wz, device=dev))
         w_rms = torch.where(li_k <= nz, hm_r / grid.dm[nz].to(dtype), 0.0)
 
         def instability(u, v, t, s):
             lvl = li_k < nz                     # levels 1..nz
-            dxv = torch.abs(t - fp._shl(t, 1))
+            dxv = torch.abs(t - kshl(t, 1))
             bad = lvl & ((torch.abs(u) >= 10.0) | (torch.abs(v) >= 10.0)
                          | (dxv >= 10.0))
-            nbad = bad.sum(dim=0)
-            blown = bad.any(dim=0)
+            nbad = bad.sum(dim=zaxis)
+            blown = bad.any(dim=zaxis)
 
             def rmsd(q, qo):
                 d = q - qo
-                return torch.sqrt((d * d * w_rms).sum(dim=0))
+                return torch.sqrt((d * d * w_rms).sum(dim=zaxis))
 
             exceed = torch.stack([rmsd(u, uo) >= thr[0],
                                   rmsd(v, vo) >= thr[1],
@@ -248,12 +265,12 @@ def make_ocnstep_fused(grid, cfg: KppConfig, dtype, *, impl="eager_step"):
             u_fin_k, v_fin_k, t_fin_k, s_fin_k = outs[:4]
             ux_f, vx_f, tx_f, sx_f = outs[4:8]
             colstep = outs[8]
-            hmixn = colstep[0]
-            kmixn = colstep[1].to(torch.int32)
-            rho0_fin, cp0_fin = colstep[2], colstep[3]
-            comp_flag = colstep[4] > 0.5
-            reset_flag = colstep[5]
-            f_used = colstep[6]
+            hmixn = co(colstep, 0)
+            kmixn = co(colstep, 1).to(torch.int32)
+            rho0_fin, cp0_fin = co(colstep, 2), co(colstep, 3)
+            comp_flag = co(colstep, 4) > 0.5
+            reset_flag = co(colstep, 5)
+            f_used = co(colstep, 6)
         else:
             u_fin_k, v_fin_k, t_fin_k, s_fin_k = u_e, v_e, t_e, s_e
             ux_f, vx_f, tx_f, sx_f = u_e, v_e, t_e, s_e
@@ -288,7 +305,6 @@ def make_ocnstep_fused(grid, cfg: KppConfig, dtype, *, impl="eager_step"):
                 hmixn, kmixn = m(hmix_i, hmixn), m(kmix_i, kmixn)
                 rho0_fin, cp0_fin = m(rho0, rho0_fin), m(cp0, cp0_fin)
 
-        tob = lambda a: a.T
         if with_diags:
             # ---- final full pass: last pass + diagnostics ------------------
             outs = run_pass(fullp, ux_f, vx_f, tx_f, sx_f,
@@ -298,14 +314,17 @@ def make_ocnstep_fused(grid, cfg: KppConfig, dtype, *, impl="eager_step"):
              talpha, sbeta, buoy, rig, dbloc, shsq, wxnt_t, swdk_opt,
              tinc, sinc, ocntcorr, scorr) = [
                 tob(a) for a in outs[:4] + outs[5:]]
-            rhoh2o, fcorr = colout[2], colout[3]
-            wu0x, wu0y = colout[4], colout[5]
-            wx0t, wx0s, wx0b = colout[6], colout[7], colout[8]
+            rhoh2o, fcorr = co(colout, 2), co(colout, 3)
+            wu0x, wu0y = co(colout, 4), co(colout, 5)
+            wx0t, wx0s, wx0b = co(colout, 6), co(colout, 7), co(colout, 8)
 
             # ---- diagnostic fluxes (:242-256); batch layout (ncol, wz) -----
             li = torch.arange(wz, device=dev)[None, :]
             intm = (li >= 1) & (li <= nz)
-            shr1 = lambda a: fp._shr(a.T, 1).T
+            # a shift down the levels of a (ncol, WZ) array: col_lanes'
+            # outputs are transposed views, z_lanes' the arrays themselves
+            shr1 = ((lambda a: fp._shr(a, 1, dim=1)) if zaxis
+                    else (lambda a: fp._shr(a.T, 1).T))
             deltaz = 0.5 * (shr1(hm_row) + hm_row)       # interface i
             dz_safe = torch.where(intm, deltaz, 1.0)
             dif_x = dift if ph.ldd else difs

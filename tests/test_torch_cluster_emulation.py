@@ -211,20 +211,49 @@ static void unpack(const void* ins, const void* outs, int n_out,
     out->p[i] = i < n_out ? static_cast<Real*>(op[i]) : nullptr;
 }
 
+// the layout of the next launch (emu_zaxis); built with EMU_ZL, the
+// Z_LANES kernels too
+static int g_zaxis = 0;
+
+template <bool FULL, kpp::Layout L>
+static int emu_pass_in(const PassParams& P, const Geometry& G,
+                       const kpp::Inputs<Real>& in,
+                       const kpp::Outputs<Real>& out) {
+  if (G.cb > 1)
+    return emu_grid(G, [&](unsigned char* s) {
+      kpp::pass_block<Real, FULL, 4, kpp::CLUSTER, L>(P, G, in, out, s); });
+  if (G.cw > 1)
+    return emu_grid(G, [&](unsigned char* s) {
+      kpp::pass_block<Real, FULL, 4, kpp::BLOCK, L>(P, G, in, out, s); });
+  return emu_grid(G, [&](unsigned char* s) {
+    kpp::pass_block<Real, FULL, EMU_NS, kpp::WARP, L>(P, G, in, out, s); });
+}
+
+template <kpp::Layout L>
+static int emu_step_in(const PassParams& P, const Geometry& G,
+                       const kpp::Inputs<Real>& in,
+                       const kpp::Outputs<Real>& out) {
+  if (G.cb > 1)
+    return emu_grid(G, [&](unsigned char* s) {
+      kpp::step_block<Real, 4, kpp::CLUSTER, L>(P, G, in, out, s); });
+  if (G.cw > 1)
+    return emu_grid(G, [&](unsigned char* s) {
+      kpp::step_block<Real, 4, kpp::BLOCK, L>(P, G, in, out, s); });
+  return emu_grid(G, [&](unsigned char* s) {
+    kpp::step_block<Real, EMU_NS, kpp::WARP, L>(P, G, in, out, s); });
+}
+
 template <bool FULL>
 static int emu_pass(const PassParams& P, const Geometry& G,
                     const kpp::Inputs<Real>& in, const kpp::Outputs<Real>& out) {
-  if (G.cb > 1)
-    return emu_grid(G, [&](unsigned char* s) {
-      kpp::pass_block<Real, FULL, 4, kpp::CLUSTER>(P, G, in, out, s); });
-  if (G.cw > 1)
-    return emu_grid(G, [&](unsigned char* s) {
-      kpp::pass_block<Real, FULL, 4, kpp::BLOCK>(P, G, in, out, s); });
-  return emu_grid(G, [&](unsigned char* s) {
-    kpp::pass_block<Real, FULL, EMU_NS, kpp::WARP>(P, G, in, out, s); });
+#if EMU_ZL
+  if (g_zaxis) return emu_pass_in<FULL, kpp::Z_LANES>(P, G, in, out);
+#endif
+  return emu_pass_in<FULL, kpp::COL_LANES>(P, G, in, out);
 }
 
 extern "C" {
+void emu_zaxis(int zaxis) { g_zaxis = zaxis; }
 int kpp_real_bytes() { return int(sizeof(Real)); }
 int kpp_max_wz() { return kpp::MAXWZ; }
 int kpp_fused_pass(int full, const void* ins, const void* outs,
@@ -243,22 +272,18 @@ int kpp_fused_step(const void* ins, const void* outs, const void* params,
   kpp::Inputs<Real> in;
   kpp::Outputs<Real> out;
   unpack(ins, outs, 9, &in, &out);
-  if (G.cb > 1)
-    return emu_grid(G, [&](unsigned char* s) {
-      kpp::step_block<Real, 4, kpp::CLUSTER>(P, G, in, out, s); });
-  if (G.cw > 1)
-    return emu_grid(G, [&](unsigned char* s) {
-      kpp::step_block<Real, 4, kpp::BLOCK>(P, G, in, out, s); });
-  return emu_grid(G, [&](unsigned char* s) {
-    kpp::step_block<Real, EMU_NS, kpp::WARP>(P, G, in, out, s); });
+#if EMU_ZL
+  if (g_zaxis) return emu_step_in<kpp::Z_LANES>(P, G, in, out);
+#endif
+  return emu_step_in<kpp::COL_LANES>(P, G, in, out);
 }
 }
 """
 
 
-@pytest.fixture(scope="module")
-def emu(tmp_path_factory):
-    """The shim and fused_pass.cuh built with g++ in float64."""
+def build_emu(tmp_path_factory, ns, zl):
+    """The shim and fused_pass.cuh built with g++ in float64, one warp a
+    column at ``ns`` slots; ``zl``: with the Z_LANES kernels too."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build the host emulation")
@@ -267,8 +292,9 @@ def emu(tmp_path_factory):
     src.write_text(SHIM)
     subprocess.run([gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC",
                     "-shared", "-pthread", "-DEMU_REAL=double",
-                    f"-DEMU_NS={EMU_NS}", "-DEMU_TIMEOUT_S=60",
-                    "-I", ck._CSRC, "-o", str(so), str(src)],
+                    f"-DEMU_NS={ns}", f"-DEMU_ZL={int(zl)}",
+                    "-DEMU_TIMEOUT_S=60", "-I", ck._CSRC, "-o", str(so),
+                    str(src)],
                    check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(str(so))
     vp, ci = ctypes.c_void_p, ctypes.c_int
@@ -276,7 +302,14 @@ def emu(tmp_path_factory):
     lib.kpp_fused_pass.restype = ci
     lib.kpp_fused_step.argtypes = [vp, vp, vp, vp, vp]
     lib.kpp_fused_step.restype = ci
+    lib.emu_zaxis.argtypes = [ci]
     return lib
+
+
+@pytest.fixture(scope="module")
+def emu(tmp_path_factory):
+    """The emulation with one warp a column at EMU_NS slots."""
+    return build_emu(tmp_path_factory, EMU_NS, False)
 
 
 class Stop(Exception):
@@ -331,8 +364,10 @@ def first_inputs(nz, pass_impl, monkeypatch):
 
 
 def run(lib, w, a, geom, monkeypatch):
-    """``w``'s kernel on ``a`` through the emulation at ``geom``."""
-    monkeypatch.setattr(ck, "_lib", lambda dtype, lib_=None: lib)
+    """``w``'s kernel on ``a`` through the emulation at ``geom``, in
+    ``w``'s layout."""
+    lib.emu_zaxis(w.kw.get("zaxis", 0))
+    monkeypatch.setattr(ck, "_lib", lambda *x, **k: lib)
     monkeypatch.setattr(ck, "launch_geometry", lambda *x, **k: geom)
     monkeypatch.setattr(ck, "LAUNCHES", dict(ck.LAUNCHES))
     monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None:
@@ -400,3 +435,92 @@ def test_cluster_equals_block_at_nz1000(emu, monkeypatch, pass_impl):
         ref = run(emu, k, a, block, monkeypatch)
         for i, (x, y) in enumerate(zip(got, ref)):
             assert torch.equal(x, y), i
+
+
+# the layouts: one warp a column at 3 slots (a block of 8 or 4 columns,
+# the last ragged), a block of 2 warps a column, a cluster of 2 blocks of
+# 1 warp (block 1 holding levels 128..131): (nz, ncol, dmax) of each, ~3
+# m levels, where the hmix loop converges in a few passes
+LAYOUT_SPREADS = {"warp": (60, 11, 200.0), "block": (130, 3, 400.0),
+                  "cluster": (130, 3, 400.0)}
+
+
+@pytest.fixture(scope="module")
+def emu_zl(tmp_path_factory):
+    """The emulation with one warp a column at 3 slots, both layouts."""
+    return build_emu(tmp_path_factory, 3, True)
+
+
+def layout_inputs(nz, ncol, dmax, pass_impl, monkeypatch):
+    """The wrapper and (col_lanes) inputs of the first kernel call of a
+    float64 step at ``nz`` over ``dmax`` m and ``ncol`` columns on the CPU,
+    with double diffusion: column 1 land, column 0 with large T and u
+    noise (the trap retries it), the others quiet."""
+    cfg = T.KppConfig(
+        domain=T.DomainConfig(nx=ncol, ny=1, nz=nz, dmax=dmax),
+        time=T.TimeConfig(dtsec=1200.0, ndtocn=1, startt=0.0, finalt=1.0),
+        physics=T.PhysicsFlags(pass_impl=pass_impl, wscale_mode="nodal",
+                               ldd=True),
+        dtype="float64")
+    m = T.KppModel(cfg, device="cpu")
+    zm = m.grid.zm.double().numpy()
+    rng = np.random.default_rng(6)
+    t0 = 20.0 + 5.0 * np.exp(zm / 40.0) + 0.05 * rng.standard_normal(
+        (ncol, nz + 1))
+    s0 = 35.0 - 0.3 * np.exp(zm / 60.0) + 0.01 * rng.standard_normal(
+        (ncol, nz + 1))
+    u0 = 0.02 * rng.standard_normal((ncol, nz + 1, 2))
+    t0[0] += 3.0 * rng.standard_normal(nz + 1)
+    u0[0] += 2.1 * rng.standard_normal((nz + 1, 2))
+    prm = init_params(ncol, nz + 1, dtype=m.dtype)
+    wet = torch.ones(ncol, dtype=torch.bool)
+    wet[1] = False
+    lat = torch.linspace(-40.0, 40.0, ncol, dtype=m.dtype)
+    prm = prm.replace(f=coriolis(lat), l_ocean=wet, run_physics=wet)
+    st, prm, frc = m.warm_start(u0, t0, s0, prm)
+    raw = tforcing.constant_test_fluxes(ncol, m.dtype, m.device)
+    st, frc = tforcing.update_fluxes(cfg, st, prm, frc, raw, True, m.grid.dm)
+    got = []
+
+    def call(w, *a):
+        got.append((w, a))
+        raise Stop
+    for cls in (ck.FusedPass, ck.FusedStep):
+        monkeypatch.setattr(cls, "__call__", call)
+    with pytest.raises(Stop):
+        m.step(st, prm, frc, first_step=True)
+    monkeypatch.undo()
+    return got[0]
+
+
+@pytest.mark.parametrize("pass_impl", ["cuda_step", "cuda"])
+@pytest.mark.parametrize("spread", list(LAYOUT_SPREADS))
+def test_z_lanes_equals_col_lanes(emu_zl, monkeypatch, spread, pass_impl):
+    """The z_lanes kernels ((ncol, nz + 2) profiles, the wrappers' zaxis
+    1) against the col_lanes kernels on the same inputs transposed, bit
+    for bit, in each spread: only the staging reads the layout."""
+    nz, ncol, dmax = LAYOUT_SPREADS[spread]
+    w, a = layout_inputs(nz, ncol, dmax, pass_impl, monkeypatch)
+    kref = ck._ref_extents(a[-1])[1]
+    if spread == "warp":
+        geom = ck.launch_geometry(nz, torch.float64, ncol, kref)
+        assert (geom.ns, geom.cw) == (3, 1) and geom.warps > 1
+        assert ncol % geom.warps, "the last block is not ragged"
+    elif spread == "block":
+        geom = ck.Geometry(warps=2, blocks=ncol, kref=kref,
+                           smem=ck.smem_bytes_mw(2, 0, 8), ns=ck.MW_NS,
+                           aref_dev=1, cw=2, grid_dev=0, cb=1)
+    else:
+        geom = forced_cluster(ncol, kref, 2, 1)
+    az = tuple(x.T.contiguous() for x in a)     # aref too: prof @ aref
+    for k in kernels(pass_impl, w):
+        kz = type(k)(dict(k.kw, zaxis=1))
+        got = run(emu_zl, kz, az, geom, monkeypatch)
+        ref = run(emu_zl, k, a, geom, monkeypatch)
+        assert len(got) == len(ref)
+        for i, (x, y) in enumerate(zip(got, ref)):
+            assert x.shape == y.T.shape and torch.equal(x, y.T), i
+        if pass_impl == "cuda_step":        # land; the trap's retries
+            npass, reset = got[8][:, 7], got[8][:, 5]
+            assert npass[1] == 0 and (npass[[0, 2]] > 0).all()
+            assert reset[0] == 3, reset

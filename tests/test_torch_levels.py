@@ -11,10 +11,15 @@ WZ) in float64: 3 columns at nz = 100 over 200 m on a uniform grid, and
 at nz = 190 and 300 on a stretched grid (``dscale`` 5), 2 steps each from
 the same warm start, with an inactive land column and the instability
 trap firing on column 0, at rtol 1e-9 with the field scales of
-tests/test_fused_parity.py and kmix/old/new equal.  The kernels past 94
-levels are held to their plain versions on the card by the
-``gpu``-marked cases of tests/test_torch_kernels.py (that file imports no
-JAX, so it runs where the card is) and by ``chip_smoke.py``'s gate.
+tests/test_fused_parity.py and kmix/old/new equal.  Those four cases
+live in files of their own, ``tests/test_torch_levels_jax_nz100.py``,
+``_nz190.py``, ``_nz300.py`` and ``_nz1030.py``, so that the test
+workers take them apart; this file holds what they share
+(``hold_to_jax`` and its helpers) and the CPU model past the kernels'
+limit.  The kernels past 94 levels are held to their plain versions on
+the card by the ``gpu``-marked cases of tests/test_torch_kernels.py
+(that file imports no JAX, so it runs where the card is) and by
+``chip_smoke.py``'s gate.
 """
 
 import dataclasses
@@ -172,47 +177,6 @@ def hold_to_jax(nz, dscale, calibrate=False, dmax=DMAX):
     for name in ("kmix", "old", "new"):
         np.testing.assert_array_equal(a[name], b[name], err_msg=name)
     return spread
-
-
-def test_eager_step_at_nz100_matches_jax():
-    hold_to_jax(NZ, 0.0)
-
-
-def test_eager_step_at_nz190_stretched_matches_jax():
-    """Six level slots' worth of levels on a stretched grid (0.21 m at
-    the surface, thickening with depth), where the reference-average
-    prefix is widest (float64 past 217 levels on such a grid is where the
-    kernels read aref from device memory).  The profiles' seeded noise
-    outweighs the stratification there, so the deep interfaces are close
-    to neutral and dbloc is a difference of nearly equal buoyancies: the
-    few ulp by which XLA's and torch's EOS round apart grow to ~1e-10 of
-    u in two steps, as much as the port's own trajectory moves when its
-    initial T is perturbed by 1e-15 relative.  So each field is held
-    within the larger of the bar and ten times that spread; the spread
-    itself stays tiny, which a semantic difference would not."""
-    spread = hold_to_jax(190, 5.0, calibrate=True)
-    assert max(spread.values()) < 1e-8, spread
-
-
-def test_eager_step_at_nz300_stretched_matches_jax():
-    """Past 254 levels, where the kernels spread a column over several
-    warps (three at nz = 300), on the stretched grid of the nz = 190 case
-    (0.13 m at the surface, 15.8 m at the bottom): held as that case is,
-    within the larger of the bar and ten times the port's own rounding
-    spread."""
-    spread = hold_to_jax(300, 5.0, calibrate=True)
-    assert max(spread.values()) < 1e-8, spread
-
-
-def test_eager_step_at_nz1030_matches_jax():
-    """Past 1022 levels, where the kernels spread a column over a cluster
-    of 2 blocks: nz = 1030 on a uniform grid over 500 m (0.49 m levels;
-    over 1000 m and deeper the trap no longer fires on column 0), held as
-    the nz = 190 and 300 cases are, within the larger of the bar and ten
-    times the port's own rounding spread (the few ulp by which XLA's and
-    torch's EOS round apart reach ~5e-11 of u here)."""
-    spread = hold_to_jax(1030, 0.0, calibrate=True, dmax=500.0)
-    assert max(spread.values()) < 1e-8, spread
 
 
 def test_cpu_model_steps_past_the_kernel_limit():

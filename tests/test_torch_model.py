@@ -10,8 +10,8 @@ trap (hurricane stress on column 0), an inactive land column and current
 damping at once, because the JAX model's compile dominates the cost.
 Then properties of the port alone: land pass-through, the lazy
 (with_diags=False) prognostics, per-pass loops == whole-step body,
-float32 purity, the numpy round trip, the options that raise and the
-resolution of "auto".
+float32 purity, the numpy round trip, the options that raise (and the
+"z_lanes" layout, which constructs) and the resolution of "auto".
 """
 
 import dataclasses
@@ -230,17 +230,20 @@ def test_model_without_cuda_raises():
     ({"pass_impl": "reference"}, None),
     ({"solver": "thomas"}, ValueError),
     ({"wscale_mode": "table"}, ValueError),
-    ({"pass_layout": "z_lanes"}, NotImplementedError),
+    ({"pass_layout": "z_lanes"}, None),
+    ({"pass_layout": "diagonal"}, ValueError),
     ({"pass_impl": "fused_xla"}, ValueError),
 ])
 def test_unported_options_raise(physics, exc):
     """The options the port refuses under pass_impl "eager_step": the
     Thomas solver and the wscale table belong to the reference step, as
-    in the JAX package; the reference step itself constructs."""
+    in the JAX package, and a layout other than the JAX package's two
+    raises; the reference step and the "z_lanes" layout construct."""
     cfg = configs(T, "eager_step")
     cfg = cfg.replace(physics=dataclasses.replace(cfg.physics, **physics))
     if exc is None:
-        assert T.KppModel(cfg, device="cpu").pass_impl == "reference"
+        model = T.KppModel(cfg, device="cpu")
+        assert model.pass_impl == physics.get("pass_impl", "eager_step")
         return
     with pytest.raises(exc):
         T.KppModel(cfg, device="cpu")
