@@ -518,10 +518,11 @@ class Background:
 
 
 def phase_device():
-    """Build the col_lanes libraries (twelve nvcc processes at once),
-    print their ptxas tables and the clusters the card holds; then start
-    the z_lanes build (twelve more) on a thread: :func:`gate_zlanes`
-    joins it and prints its tables."""
+    """Start the z_lanes build (twelve nvcc processes at niceness 10) on a
+    thread, then build the col_lanes libraries (twelve more, at once),
+    print their ptxas tables and the clusters the card holds: the z_lanes
+    processes take the cores the col_lanes build and the gate leave idle,
+    and :func:`gate_zlanes` joins them and prints their tables."""
     import torch
     from mckpp_torch.ops import cuda_kernels as ck
     name = torch.cuda.get_device_name(0)
@@ -529,12 +530,12 @@ def phase_device():
     emit({"phase": "device", "name": name, "nvidia_smi": smi,
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "python": sys.version.split()[0]})
+    zl_build = Background(lambda: ck.build(zaxes=(1,), nice=10))
     t0 = time.perf_counter()
     ptxas = ptxas_tables(ck.build(zaxes=(0,)))
     build_s = time.perf_counter() - t0
     emit({"phase": "build", "layout": "col_lanes", "seconds": build_s,
           "ptxas": ptxas})
-    zl_build = Background(lambda: ck.build(zaxes=(1,)))
     emit({"phase": "clusters", "rows": cluster_rows(0)})
     return name, smi, ptxas, zl_build
 
@@ -1393,6 +1394,19 @@ def time_cuda(fn, reps):
     return e0.elapsed_time(e1) / reps
 
 
+def kernel_bytes(a, got, aref):
+    """The bytes a kernel must move: every input read once, every output
+    written once, but of aref (``a[-1]``, ``aref`` its col_lanes form) only
+    the nonzero prefix of each row, the entries the reference averages
+    read, with the row extents (int32, one a level) that bound them: a
+    kernel never reads the rest of the (nz + 2)^2 matrix."""
+    from mckpp_torch.ops import cuda_kernels as ck
+    n_ref = int((ck.row_extents(aref).astype("int64") + 1).sum())
+    return sum(x.numel() * x.element_size() for x in a[:-1]) + \
+        (n_ref * aref.element_size() + aref.shape[0] * 4) + \
+        sum(x.numel() * x.element_size() for x in got)
+
+
 def kernel_row(kname, w, a, name, ptxas, launches, plain_reps=2):
     """One kernel at one shape, on the inputs ``a`` the path gave it: held
     to its plain version (the phase-2 bar), timed beside it and beside
@@ -1421,9 +1435,7 @@ def kernel_row(kname, w, a, name, ptxas, launches, plain_reps=2):
     aref, ldd = ck._kernel_aref(a[-1], zaxis), w.kw["flags"].ldd
     geom = ck.launch_geometry(nz, a[0].dtype, ncol, ck._ref_extents(aref)[1])
     outs = col_major(w, got)
-    # bytes: every input read once, every output written once
-    nbytes = sum(x.numel() * x.element_size() for x in a) + \
-        sum(x.numel() * x.element_size() for x in got)
+    nbytes = kernel_bytes(a, got, aref)
     # operations over aref's nonzeros (ck.pass_ops); the step counts
     # this run's passes per column (colstep row 7), each with the
     # bldepth/blmix levels above the column's kmix

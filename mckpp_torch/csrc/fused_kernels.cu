@@ -26,14 +26,18 @@
 // * past 256 levels (WZ <= 1024) one column a block over CW = 3..8 warps
 //   of 4 slots (the "cw" library, KPP_MW): the 4-slot register footprint,
 //   the column's rows shared by its warps, block barriers where levels
-//   meet, aref (and, for float64 at CW = 8, the grid rows) read from
-//   device memory; a column's input rows are read one level at a time
-//   (stride ncol), so its staging moves whole sectors for one value;
+//   meet, as few as the hazards allow (one a PCR or scan stage on
+//   alternating buffers, one a run of broadcasts), aref (and, for float64
+//   at CW = 8, the grid rows) read from device memory; a column's input
+//   rows are read one level at a time (stride ncol), so its staging moves
+//   whole sectors for one value;
 // * past 1024 levels (WZ <= 8192) one column over a cluster of CB = 2..8
 //   blocks (the "cl" library, KPP_MW=2), each block CW warps of 4 slots
 //   holding its slice of the column's rows; where levels meet, the blocks
 //   read each other's slices through distributed shared memory between
-//   cluster barriers; aref and the grid rows are read from device memory.
+//   cluster barriers (their own levels at home, the reference averages'
+//   first levels from a copy block 0 pushes to each); aref and the grid
+//   rows are read from device memory.
 //   It launches with cudaLaunchKernelEx and a cluster dimension of CB, and
 //   refuses (KPP_NO_CLUSTER) a geometry of which the card cannot hold one
 //   cluster at once (cudaOccupancyMaxActiveClusters 0);
@@ -84,17 +88,42 @@
 #ifndef KPP_ZL
 #define KPP_ZL 0
 #endif
+// KPP_F32: 1 in a float32 build (KPP_REAL float), else 0
+#define KPP_F32_float 1
+#define KPP_F32_OF_(r) KPP_F32_##r
+#define KPP_F32_OF(r) KPP_F32_OF_(r)
+#if KPP_F32_OF(KPP_REAL)
+#define KPP_F32 1
+#else
+#define KPP_F32 0
+#endif
+// The cw kernels in float32 are capped at 168 registers a thread
+// (__maxnreg__: where their 203 held 2 blocks of 4 warps an SM, 168 holds
+// 3, with no spill); the cl kernels in float32 are bound for 2 blocks of
+// 256 threads an SM (MinBlocks: 128 registers, spilling, but on a card
+// full of clusters the second block of 8 warps outweighs the spills; a
+// single cluster's step, latency-bound, runs ~20% slower so, and bound
+// for one block, 255 registers, the step on 16,384 columns gave back most
+// of its gain and the fast pass ran slower).  float64, whose values take
+// two registers each, keeps one block of 256 threads an SM (capped as
+// float32, its cw step ran 12% and its cl step 30% slower).
+#if KPP_MW == 1 && KPP_F32
+#define KPP_BOUNDS(T, NS) __maxnreg__(168)
+#else
+#define KPP_BOUNDS(T, NS) \
+  __launch_bounds__(MAX_WARPS * 32, MinBlocks<T, NS>::value)
+#endif
 
 namespace kpp {
 
 constexpr int MAX_WARPS = 8;
 constexpr int SMEM_MAX = 232448;   // dynamic shared memory one block may use
 // blocks per SM the register budget aims at: 2 x 8 warps (128 registers a
-// thread) in float at NS = 3, 1 block otherwise (in double, and from NS = 4
-// up, whose profile registers would spill under 128; their shared memory
-// holds one block at a time anyway)
+// thread) in float at NS = 3 and in the float cl kernels (above), 1 block
+// otherwise (in double, and from NS = 4 up, whose profile registers would
+// spill under 128; their shared memory holds one block at a time anyway)
 template <typename T, int NS> struct MinBlocks {
-  static constexpr int value = 1;
+  static constexpr int value = KPP_MW == 2 && KPP_F32 ? 2 : 1;
 };
 template <> struct MinBlocks<float, 3> { static constexpr int value = 2; };
 
@@ -102,14 +131,14 @@ static_assert(CW_MAX == MAX_WARPS, "a column's warps fill at most a block");
 static_assert(!KPP_MW || KPP_NS == MW_NS, "a column over warps has 4 slots");
 
 template <typename T, bool FULL, int NS, Spread MW, Layout L>
-__global__ void __launch_bounds__(MAX_WARPS * 32, MinBlocks<T, NS>::value)
+__global__ void KPP_BOUNDS(T, NS)
 fused_pass_kernel(PassParams P, Geometry G, Inputs<T> in, Outputs<T> out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   pass_block<T, FULL, NS, MW, L>(P, G, in, out, smem_raw);
 }
 
 template <typename T, int NS, Spread MW, Layout L>
-__global__ void __launch_bounds__(MAX_WARPS * 32, MinBlocks<T, NS>::value)
+__global__ void KPP_BOUNDS(T, NS)
 fused_step_kernel(PassParams P, Geometry G, Inputs<T> in, Outputs<T> out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   step_block<T, NS, MW, L>(P, G, in, out, smem_raw);

@@ -39,12 +39,25 @@
 // library (MW = BLOCK): past 256 levels one block holds one column, spread
 // over CW = 2..8 warps of NS = 4 slots (WZ <= 128 CW, ONE_BLOCK_WZ =
 // 1024).  Level k sits on warp k / 128, lane k % 32, slot (k % 128) / 32;
-// the column's rows in shared memory hold LZ = 128 CW levels, shared by
-// its warps.  Every exchange across levels goes through those rows with a
-// block barrier (the PCR and scan strides too, whatever their length); a
-// single level's value (lvl) goes through a broadcast cell; bldepth's
-// first crossing is the first of the warps' own in level order; the
-// column-wide AND and count are __syncthreads_and and __syncthreads_count.
+// the column's rows in shared memory (NB_MW: the NB rows and X5) hold LZ =
+// 128 CW levels, shared by its warps.  Every exchange across levels goes
+// through those rows behind a block barrier, and the design spends as few
+// barriers as the hazards allow (a barrier spends the column's slowest
+// warp's time on every warp): a group of puts needs one barrier after it,
+// and one before it only where some thread may still read the rows it
+// writes since the column's last barrier; the PCR stages alternate
+// between two buffers of five rows (X0..X4, and in the step and the fast
+// pass the dead rows ux..sx with X5), as do bldepth's scan stages ((X3,
+// X4) and (X0, X1)), so a stage takes one barrier; a run of single-level
+// values (lvl) is written to broadcast cells (lvl_put) and read after one
+// barrier; bldepth's first round (levels < 32) runs on the column's first
+// warp alone behind __syncwarp, and its first crossing and the hmin there
+// are the first of the warps' own in level order, through one barrier
+// (first_crossing); the column-wide AND and count are __syncthreads_and
+// and __syncthreads_count; the RMSD sums stay serial, their loads issued
+// ahead of their adds (serial_sum).  chip_phases.py counts the barriers
+// (KPP_PHASES), and the host emulation
+// (tests/test_torch_cluster_emulation.py) holds their number per launch.
 // The column's scalars are computed alike on every thread from the same
 // shared values, so every branch around a barrier is uniform over the
 // block; a land column's block skips the step's loops whole.  aref is read
@@ -60,11 +73,17 @@
 // row to block k / LB's shared memory, distributed shared memory).  The
 // body is the multi-warp one with cluster-wide primitives: col_sync is a
 // cluster barrier (release/acquire, so it also orders the remote writes);
-// lvl's holder writes the broadcast cell of every block, which each reads
-// at home; the column AND and count combine the blocks' own through a
-// cell per block (cl_sum); bldepth's first crossing is the first of the
-// blocks' warps' own in level order; the RMSD sums stay serial in level
-// order on block 0's first threads, reading every block's rows.  The
+// lvl_put's holder writes the broadcast cell of every block, which each
+// reads at home; a ClRow reads a level the block holds at home and only
+// the others through distributed shared memory (in a PCR stage of stride
+// s, the s levels nearest a block's edge); block 0 pushes its first levels
+// of the reference averages' rows to the other blocks' dead rows
+// (ref_push), so that every block reads them at home; the column AND and
+// count combine the blocks' own through a cell per block (cl_sum);
+// bldepth's first crossing is the first of the blocks' warps' own in level
+// order; the RMSD sums stay serial in level order, each block's first four
+// threads going on over its own levels from the sums the block before it
+// handed on (one cluster barrier a block).  The
 // column's scalars are computed alike on every thread of every block from
 // the same cells, so every branch around a cluster barrier is uniform
 // over the cluster.  aref and the grid rows are read from device memory
@@ -102,10 +121,14 @@
 // Stage clocks (chip_phases.py).  Built with -DKPP_PHASES, KPP_MARK(i)
 // adds the warp's clock64() cycles since its previous mark to stage i of
 // the pass body (lane 0 of each warp adds them to kpp_phase[i]) and
-// KPP_BMARK(i) does the same for the block-level stages 10..13; without
-// it they compile to nothing.
+// KPP_BMARK(i) does the same for the block-level stages 10..13; the
+// column's barriers (col_sync) add each warp's cycles inside them to
+// kpp_phase[14] and their number, once a block, to kpp_phase[15] (summed
+// in shared memory, kpp_bar, and added once a block at its write-back);
+// without it they compile to nothing.
 #ifdef KPP_PHASES
 __device__ unsigned long long kpp_phase[16];
+__shared__ unsigned long long kpp_bar[2];
 #define KPP_CLOCK(t0) long long t0 = clock64()
 #define KPP_MARK_AT(i, t0)                                             \
   do {                                                                 \
@@ -114,9 +137,26 @@ __device__ unsigned long long kpp_phase[16];
       atomicAdd(&kpp_phase[i], (unsigned long long)(kpp_t1 - (t0)));   \
     t0 = kpp_t1;                                                       \
   } while (0)
+#define KPP_BAR_ZERO                                                   \
+  if (threadIdx.x == 0) kpp_bar[0] = kpp_bar[1] = 0
+#define KPP_BAR_END(t0)                                                \
+  do {                                                                 \
+    const long long kpp_t1 = clock64();                                \
+    if ((threadIdx.x & 31) == 0)                                       \
+      atomicAdd(&kpp_bar[0], (unsigned long long)(kpp_t1 - (t0)));     \
+    if (threadIdx.x == 0) atomicAdd(&kpp_bar[1], 1ull);                \
+  } while (0)
+#define KPP_BAR_FLUSH                                                  \
+  if (threadIdx.x == 0) {                                              \
+    atomicAdd(&kpp_phase[14], kpp_bar[0]);                             \
+    atomicAdd(&kpp_phase[15], kpp_bar[1]);                             \
+  }
 #else
 #define KPP_CLOCK(t0)
 #define KPP_MARK_AT(i, t0)
+#define KPP_BAR_ZERO
+#define KPP_BAR_END(t0)
+#define KPP_BAR_FLUSH
 #endif
 #define KPP_MARK(i) KPP_MARK_AT(i, kpp_t0)    // stages 0..8 of the pass body
 #define KPP_BMARK(i) KPP_MARK_AT(i, kpp_b0)   // stages 10..13 of a block
@@ -164,6 +204,7 @@ constexpr int AREF_DEV_MIN_NS = 6;
 // profile row in shared memory: 32 * NS for one warp, 32 * NS * CW for a
 // column over CW warps (Col::lz).
 constexpr unsigned FULLMASK = 0xffffffffu;
+
 constexpr double BIG = 1.0e30;    // the plain scan's -inf stand-in
 
 // colscal rows (ops/fused_pass.py CS_*)
@@ -241,14 +282,20 @@ enum {
   B_SWDK, B_SWFRAC, B_OCNT, B_SAL, B_FCZ, B_SFCZ,
   B_X0, B_X1, B_X2, B_X3, B_X4, NB
 };
+// MW: one more row, X5, after them (slot NB of the column's NB_MW rows):
+// the fifth row of the second PCR exchange buffer (pcr_solve)
+enum { B_X5 = NB, NB_MW };
+// the rows of one column's area (a warp's, or MW a column's)
+template <Spread MW> constexpr int NROWS = MW ? int(NB_MW) : int(NB);
 constexpr int NCV = NSC + 16;     // colscal rows, then the column outputs
 // MW: broadcast cells after the column values: lvl's level value at each
 // call site (its own cell, so no reader waits on a later writer), each
-// warp's first bldepth crossing, the four RMSD sums
+// warp's first bldepth crossing and the hmin there, the four RMSD sums
 enum {
   BC_RHO0 = 0, BC_CP0, BC_TA0, BC_SB0, BC_TSFC, BC_UREF, BC_VREF, BC_MNZ,
   BC_SNZ, BC_TNZ, BC_HBL, BC_MATCH, BC_ENH = BC_MATCH + 9,
-  BC_FX = BC_ENH + 3, BC_RMSD = BC_FX + CW_MAX, NBC = BC_RMSD + 4
+  BC_FX = BC_ENH + 3, BC_HX = BC_FX + CW_MAX, BC_RMSD = BC_HX + CW_MAX,
+  NBC = BC_RMSD + 4
 };
 // CLUSTER: then a block's own column AND and count (cl_sum)
 enum { BC_AND = NBC, BC_CNT, NBC_CL };
@@ -270,9 +317,9 @@ KPP_HD size_t smem_bytes(int ns, int kref, int warps, int tsize) {
          + size_t(lz) * sizeof(int);
 }
 
-// MW: the elements of one column's area at lz levels a row (its NB rows,
-// the column values, the broadcast cells)
-KPP_HD int col_stride(int lz) { return NB * lz + NCV + NBC; }
+// MW: the elements of one column's area at lz levels a row (its NB_MW
+// rows, the column values, the broadcast cells)
+KPP_HD int col_stride(int lz) { return NB_MW * lz + NCV + NBC; }
 
 // dynamic shared memory of one MW block, one column over cw warps (LZ =
 // 32 MW_NS cw): the grid rows (6 x LZ, none where they are read from
@@ -290,7 +337,8 @@ KPP_HD size_t smem_bytes_mw(int cw, int grid_dev, int tsize) {
 // grid rows are read from device memory
 KPP_HD size_t smem_bytes_cl(int cw, int tsize) {
   const int lb = 32 * MW_NS * cw;
-  return size_t(NB * lb + NCV + NBC_CL) * tsize + size_t(lb) * sizeof(int);
+  return size_t(NB_MW * lb + NCV + NBC_CL) * tsize
+         + size_t(lb) * sizeof(int);
 }
 
 // full-pass diagnostic outputs (ops/fused_pass.py full tuple, after u..s)
@@ -320,21 +368,24 @@ template <typename T> struct Grid {
 };
 
 // CLUSTER: one row of the column, whose LB levels held by this block
-// start at p; level k lies in block k / LB (umulhi by mg = ceil(2^32 /
-// LB), exact for k < 2^32 / LB), at k % LB in that block's copy of the
-// row.  Adding n LZ (LZ = lzc, the column's levels) moves n rows on, as
-// adding it to a row pointer of the other spreads does.
+// (rank me of the cluster) start at p; level k lies in block k / LB
+// (umulhi by mg = ceil(2^32 / LB), exact for k < 2^32 / LB), at k % LB in
+// that block's copy of the row, read at home where that block is this
+// one and through distributed shared memory (mapa) where it is another.
+// Adding n LZ (LZ = lzc, the column's levels) moves n rows on, as adding
+// it to a row pointer of the other spreads does.
 template <typename T> struct ClRow {
   T* p;
-  int lb, lzc;
+  int lb, lzc, me;
   unsigned mg;
   KPP_DEV int rank_of(int k) const { return int(__umulhi(unsigned(k), mg)); }
   KPP_DEV T& operator[](int k) const {
     const int r = rank_of(k);
-    return *cl_map(p + (k - r * lb), r);
+    T* q = p + (k - r * lb);
+    return r == me ? *q : *cl_map(q, r);
   }
   KPP_DEV ClRow operator+(int n) const {
-    return {p + n / lzc * lb, lb, lzc, mg};
+    return {p + n / lzc * lb, lb, lzc, me, mg};
   }
   KPP_DEV explicit operator bool() const { return p != nullptr; }
 };
@@ -342,12 +393,15 @@ template <typename T> struct ClRow {
 template <typename T, Spread MW>
 using Row = std::conditional_t<MW == CLUSTER, ClRow<T>, T*>;
 
-// CLUSTER: lb, the levels a block holds, mg, its ClRow divisor, and cb,
-// the cluster's blocks (an empty base of the other spreads' Col, which
-// keep the layout they had before the cluster form existed)
+// CLUSTER: lb, the levels a block holds, mg, its ClRow divisor, cb, the
+// cluster's blocks, me, this block's rank, and kc, the first levels of the
+// column that block 0 pushes to the others for the reference averages
+// (ref_push; the levels aref's rows reach, at most lb) (an empty base of
+// the other spreads' Col, which keep the layout they had before the
+// cluster form existed)
 template <Spread MW> struct ColCluster {};
 template <> struct ColCluster<CLUSTER> {
-  int lb, cb;
+  int lb, cb, me, kc;
   unsigned mg;
 };
 
@@ -369,7 +423,7 @@ template <typename T, int NS, Spread MW> struct Col : ColCluster<MW> {
   }
   KPP_DEV Row<T, MW> slot(int i) const {
     if constexpr (MW == CLUSTER)
-      return ClRow<T>{b + i * this->lb, this->lb, lzc, this->mg};
+      return ClRow<T>{b + i * this->lb, this->lb, lzc, this->me, this->mg};
     else if constexpr (MW)
       return b + i * lzc;
     else
@@ -380,28 +434,25 @@ template <typename T, int NS, Spread MW> struct Col : ColCluster<MW> {
 // the barrier of one column's threads: its warp, (MW) its block or
 // (CLUSTER) its cluster
 template <Spread MW> KPP_DEV void col_sync() {
+  KPP_CLOCK(kpp_s0);
   if constexpr (MW == CLUSTER)
     cl_sync();
   else if (MW)
     __syncthreads();
   else
     __syncwarp();
+  if constexpr (MW) KPP_BAR_END(kpp_s0);   // a block's or cluster's
 }
 
 #define KPP_FOR_Q _Pragma("unroll") for (int q = 0; q < NS; ++q)
 
-// level k of x on every thread of the column (k uniform, 0 <= k < LZ): a
-// shuffle, or (MW) through broadcast cell ``cell`` after a barrier
-// (CLUSTER: the holder writes the cell of every block of the cluster)
+// MW: the thread that holds level k of x (k uniform, 0 <= k < LZ) writes
+// it to broadcast cell ``cell`` (CLUSTER: the cell of every block of the
+// cluster).  A run of them ends on one col_sync, after which lvl reads
+// each cell.
 template <typename T, int NS, Spread MW>
-KPP_DEV T lvl(const Col<T, NS, MW>& w, const T (&x)[NS], int k, int cell) {
-  if (!MW) {
-    T v = x[0];
-#pragma unroll
-    for (int q = 1; q < NS; ++q)
-      if (k >= 32 * q) v = x[q];
-    return __shfl_sync(FULLMASK, v, k & 31);
-  }
+KPP_DEV void lvl_put(const Col<T, NS, MW>& w, const T (&x)[NS], int k,
+                     int cell) {
   const int kw = k % (32 * NS);           // k's place in its warp
   if (w.k0 == k - kw + (k & 31)) {        // the thread that holds k
     T v = x[0];
@@ -413,10 +464,19 @@ KPP_DEV T lvl(const Col<T, NS, MW>& w, const T (&x)[NS], int k, int cell) {
     else
       w.cv[NCV + cell] = v;
   }
-  if constexpr (MW == CLUSTER)
-    cl_sync();
-  else
-    __syncthreads();
+}
+// level k of x on every thread of the column (k uniform, 0 <= k < LZ): a
+// shuffle, or (MW) broadcast cell ``cell``, written by lvl_put before the
+// barrier that ends its run
+template <typename T, int NS, Spread MW>
+KPP_DEV T lvl(const Col<T, NS, MW>& w, const T (&x)[NS], int k, int cell) {
+  if (!MW) {
+    T v = x[0];
+#pragma unroll
+    for (int q = 1; q < NS; ++q)
+      if (k >= 32 * q) v = x[q];
+    return __shfl_sync(FULLMASK, v, k & 31);
+  }
   return w.cv[NCV + cell];
 }
 // the plain one-hot gather: 0 outside 0..wz-1 (k uniform)
@@ -479,16 +539,19 @@ KPP_DEV void slot_up(const T (&x)[NS], int s, T fill, T (&out)[NS]) {
 }
 
 // tridiagonal coefficients on rows (solvers.F90:14-44); leaves diff
-// published in xd
+// published in xd (MW: the caller publishes it there, with whatever else
+// the same barrier can cover, and syncs)
 template <typename T, int NS, Spread MW>
 KPP_DEV void tridcof(const Col<T, NS, MW>& w, const T (&diff)[NS],
                      const Grid<T>& g, int nz, int wz, Row<T, MW> xd,
                      T (&cu)[NS],
                      T (&cc)[NS], T (&cl)[NS]) {
   const int k0 = w.lev0();
-  col_sync<MW>();
-  put(xd, diff, k0);
-  col_sync<MW>();
+  if constexpr (!MW) {
+    col_sync<MW>();
+    put(xd, diff, k0);
+    col_sync<MW>();
+  }
   KPP_FOR_Q {
     const int r = k0 + 32 * q;
     const bool in1 = r + 1 < wz;
@@ -527,11 +590,18 @@ KPP_DEV void tridrhs(const Grid<T>& g, R yo, R xn, const T (&diff)[NS], R xd,
 // systems that share one matrix, one column; the solutions overwrite rhs0
 // (and rhs1 with NR = 2).  Stages s < 32 (every stage, MW) exchange
 // through the five consecutive exchange rows x5; on one warp stages 32, 64
-// and 128 move whole slots.
+// and 128 move whole slots.  MW with y5, five more rows: the stages
+// alternate between the two buffers, starting with *cur (0 x5, 1 y5; left
+// at the one to write next), so that a stage needs one barrier, after its
+// puts: the rows it writes were last read two stages before, behind the
+// last stage's barrier.  The caller starts a solve on a buffer that no
+// thread may still be reading.  Without y5 (the full pass, whose rows are
+// all taken), a barrier before the puts too.
 template <typename T, int NR, int NS, Spread MW>
 KPP_DEV void pcr_solve(const Col<T, NS, MW>& w, const T (&cu)[NS],
                        const T (&cc)[NS], const T (&cl)[NS], T (&rhs0)[NS],
-                       T (&rhs1)[NS], int nz, int wz, Row<T, MW> x5) {
+                       T (&rhs1)[NS], int nz, int wz, Row<T, MW> x5,
+                       const Row<T, MW>* y5 = nullptr, int* cur = nullptr) {
   const int LZ = MW ? w.lzc : 32 * NS, k0 = w.lev0();
   const Row<T, MW> xa = x5;
   const Row<T, MW> xc = x5 + LZ;
@@ -550,7 +620,37 @@ KPP_DEV void pcr_solve(const Col<T, NS, MW>& w, const T (&cu)[NS],
     T rb[NS], rb_lo[NS], rb_hi[NS], a_lo[NS], a_hi[NS], c_lo[NS], c_hi[NS];
     T r_lo[NR][NS], r_hi[NR][NS];
     KPP_FOR_Q rb[q] = T(1) / (b[q] == T(0) ? T(1) : b[q]);
-    if (MW || s < 32) {
+    if constexpr (MW) {
+      const bool second = y5 && *cur;       // this stage's buffer
+      const Row<T, MW> ya = second ? y5[0] : xa, yc = second ? y5[1] : xc,
+                       yb = second ? y5[2] : xb;
+      Row<T, MW> yr[NR];
+#pragma unroll
+      for (int i = 0; i < NR; ++i) yr[i] = second ? y5[3 + i] : xr + i * LZ;
+      if (!y5) col_sync<MW>();
+      put(ya, a, k0);
+      put(yc, c, k0);
+      put(yb, rb, k0);
+#pragma unroll
+      for (int i = 0; i < NR; ++i) put(yr[i], r[i], k0);
+      col_sync<MW>();
+      if (y5) *cur ^= 1;
+      KPP_FOR_Q {
+        const int j = k0 + 32 * q;
+        const bool lo = j - s >= 0, up = j + s < LZ;
+        rb_lo[q] = lo ? yb[j - s] : T(1);
+        rb_hi[q] = up ? yb[j + s] : T(1);
+        a_lo[q] = lo ? ya[j - s] : T(0);
+        a_hi[q] = up ? ya[j + s] : T(0);
+        c_lo[q] = lo ? yc[j - s] : T(0);
+        c_hi[q] = up ? yc[j + s] : T(0);
+#pragma unroll
+        for (int i = 0; i < NR; ++i) {
+          r_lo[i][q] = lo ? yr[i][j - s] : T(0);
+          r_hi[i][q] = up ? yr[i][j + s] : T(0);
+        }
+      }
+    } else if (MW || s < 32) {
       col_sync<MW>();
       put(xa, a, k0);
       put(xc, c, k0);
@@ -569,13 +669,8 @@ KPP_DEV void pcr_solve(const Col<T, NS, MW>& w, const T (&cu)[NS],
         c_hi[q] = up ? xc[j + s] : T(0);
 #pragma unroll
         for (int i = 0; i < NR; ++i) {
-          if constexpr (MW == CLUSTER) {   // a ClRow indexes one row
-            r_lo[i][q] = lo ? (xr + i * LZ)[j - s] : T(0);
-            r_hi[i][q] = up ? (xr + i * LZ)[j + s] : T(0);
-          } else {
-            r_lo[i][q] = lo ? xr[i * LZ + j - s] : T(0);
-            r_hi[i][q] = up ? xr[i * LZ + j + s] : T(0);
-          }
+          r_lo[i][q] = lo ? xr[i * LZ + j - s] : T(0);
+          r_hi[i][q] = up ? xr[i * LZ + j + s] : T(0);
         }
       }
     } else {
@@ -631,6 +726,100 @@ KPP_DEV void ref_sums(const T* aT, int lz, int n, int hi, R x0, R x1, R x2,
   *b_out = b;
 }
 
+// MW: the walk of ref_sums_mw over levels k .. k1 - 1 of the rows x0..x2:
+// AHEAD, each level's loads unconditional (the device tile aT holds kref >
+// every hi rows, the rows every level) and issued four levels ahead of
+// their adds, which alone wait on k <= h[q]; else each aref load waits on
+// it too, one level at a time (fewer live registers: the cluster's step
+// ran 7-10% faster so where its registers spilled)
+template <bool AHEAD, typename T, int NS, typename R>
+KPP_DEV void ref_walk(const T* aT, int lz, int k0, const int (&h)[NS],
+                      int k, int k1, R x0, R x1, R x2, T (&u)[NS],
+                      T (&v)[NS], T (&b)[NS]) {
+  if constexpr (AHEAD) {
+#pragma unroll 4
+    for (; k < k1; ++k) {
+      const T y0 = x0[k], y1 = x1[k], y2 = x2[k];
+      KPP_FOR_Q {
+        const T a = __ldg(aT + k * lz + k0 + 32 * q);
+        if (k <= h[q]) {
+          u[q] = u[q] + a * y0;
+          v[q] = v[q] + a * y1;
+          b[q] = b[q] + a * y2;
+        }
+      }
+    }
+  } else {
+    for (; k < k1; ++k) {
+      const T y0 = x0[k], y1 = x1[k], y2 = x2[k];
+      KPP_FOR_Q {
+        if (k <= h[q]) {
+          const T a = __ldg(aT + k * lz + k0 + 32 * q);
+          u[q] = u[q] + a * y0;
+          v[q] = v[q] + a * y1;
+          b[q] = b[q] + a * y2;
+        }
+      }
+    }
+  }
+}
+
+// MW: the reference sums of this thread's levels n = k0 + 32 q, each as
+// ref_sums sums it (over aref row n's nonzero prefix k = 0..hi[n], in k
+// order), the NS sums side by side in one walk over k up to the largest
+// hi (ref_walk), so that each row's level k is read once for all of them
+// and the NS add chains overlap.  Levels k < lc come from this block's
+// rows l0..l2 (a column in one block: the column's rows, lc = LZ;
+// CLUSTER: block 0's own slice, or the copy of its first levels block 0
+// pushed to this block), the rest from the rows x0..x2 (a ClRow reads
+// another block's levels through distributed shared memory).
+template <bool AHEAD, typename T, int NS, typename R>
+KPP_DEV void ref_sums_mw(const T* aT, int lz, int k0, const int* hi, int lc,
+                         const T* l0, const T* l1, const T* l2, R x0, R x1,
+                         R x2, T (&u)[NS], T (&v)[NS], T (&b)[NS]) {
+  int h[NS], hmax = -1;
+  KPP_FOR_Q {
+    h[q] = hi[k0 + 32 * q];
+    hmax = h[q] > hmax ? h[q] : hmax;
+    u[q] = v[q] = b[q] = T(0);
+  }
+  const int kl = hmax < lc ? hmax + 1 : lc;
+  ref_walk<AHEAD>(aT, lz, k0, h, 0, kl, l0, l1, l2, u, v, b);
+  ref_walk<AHEAD>(aT, lz, k0, h, kl, hmax + 1, x0, x1, x2, u, v, b);
+}
+
+// CLUSTER: block 0 pushes its levels k < w.kc of x (the first levels the
+// reference averages read) into row ``slot`` of every other block, where
+// ref_sums_mw reads them at home
+template <typename T, int NS, Spread MW>
+KPP_DEV void ref_push(const Col<T, NS, MW>& w, const T (&x)[NS], int slot) {
+  if constexpr (MW == CLUSTER) {
+    if (w.me != 0) return;
+    T* p = w.b + slot * w.lb;
+    KPP_FOR_Q {
+      const int k = w.k0 + 32 * q;
+      if (k < w.kc)
+        for (int r = 1; r < w.cb; ++r) *cl_map(p + k, r) = x[q];
+    }
+  }
+}
+
+// MW: a serial sum in level order of row[k0..k1-1] onto acc, its loads
+// issued eight levels ahead of their adds
+template <typename T>
+KPP_DEV T serial_sum(const T* row, int k0, int k1, T acc) {
+  int k = k0;
+  for (; k + 8 <= k1; k += 8) {
+    T x[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) x[i] = row[k + i];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc = acc + x[i];
+  }
+  for (; k < k1; ++k) acc = acc + row[k];
+  return acc;
+}
+
 // rhsmod band basis (mode 6/7 walk): rows [lo, n2r] with n2r the first row
 // >= lo (below nz) whose depth depth_off + (pfx[r] - sub) reaches target,
 // else nz-1; every thread walks alike
@@ -647,25 +836,42 @@ KPP_DEV void band(const T* pfx, T sub, T depth_off, T target, int lo, int nz,
 }
 
 // MW: the column's first bldepth crossing, the first of its warps' own
-// (``firstx``, alike on a warp's lanes; -1 for none) in level order
-// (CLUSTER: each warp's in its block's cell, read across the blocks)
+// (``firstx``, alike on a warp's lanes; -1 for none) in level order, and
+// in *h_out the hmin there (hmin of the thread that holds that level),
+// through one barrier: each warp's crossing and its hmin in cells of their
+// own (CLUSTER: in its block's, read across the blocks)
 template <typename T, int NS, Spread MW>
-KPP_DEV int first_crossing(const Col<T, NS, MW>& w, int firstx) {
+KPP_DEV int first_crossing(const Col<T, NS, MW>& w, int firstx,
+                           const T (&hmin)[NS], T* h_out) {
   T* fx = w.cv + NCV + BC_FX;
+  T* hx = w.cv + NCV + BC_HX;
   const int wc = (w.k0 - w.lane) / (32 * NS), cw = w.lzc / (32 * NS);
-  if constexpr (MW == CLUSTER) {
-    const int wb = w.lb / (32 * NS);        // warps a block
-    if (w.lane == 0) fx[wc % wb] = T(firstx);
-    cl_sync();
-    int f = -1;
-    for (int i = 0; i < cw && f < 0; ++i)
-      f = int(*cl_map(fx + i % wb, i / wb));
-    return f;
+  int wb = cw;                              // warps a block
+  if constexpr (MW == CLUSTER) wb = w.lb / (32 * NS);
+  if (firstx >= 0) {
+    const int kw = firstx % (32 * NS);
+    if (w.k0 == firstx - kw + (firstx & 31)) {   // it holds the crossing
+      T v = hmin[0];
+#pragma unroll
+      for (int q = 1; q < NS; ++q)
+        if (kw >= 32 * q) v = hmin[q];
+      hx[wc % wb] = v;
+    }
   }
-  if (w.lane == 0) fx[wc] = T(firstx);
-  __syncthreads();
+  if (w.lane == 0) fx[wc % wb] = T(firstx);
+  col_sync<MW>();
   int f = -1;
-  for (int i = 0; i < cw && f < 0; ++i) f = int(fx[i]);
+  T h = T(0);
+  for (int i = 0; i < cw && f < 0; ++i) {
+    if constexpr (MW == CLUSTER) {
+      f = int(*cl_map(fx + i % wb, i / wb));
+      if (f >= 0) h = *cl_map(hx + i % wb, i / wb);
+    } else {
+      f = int(fx[i]);
+      if (f >= 0) h = hx[i];
+    }
+  }
+  *h_out = h;
   return f;
 }
 
@@ -675,7 +881,7 @@ KPP_DEV int first_crossing(const Col<T, NS, MW>& w, int firstx) {
 template <typename T, int NS, Spread MW>
 KPP_DEV int cl_sum(const Col<T, NS, MW>& w, int v, int cell) {
   if (threadIdx.x == 0) w.cv[NCV + cell] = T(v);
-  cl_sync();
+  col_sync<MW>();
   int n = 0;
   for (int r = 0; r < w.cb; ++r) n += int(*cl_map(w.cv + NCV + cell, r));
   return n;
@@ -686,8 +892,9 @@ KPP_DEV int cl_sum(const Col<T, NS, MW>& w, int v, int cell) {
 // under-relaxed iterate (the plain fast tuple's 2nd quartet).  f_cor is
 // the Coriolis parameter this pass uses.  With FULL, the diagnostic
 // profiles go to their full_slot slots and colout16 to the column values
-// (the input slots they overwrite are dead by then).
-template <typename T, bool FULL, int NS, Spread MW>
+// (the input slots they overwrite are dead by then).  STEP: a pass of the
+// whole step (step_warp).
+template <typename T, bool FULL, int NS, Spread MW, bool STEP = false>
 KPP_DEV void pass_warp(const PassParams& P, const Grid<T>& g,
                        const Col<T, NS, MW>& w,
                        T (&u)[NS], T (&v)[NS], T (&t)[NS], T (&s)[NS],
@@ -707,6 +914,12 @@ KPP_DEV void pass_warp(const PassParams& P, const Grid<T>& g,
   const Row<T, MW> VO = w.slot(B_VO);
   const Row<T, MW> TO = w.slot(B_TO);
   const Row<T, MW> SO = w.slot(B_SO);
+  // MW: the second PCR buffer (pcr_solve), rows the step and the fast pass
+  // leave dead during a pass (their ux..sx are in registers); the full
+  // pass's rows all hold outputs or inputs, so it solves on x5 alone
+  const Row<T, MW> y5[5] = {w.slot(B_UX), w.slot(B_VX), w.slot(B_TX),
+                            w.slot(B_SX), w.slot(B_X5)};
+  const Row<T, MW>* const yp = FULL ? nullptr : y5;
 
   KPP_CLOCK(kpp_t0);
   // ---- under-relaxation: ux..sx := relaxed iterate ----------------------
@@ -739,6 +952,27 @@ KPP_DEV void pass_warp(const PassParams& P, const Grid<T>& g,
       w.slot(full_slot(4 + FO_BETA))[k] = beta[q];
       w.slot(full_slot(4 + FO_BUOY))[k] = buoy[q];
     }
+  }
+  if constexpr (MW) {
+    // one barrier for the surface values' cells and the reference
+    // averages' rows (the one before it: the rows' last readers, the
+    // previous pass's solves); in a cluster, block 0 also pushes its
+    // first levels of those rows to the other blocks (dead rows there)
+    col_sync<MW>();
+    lvl_put(w, rho, 0, BC_RHO0);
+    lvl_put(w, cp, 0, BC_CP0);
+    lvl_put(w, alpha, 0, BC_TA0);
+    lvl_put(w, beta, 0, BC_SB0);
+    lvl_put(w, tx, 0, BC_TSFC);
+    put(X0, ux, k0);
+    put(X1, vx, k0);
+    put(X2, buoy, k0);
+    if constexpr (!FULL) {
+      ref_push(w, ux, B_UX);
+      ref_push(w, vx, B_VX);
+      ref_push(w, buoy, B_TX);
+    }
+    col_sync<MW>();
   }
   const T rho0 = lvl(w, rho, 0, BC_RHO0), cp0 = lvl(w, cp, 0, BC_CP0);
   const T ta0 = lvl(w, alpha, 0, BC_TA0), sb0 = lvl(w, beta, 0, BC_SB0);
@@ -785,16 +1019,47 @@ KPP_DEV void pass_warp(const PassParams& P, const Grid<T>& g,
   T ritop[NS], dvsq[NS], dbloc[NS], shsq[NS];
   T uref_b = T(0), vref_b = T(0);
   {
-    col_sync<MW>();
-    put(X0, ux, k0);
-    put(X1, vx, k0);
-    put(X2, buoy, k0);
-    col_sync<MW>();
-    T urefv[NS], vrefv[NS];
+    if constexpr (!MW) {   // MW: published with the surface values
+      col_sync<MW>();
+      put(X0, ux, k0);
+      put(X1, vx, k0);
+      put(X2, buoy, k0);
+      col_sync<MW>();
+    }
+    // MW: the levels ref_sums_mw reads at home (ref_push)
+    const T *l0 = nullptr, *l1 = nullptr, *l2 = nullptr;
+    int lc = 0;
+    if constexpr (MW == CLUSTER) {
+      if (w.me == 0) {
+        l0 = X0.p;
+        l1 = X1.p;
+        l2 = X2.p;
+        lc = w.lb;
+      } else if (!FULL) {
+        l0 = w.b + B_UX * w.lb;
+        l1 = w.b + B_VX * w.lb;
+        l2 = w.b + B_TX * w.lb;
+        lc = w.kc;
+      }
+    } else if constexpr (MW) {
+      l0 = X0;
+      l1 = X1;
+      l2 = X2;
+      lc = LZ;
+    }
+    T urefv[NS], vrefv[NS], brefv[NS];
+    if constexpr (MW)   // loads ahead, but in the cluster's step
+      ref_sums_mw<!(MW == CLUSTER && STEP)>(g.arefG, LZ, k0, g.hi, lc, l0,
+                                             l1, l2, X0, X1, X2, urefv,
+                                             vrefv, brefv);
     KPP_FOR_Q {
       const int n = k0 + 32 * q;
       T uref, vref, bref;
-      if ((MW || NS >= AREF_DEV_MIN_NS) && g.arefG)
+      if constexpr (MW) {
+        uref = urefv[q];
+        vref = vrefv[q];
+        bref = brefv[q];
+      } else if ((MW || NS >= AREF_DEV_MIN_NS) && g.arefG)
         ref_sums<T, true>(g.arefG, LZ, n, g.hi[n], X0, X1, X2, &uref, &vref,
                           &bref);
       else
@@ -816,6 +1081,11 @@ KPP_DEV void pass_warp(const PassParams& P, const Grid<T>& g,
       }
     }
     if (FULL) {
+      if constexpr (MW) {
+        lvl_put(w, urefv, nz - 1, BC_UREF);
+        lvl_put(w, vrefv, nz - 1, BC_VREF);
+        col_sync<MW>();
+      }
       uref_b = lvl(w, urefv, nz - 1, BC_UREF);
       vref_b = lvl(w, vrefv, nz - 1, BC_VREF);
     }
@@ -831,7 +1101,8 @@ KPP_DEV void pass_warp(const PassParams& P, const Grid<T>& g,
                  ? dbloc[q] * (g.zm[k - 1] - g.zm[k]) / (shsq[q] + T(EPS16))
                  : T(0);
   }
-  col_sync<MW>();
+  if constexpr (!MW)   // MW: X3's last readers are past the pass's first
+    col_sync<MW>();    // barriers
   put(X3, rig, k0);
   col_sync<MW>();
   KPP_FOR_Q {
@@ -867,7 +1138,8 @@ KPP_DEV void pass_warp(const PassParams& P, const Grid<T>& g,
   }
 
   if (P.ldd) {  // double diffusion (ddmix_mod :12-52)
-    col_sync<MW>();
+    if constexpr (!MW)   // MW: X0..X2's readers (the reference averages)
+      col_sync<MW>();    // are past rimix's barrier
     put(X0, alpha, k0);
     put(X1, beta, k0);
     put(X2, tx, k0);
@@ -899,6 +1171,12 @@ KPP_DEV void pass_warp(const PassParams& P, const Grid<T>& g,
     }
   }
   {  // bottom kmp1 coefficient for blmix matching (kppmix :58-62)
+    if constexpr (MW) {
+      lvl_put(w, difm, nz, BC_MNZ);
+      lvl_put(w, difs, nz, BC_SNZ);
+      lvl_put(w, dift, nz, BC_TNZ);
+      col_sync<MW>();
+    }
     const T m_nz = lvl(w, difm, nz, BC_MNZ), s_nz = lvl(w, difs, nz, BC_SNZ),
             t_nz = lvl(w, dift, nz, BC_TNZ);
     KPP_FOR_Q {
@@ -919,7 +1197,8 @@ KPP_DEV void pass_warp(const PassParams& P, const Grid<T>& g,
     const T hek = T(CEKMAN) * ustar / (k_abs(f_cor) + T(EPS16));
     const T dmo_num = div_s(T(CMONOB) * (ustar * ustar * ustar), P.vonk);
     const Row<T, MW> swfrac = w.slot(B_SWFRAC);
-    col_sync<MW>();
+    if constexpr (!MW)   // MW: X0..X2's readers are past the kmp1 barrier
+      col_sync<MW>();
     put(X0, dbloc, k0);
     put(X1, ritop, k0);
     put(X2, dvsq, k0);
@@ -928,90 +1207,122 @@ KPP_DEV void pass_warp(const PassParams& P, const Grid<T>& g,
     // doubling scan's values there are final after its stages < 32, so
     // slot 0 goes first; slots 1..NS-1 only when it has no crossing
     // (levels past the first crossing never change hbl or kbl).  (MW: the
-    // first round is levels < 32, slot 0 of the column's first warp.)
+    // first round is levels < 32, slot 0 of the column's first warp, which
+    // runs it alone, its exchanges behind __syncwarp, while the others
+    // wait at first_crossing; the second round's scan alternates between
+    // (X3, X4) and (X0, X1), dead after its per-level terms, one barrier a
+    // stage, and publishes rib and dmo in the pair its last stage left.)
     T hmin_l[NS];
     int firstx = -1;
+    T hx = T(0);   // MW: hmin at the first crossing (first_crossing)
+    if constexpr (MW) KPP_FOR_Q hmin_l[q] = T(0);
     for (int nsl = 1;; nsl = NS) {
-      // per-level terms; the scan starts from m = raw, c = 1e-16 on 2..nz
-      T m_acc[NS], c_acc[NS], dmo_l[NS], hekman_l[NS];
-      KPP_FOR_Q {
-        const int k = k0 + 32 * q;
-        m_acc[q] = T(-BIG);
-        c_acc[q] = dmo_l[q] = hekman_l[q] = T(0);
-        if ((MW ? nsl > 1 || k < 32 : q < nsl) && k >= 2 && k <= nz) {
-          T z_kl = g.zm[k - 1], z_klm1 = g.zm[k - 2];
-          T bfsfc_l = b0 + b0sol * (T(1) - swfrac[k - 1]);
-          T stable_l = (bfsfc_l + T(EPS16) >= T(0)) ? T(1) : T(0);
-          T sigma_l = stable_l + (T(1) - stable_l) * T(EPSILON_KPP);
-          T wm_l, ws_l;
-          ws_fn(P, sigma_l, -z_kl, ustar, bfsfc_l, &wm_l, &ws_l);
-          T dz_up = z_klm1 - z_kl, dz_dn = z_kl - g.zm[k];
-          T bvsq = T(0.5) * (X0[k - 1] / dz_up + dbloc[q] / dz_dn);
-          T vtsq = -z_kl * ws_l * k_sqrt(k_abs(bvsq)) * vtc;
-          T dmo_raw = dmo_num / (k_abs(bfsfc_l) + T(EPS16));
-          dmo_l[q] = stable_l * dmo_raw - (T(1) - stable_l) * zbot;
-          hekman_l[q] = stable_l * hek - (T(1) - stable_l) * zbot;
-          m_acc[q] = X1[k - 1] / (X2[k - 1] + vtsq + T(EPS16));   // raw
-          c_acc[q] = T(EPS16);
-        }
-      }
-      // Rib(k) = max(raw_k, Rib(k-1) + 1e-16): the plain doubling scan
-      const int smax = nsl == 1 ? 32 : wz;
-      for (int step = 1; step < wz && step < smax; step *= 2) {
-        T m_s[NS], c_s[NS];
-        if (MW || step < 32) {
-          col_sync<MW>();
-          put(X3, m_acc, k0);
-          put(X4, c_acc, k0);
-          col_sync<MW>();
-          KPP_FOR_Q {
-            const int j = k0 + 32 * q - step;
-            m_s[q] = j >= 0 ? X3[j] : T(-BIG);
-            c_s[q] = j >= 0 ? X4[j] : T(0);
+      if (!MW || nsl > 1 || k0 < 32) {
+        // per-level terms; the scan starts from m = raw, c = 1e-16 on 2..nz
+        T m_acc[NS], c_acc[NS], dmo_l[NS], hekman_l[NS];
+        KPP_FOR_Q {
+          const int k = k0 + 32 * q;
+          m_acc[q] = T(-BIG);
+          c_acc[q] = dmo_l[q] = hekman_l[q] = T(0);
+          if ((MW ? nsl > 1 || k < 32 : q < nsl) && k >= 2 && k <= nz) {
+            T z_kl = g.zm[k - 1], z_klm1 = g.zm[k - 2];
+            T bfsfc_l = b0 + b0sol * (T(1) - swfrac[k - 1]);
+            T stable_l = (bfsfc_l + T(EPS16) >= T(0)) ? T(1) : T(0);
+            T sigma_l = stable_l + (T(1) - stable_l) * T(EPSILON_KPP);
+            T wm_l, ws_l;
+            ws_fn(P, sigma_l, -z_kl, ustar, bfsfc_l, &wm_l, &ws_l);
+            T dz_up = z_klm1 - z_kl, dz_dn = z_kl - g.zm[k];
+            T bvsq = T(0.5) * (X0[k - 1] / dz_up + dbloc[q] / dz_dn);
+            T vtsq = -z_kl * ws_l * k_sqrt(k_abs(bvsq)) * vtc;
+            T dmo_raw = dmo_num / (k_abs(bfsfc_l) + T(EPS16));
+            dmo_l[q] = stable_l * dmo_raw - (T(1) - stable_l) * zbot;
+            hekman_l[q] = stable_l * hek - (T(1) - stable_l) * zbot;
+            m_acc[q] = X1[k - 1] / (X2[k - 1] + vtsq + T(EPS16));   // raw
+            c_acc[q] = T(EPS16);
           }
+        }
+        // Rib(k) = max(raw_k, Rib(k-1) + 1e-16): the plain doubling scan
+        const int smax = nsl == 1 ? 32 : wz;
+        bool second = false;   // MW, second round: this stage's pair
+        for (int step = 1; step < wz && step < smax; step *= 2) {
+          T m_s[NS], c_s[NS];
+          if (MW && nsl > 1) {
+            const Row<T, MW> xm = second ? X0 : X3, xc = second ? X1 : X4;
+            put(xm, m_acc, k0);
+            put(xc, c_acc, k0);
+            col_sync<MW>();
+            second = !second;
+            KPP_FOR_Q {
+              const int j = k0 + 32 * q - step;
+              m_s[q] = j >= 0 ? xm[j] : T(-BIG);
+              c_s[q] = j >= 0 ? xc[j] : T(0);
+            }
+          } else if (MW || step < 32) {
+            col_sync<WARP>();
+            put(X3, m_acc, k0);
+            put(X4, c_acc, k0);
+            col_sync<WARP>();
+            KPP_FOR_Q {
+              const int j = k0 + 32 * q - step;
+              m_s[q] = j >= 0 ? X3[j] : T(-BIG);
+              c_s[q] = j >= 0 ? X4[j] : T(0);
+            }
+          } else {
+            slot_dn(m_acc, step, T(-BIG), m_s);
+            slot_dn(c_acc, step, T(0), c_s);
+          }
+          KPP_FOR_Q {
+            m_acc[q] = k_max(m_acc[q], m_s[q] + c_acc[q]);
+            c_acc[q] = c_s[q] + c_acc[q];
+          }
+        }
+        T rib[NS];
+        KPP_FOR_Q rib[q] = k_max(m_acc[q], c_acc[q]);
+        // where rib and dmo are published (MW, second round: the pair the
+        // last stage did not write)
+        const Row<T, MW> xrib = second ? X0 : X3, xdmo = second ? X1 : X4;
+        if (MW && nsl > 1) {
+          put(xrib, rib, k0);
+          put(xdmo, dmo_l, k0);
+          col_sync<MW>();
         } else {
-          slot_dn(m_acc, step, T(-BIG), m_s);
-          slot_dn(c_acc, step, T(0), c_s);
+          col_sync<WARP>();
+          put(X3, rib, k0);
+          put(X4, dmo_l, k0);
+          col_sync<WARP>();
         }
         KPP_FOR_Q {
-          m_acc[q] = k_max(m_acc[q], m_s[q] + c_acc[q]);
-          c_acc[q] = c_s[q] + c_acc[q];
+          const int k = k0 + 32 * q;
+          bool cross = false;
+          hmin_l[q] = T(0);
+          if ((MW ? nsl > 1 || k < 32 : q < nsl) && k >= 2 && k <= nz) {
+            T z_kl = g.zm[k - 1], z_klm1 = g.zm[k - 2];
+            T rib_prev = xrib[k - 1];
+            T dmo_prev = k == 2 ? -zbot : xdmo[k - 1];
+            T hri = -z_klm1 + (z_klm1 - z_kl) * (T(RICR) - rib_prev)
+                                  / (rib[q] - rib_prev);
+            T slope = (dmo_l[q] - dmo_prev) / (z_klm1 - z_kl);
+            T hmonob = dmo_l[q] <= -z_kl
+                           ? (dmo_l[q] + slope * z_kl) / (T(1) - slope) : -zbot;
+            T hmin = k_min(k_min(hri, hmonob), k_min(hekman_l[q], -ocdepth));
+            T hmin2 = k_min(k_min(hri, hmonob), -ocdepth);
+            if (hmin < -z_klm1 && hmin2 < -z_kl) hmin = hmin2;
+            hmin_l[q] = hmin;
+            cross = hmin < -z_kl;
+          }
+          unsigned bal = __ballot_sync(FULLMASK, cross);
+          if (firstx < 0 && bal)
+            firstx = (MW ? k0 - w.lane : 0) + 32 * q + __ffs(bal) - 1;
         }
       }
-      T rib[NS];
-      KPP_FOR_Q rib[q] = k_max(m_acc[q], c_acc[q]);
-      col_sync<MW>();
-      put(X3, rib, k0);
-      put(X4, dmo_l, k0);
-      col_sync<MW>();
-      KPP_FOR_Q {
-        const int k = k0 + 32 * q;
-        bool cross = false;
-        hmin_l[q] = T(0);
-        if ((MW ? nsl > 1 || k < 32 : q < nsl) && k >= 2 && k <= nz) {
-          T z_kl = g.zm[k - 1], z_klm1 = g.zm[k - 2];
-          T rib_prev = X3[k - 1];
-          T dmo_prev = k == 2 ? -zbot : X4[k - 1];
-          T hri = -z_klm1 + (z_klm1 - z_kl) * (T(RICR) - rib_prev)
-                                / (rib[q] - rib_prev);
-          T slope = (dmo_l[q] - dmo_prev) / (z_klm1 - z_kl);
-          T hmonob = dmo_l[q] <= -z_kl
-                         ? (dmo_l[q] + slope * z_kl) / (T(1) - slope) : -zbot;
-          T hmin = k_min(k_min(hri, hmonob), k_min(hekman_l[q], -ocdepth));
-          T hmin2 = k_min(k_min(hri, hmonob), -ocdepth);
-          if (hmin < -z_klm1 && hmin2 < -z_kl) hmin = hmin2;
-          hmin_l[q] = hmin;
-          cross = hmin < -z_kl;
-        }
-        unsigned bal = __ballot_sync(FULLMASK, cross);
-        if (firstx < 0 && bal)
-          firstx = (MW ? k0 - w.lane : 0) + 32 * q + __ffs(bal) - 1;
-      }
-      if (MW) firstx = first_crossing(w, firstx);
+      if constexpr (MW) firstx = first_crossing(w, firstx, hmin_l, &hx);
       if (firstx >= 0 || nsl == NS || nz < 32) break;
     }
     kbl = firstx >= 0 ? firstx : nz;
-    hbl = firstx >= 0 ? lvl(w, hmin_l, firstx, BC_HBL) : -g.zm[nz - 1];
+    if constexpr (MW)
+      hbl = firstx >= 0 ? hx : -g.zm[nz - 1];
+    else
+      hbl = firstx >= 0 ? lvl(w, hmin_l, firstx, BC_HBL) : -g.zm[nz - 1];
 
     KPP_MARK(4);   // bldepth
     // final surface forcing at hbl (:187-201)
@@ -1043,6 +1354,24 @@ KPP_DEV void pass_warp(const PassParams& P, const Grid<T>& g,
       *dp_out = dp;
       return d_0 + dp * delhat;
     };
+    if constexpr (MW) {   // the cells of matching and enhance, one barrier
+      const int ki = kbl - 1;
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+        const int k = kn - 1 + d;
+        if (k >= 0 && k < wz) {
+          lvl_put(w, difm, k, BC_MATCH + d);
+          lvl_put(w, difs, k, BC_MATCH + 3 + d);
+          lvl_put(w, dift, k, BC_MATCH + 6 + d);
+        }
+      }
+      if (ki >= 1 && ki <= nz - 1) {
+        lvl_put(w, difm, ki, BC_ENH);
+        lvl_put(w, difs, ki, BC_ENH + 1);
+        lvl_put(w, dift, ki, BC_ENH + 2);
+      }
+      col_sync<MW>();
+    }
     T viscp, difsp, diftp;
     T visch = match(difm, BC_MATCH, &viscp);
     T difsh = match(difs, BC_MATCH + 3, &difsp);
@@ -1143,7 +1472,14 @@ KPP_DEV void pass_warp(const PassParams& P, const Grid<T>& g,
   // ---- ocnint: backward-Euler solves (ocnint_mod :19-221) ----------------
   const T hm_sfc = g.hm[0];
   T cu[NS], cc[NS], cl[NS], rhs_t[NS], rhs_s[NS];
-  // U / V with semi-implicit Coriolis (:44-72)
+  // U / V with semi-implicit Coriolis (:44-72).  MW: X0's last readers
+  // are past the broadcasts' barrier; the U solve starts on y5 (X0 is read
+  // here), the V solve goes on where it left
+  int cur = 1;
+  if constexpr (MW) {
+    put(X0, difm, k0);
+    col_sync<MW>();
+  }
   tridcof(w, difm, g, nz, wz, X0, cu, cc, cl);
   const T bot_m = g.tdn[nz] * X0[nz];
   const T fc = dto * f_cor * T(0.5);
@@ -1154,7 +1490,7 @@ KPP_DEV void pass_warp(const PassParams& P, const Grid<T>& g,
     if (r == nz - 1) x = x + bot_m * UO[nz];
     rhs_t[q] = x;
   }
-  pcr_solve<T, 1>(w, cu, cc, cl, rhs_t, rhs_t, nz, wz, X0);
+  pcr_solve<T, 1>(w, cu, cc, cl, rhs_t, rhs_t, nz, wz, X0, yp, &cur);
   KPP_FOR_Q {
     const int r = k0 + 32 * q;
     u[q] = r < nz ? rhs_t[q] : (r == nz ? UO[r] : T(0));
@@ -1167,7 +1503,7 @@ KPP_DEV void pass_warp(const PassParams& P, const Grid<T>& g,
     if (r == nz - 1) x = x + bot_m * VO[nz];
     rhs_t[q] = x;
   }
-  pcr_solve<T, 1>(w, cu, cc, cl, rhs_t, rhs_t, nz, wz, X0);
+  pcr_solve<T, 1>(w, cu, cc, cl, rhs_t, rhs_t, nz, wz, X0, yp, &cur);
   KPP_FOR_Q {
     const int r = k0 + 32 * q;
     v[q] = r < nz ? rhs_t[q] : (r == nz ? VO[r] : T(0));
@@ -1182,11 +1518,21 @@ KPP_DEV void pass_warp(const PassParams& P, const Grid<T>& g,
   KPP_FOR_Q ts_eq = ts_eq && difs[q] == dift[q];
   bool same_ts = MW ? __syncthreads_and(ts_eq) : __all_sync(FULLMASK, ts_eq);
   if constexpr (MW == CLUSTER) same_ts = cl_sum(w, !same_ts, BC_AND) == 0;
+  // MW: the barrier of the AND (CLUSTER: of cl_sum) is past the V solve's
+  // readers; the T and S solves start on y5 (X0..X2 are read here)
+  if constexpr (MW) {
+    put(X0, dift, k0);
+    put(X1, ghat, k0);
+    put(X2, wxnt, k0);
+    col_sync<MW>();
+  }
   tridcof(w, dift, g, nz, wz, X0, cu, cc, cl);
-  col_sync<MW>();
-  put(X1, ghat, k0);
-  put(X2, wxnt, k0);
-  col_sync<MW>();
+  if constexpr (!MW) {
+    col_sync<MW>();
+    put(X1, ghat, k0);
+    put(X2, wxnt, k0);
+    col_sync<MW>();
+  }
   tridrhs(g, TO, X2, dift, X0, ghat, X1, wx0t, wx0t, dto, nz, wz, k0, rhs_t);
   T fcorr = cv[CS_FCORRP];
   if (P.l_relax_sst && !P.l_fcorr_withz && !P.l_fcorr) {
@@ -1220,12 +1566,22 @@ KPP_DEV void pass_warp(const PassParams& P, const Grid<T>& g,
       }
     }
   }
-  if (!same_ts) {   // the solve overwrites X0..X4
-    pcr_solve<T, 1>(w, cu, cc, cl, rhs_t, rhs_t, nz, wz, X0);
+  cur = 1;
+  if (!same_ts) {   // the solve overwrites X0..X4 (MW: and y5)
+    pcr_solve<T, 1>(w, cu, cc, cl, rhs_t, rhs_t, nz, wz, X0, yp, &cur);
+    if constexpr (MW) {
+      col_sync<MW>();
+      put(X0, difs, k0);
+      put(X1, ghat, k0);
+      col_sync<MW>();
+      cur = 1;
+    }
     tridcof(w, difs, g, nz, wz, X0, cu, cc, cl);
-    col_sync<MW>();
-    put(X1, ghat, k0);
-    col_sync<MW>();
+    if constexpr (!MW) {
+      col_sync<MW>();
+      put(X1, ghat, k0);
+      col_sync<MW>();
+    }
   }
   // salinity: wXNT(:,2) is identically zero in the reference
   tridrhs(g, SO, Row<T, MW>(), difs, X0, ghat, X1, wx0s, wx0s, dto, nz, wz,
@@ -1287,9 +1643,9 @@ KPP_DEV void pass_warp(const PassParams& P, const Grid<T>& g,
     }
   }
   if (same_ts)
-    pcr_solve<T, 2>(w, cu, cc, cl, rhs_t, rhs_s, nz, wz, X0);
+    pcr_solve<T, 2>(w, cu, cc, cl, rhs_t, rhs_s, nz, wz, X0, yp, &cur);
   else
-    pcr_solve<T, 1>(w, cu, cc, cl, rhs_s, rhs_s, nz, wz, X0);
+    pcr_solve<T, 1>(w, cu, cc, cl, rhs_s, rhs_s, nz, wz, X0, yp, &cur);
   KPP_FOR_Q {
     const int r = k0 + 32 * q;
     t[q] = r < nz ? rhs_t[q] : (r == nz ? TO[r] : T(0));
@@ -1379,22 +1735,38 @@ KPP_DEV bool instability(const PassParams& P, const Grid<T>& g,
       X1[3 * LZ + k] = ds * ds * wt;
     }
   }
-  col_sync<MW>();
   T acc = T(0);
-  if (k0 < 4) {
-    const Row<T, MW> row = X1 + k0 * LZ;
-    for (int k = 0; k < wz; ++k) acc = acc + row[k];
-  }
   // the four sums: lanes 0..3's by shuffle, or (MW) through broadcast
   // cells after a barrier (rmsd_sum; CLUSTER: every block's cells)
   T* cell = w.cv + NCV + BC_RMSD;
   if constexpr (MW == CLUSTER) {
-    if (k0 < 4)
-      for (int r = 0; r < w.cb; ++r) *cl_map(cell + k0, r) = acc;
-    cl_sync();
+    // each block's first four threads go on with the sums over its own
+    // levels, in rank order, handing them on to the next block's cells:
+    // every load at home
+    const int i = threadIdx.x;
+    col_sync<BLOCK>();
+    for (int r = 0; r < w.cb; ++r) {
+      if (w.me == r && i < 4) {
+        const int lo = r * w.lb, hi = lo + w.lb < wz ? lo + w.lb : wz;
+        acc = serial_sum(w.b + (B_X1 + i) * w.lb, 0, hi - lo,
+                         r == 0 ? T(0) : cell[i]);
+        if (r + 1 < w.cb)
+          *cl_map(cell + i, r + 1) = acc;
+        else
+          for (int rr = 0; rr < w.cb; ++rr) *cl_map(cell + i, rr) = acc;
+      }
+      col_sync<MW>();
+    }
   } else if (MW) {
-    if (k0 < 4) cell[k0] = acc;
-    __syncthreads();
+    col_sync<MW>();
+    if (k0 < 4) cell[k0] = serial_sum(X1 + k0 * LZ, 0, wz, acc);
+    col_sync<MW>();
+  } else {
+    col_sync<MW>();
+    if (k0 < 4) {
+      const Row<T, MW> row = X1 + k0 * LZ;
+      for (int k = 0; k < wz; ++k) acc = acc + row[k];
+    }
   }
   const bool e0 = k_sqrt(rmsd_sum<MW>(cell, acc, 0)) >= T(P.rmsd_thr[0]);
   const bool e1 = k_sqrt(rmsd_sum<MW>(cell, acc, 1)) >= T(P.rmsd_thr[1]);
@@ -1443,7 +1815,8 @@ KPP_DEV void step_warp(const PassParams& P, const Grid<T>& g,
     T hm_i = T(0), km_i = T(0), r0_i = T(0), c0_i = T(0);
     T hmixe = T(0), it = T(3), iconv = T(0), npass_total = T(0);
     for (int ip = 1;; ++ip) {
-      pass_warp<T, false>(P, g, w, u, v, t, s, ux, vx, tx, sx, f_local, &co);
+      pass_warp<T, false, NS, MW, true>(P, g, w, u, v, t, s, ux, vx, tx, sx,
+                                        f_local, &co);
       npass_total = npass_total + T(1);
       if (ip > 3) {
         T it_n = it + T(1);
@@ -1543,7 +1916,7 @@ KPP_DEV Block<T, NS, MW> block_view(const Geometry& G, unsigned char* raw) {
   b.g.arefG = nullptr;
   if constexpr (MW == CLUSTER) {   // the column's area, then hi of its LZ
     b.cols = sm;
-    b.g.hi = reinterpret_cast<const int*>(sm + NB * LZ + NCV + NBC_CL);
+    b.g.hi = reinterpret_cast<const int*>(sm + NB_MW * LZ + NCV + NBC_CL);
     return b;
   }
   if (MW) {   // aref always, and (grid_dev) the grid rows, in device memory
@@ -1665,7 +2038,7 @@ KPP_DEV Block<T, NS, CLUSTER> load_cluster(const PassParams& P,
     const int slot = i < NFIRST ? B_U + i : B_UO + (i - NFIRST);
     stash<CLUSTER>(st, wb + slot * LZ, wz - lo, v[i]);
   }
-  stash<CLUSTER>(st, wb + NB * LZ, NSC, cs);
+  stash<CLUSTER>(st, wb + NB_MW * LZ, NSC, cs);
   const int fslot[4] = {B_OCNT, B_SAL, B_FCZ, B_SFCZ};
   const bool fon[4] = {bool(P.l_relax_ocnt), bool(P.l_relax_sal),
                        bool(P.l_fcorr_withz), bool(P.l_sfcorr_withz)};
@@ -1753,7 +2126,7 @@ KPP_DEV Block<T, NS, MW> load_block(const PassParams& P, const Geometry& G,
     const int slot = i < NFIRST ? B_U + i : B_UO + (i - NFIRST);
     stash<MW>(st, wb + slot * LZ, wz, v[i]);
   }
-  stash<MW>(st, wb + NB * LZ, NSC, cs);
+  stash<MW>(st, wb + NROWS<MW> * LZ, NSC, cs);
   // forcing profiles only under their flags (else the inputs are dummies)
   const int fslot[4] = {B_OCNT, B_SAL, B_FCZ, B_SFCZ};
   const bool fon[4] = {bool(P.l_relax_ocnt), bool(P.l_relax_sal),
@@ -1776,13 +2149,15 @@ KPP_DEV Col<T, NS, MW> col_of(const Block<T, NS, MW>& b, const Geometry& G,
   const int LZ = MW ? 32 * NS * G.cw : 32 * NS;
   Col<T, NS, MW> w;
   w.b = MW ? b.cols : b.cols + wi * warp_stride(NS);
-  w.cv = w.b + NB * LZ;
+  w.cv = w.b + NROWS<MW> * LZ;
   w.lane = lane;
   if constexpr (MW == CLUSTER) {   // block r holds levels r LZ ..
     w.k0 = block_lo(G, LZ) + 32 * NS * wi + lane;
     w.lzc = LZ * G.cb;
     w.lb = LZ;
     w.cb = G.cb;
+    w.me = int(blockIdx.x % G.cb);
+    w.kc = G.kref < LZ ? G.kref : LZ;
     w.mg = unsigned((0x100000000ull + LZ - 1) / LZ);
   } else if constexpr (MW) {   // (one warp: lev0() is the lane itself)
     w.k0 = 32 * NS * wi + lane;
@@ -1819,7 +2194,7 @@ KPP_DEV void store_cluster(const PassParams& P, const Geometry& G,
 #pragma unroll
     for (int i = 0; i < 4 + N_FO; ++i) {
       if (i == 4 + FO_COLOUT)
-        stage_out<NS, CLUSTER, L>(st, out.p[i], wb + NB * LZ + NSC, ncv,
+        stage_out<NS, CLUSTER, L>(st, out.p[i], wb + NB_MW * LZ + NSC, ncv,
                                   cvs);
       else
         stage_out<NS, CLUSTER, L>(st, out.p[i] + off,
@@ -1830,7 +2205,7 @@ KPP_DEV void store_cluster(const PassParams& P, const Geometry& G,
     for (int i = 0; i < 8; ++i)
       stage_out<NS, CLUSTER, L>(st, out.p[i] + off, wb + (B_U + i) * LZ, wz,
                                 ps);
-    stage_out<NS, CLUSTER, L>(st, out.p[8], wb + NB * LZ + NSC, ncv, cvs);
+    stage_out<NS, CLUSTER, L>(st, out.p[8], wb + NB_MW * LZ + NSC, ncv, cvs);
   }
 }
 
@@ -1841,6 +2216,7 @@ KPP_DEV void pass_block(const PassParams& P, const Geometry& G,
                         unsigned char* raw) {
   const int LZ = MW ? 32 * NS * G.cw : 32 * NS;
   KPP_CLOCK(kpp_b0);
+  KPP_BAR_ZERO;
   Stager st;
   const Block<T, NS, MW> b = load_block<T, false, NS, MW, L>(P, G, in, raw,
                                                              &st);
@@ -1868,6 +2244,8 @@ KPP_DEV void pass_block(const PassParams& P, const Geometry& G,
     ColOut<T> co;
     pass_warp<T, FULL>(P, b.g, w, u, v, t, s, ux, vx, tx, sx, w.cv[CS_F], &co);
     if (!FULL) {
+      if constexpr (MW)    // the last solve may still read its y5 rows,
+        col_sync<MW>();    // B_UX..B_SX
       KPP_FOR_Q {
         const int k = k0 + 32 * q;
         w.slot(B_U)[k] = u[q];
@@ -1895,6 +2273,7 @@ KPP_DEV void pass_block(const PassParams& P, const Geometry& G,
   else
     __syncthreads();
   KPP_BMARK(12);   // waiting for the block's slowest warp
+  KPP_BAR_FLUSH;
   if constexpr (MW == CLUSTER) {
     store_cluster<T, FULL, NS, L>(P, G, st, b, out);
   } else {
@@ -1904,7 +2283,7 @@ KPP_DEV void pass_block(const PassParams& P, const Geometry& G,
 #pragma unroll
     for (int i = 0; i < 4 + N_FO; ++i) {
       if (i == 4 + FO_COLOUT)
-        stage_out<NS, MW, L>(st, out.p[i], wb + NB * LZ + NSC, 16,
+        stage_out<NS, MW, L>(st, out.p[i], wb + NROWS<MW> * LZ + NSC, 16,
                              L == Z_LANES ? 16 : nc);
       else
         stage_out<NS, MW, L>(st, out.p[i], wb + full_slot(i) * LZ, wz,
@@ -1915,7 +2294,7 @@ KPP_DEV void pass_block(const PassParams& P, const Geometry& G,
     for (int i = 0; i < 8; ++i)
       stage_out<NS, MW, L>(st, out.p[i], wb + (B_U + i) * LZ, wz,
                            L == Z_LANES ? wz : nc);
-    stage_out<NS, MW, L>(st, out.p[8], wb + NB * LZ + NSC, 8,
+    stage_out<NS, MW, L>(st, out.p[8], wb + NROWS<MW> * LZ + NSC, 8,
                          L == Z_LANES ? 8 : nc);
   }
   }
@@ -1929,6 +2308,7 @@ KPP_DEV void step_block(const PassParams& P, const Geometry& G,
                         unsigned char* raw) {
   const int LZ = MW ? 32 * NS * G.cw : 32 * NS;
   KPP_CLOCK(kpp_b0);
+  KPP_BAR_ZERO;
   Stager st;
   const Block<T, NS, MW> b = load_block<T, true, NS, MW, L>(P, G, in, raw,
                                                             &st);
@@ -1948,6 +2328,7 @@ KPP_DEV void step_block(const PassParams& P, const Geometry& G,
   else
     __syncthreads();
   KPP_BMARK(12);   // waiting for the block's slowest warp
+  KPP_BAR_FLUSH;
   if constexpr (MW == CLUSTER) {
     store_cluster<T, false, NS, L>(P, G, st, b, out);
   } else {
@@ -1957,7 +2338,7 @@ KPP_DEV void step_block(const PassParams& P, const Geometry& G,
   for (int i = 0; i < 8; ++i)
     stage_out<NS, MW, L>(st, out.p[i], wb + (B_U + i) * LZ, wz,
                          L == Z_LANES ? wz : nc);
-  stage_out<NS, MW, L>(st, out.p[8], wb + NB * LZ + NSC, 8,
+  stage_out<NS, MW, L>(st, out.p[8], wb + NROWS<MW> * LZ + NSC, 8,
                        L == Z_LANES ? 8 : nc);
   }
   KPP_BMARK(13);   // write-back

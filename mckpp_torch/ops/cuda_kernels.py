@@ -118,8 +118,9 @@ ONE_WARP_WZ = 32 * SLOTS[-1]      # the most levels one warp takes (256)
 ONE_BLOCK_WZ = 32 * MW_NS * WARPS  # ... one block takes (1024)
 MAXWZ = ONE_BLOCK_WZ * CB_MAX     # the most levels (nz + 2) a kernel takes
 N_SLOTS = 23           # per-column profile rows (NB)
+N_SLOTS_MW = N_SLOTS + 1  # ... of a column over warps or a cluster (NB_MW)
 N_COLV = 48            # per-column values: colscal rows + 16 outputs
-N_BC = 35              # MW: broadcast cells after the column values (NBC)
+N_BC = 43              # MW: broadcast cells after the column values (NBC)
 N_BC_CL = N_BC + 2     # CL: and a block's column AND and count (NBC_CL)
 NO_CLUSTER = -2        # the launcher's code for a cluster the card cannot
                        # hold (KPP_NO_CLUSTER)
@@ -164,7 +165,7 @@ def _lib_path(dtype, lib, phases=False, zaxis=0) -> str:
 
 
 def build(dtypes=(torch.float32, torch.float64), phases=False,
-          slots=LIBS, zaxes=(0,)) -> dict:
+          slots=LIBS, zaxes=(0,), nice=0) -> dict:
     """Compile the kernels for ``dtypes``, the libraries ``slots`` (level
     slots of the one-warp kernels, or ``MW`` or ``CL``) and the layouts
     ``zaxes`` (0 col_lanes, the default, or 1 z_lanes; one nvcc process
@@ -173,27 +174,30 @@ def build(dtypes=(torch.float32, torch.float64), phases=False,
     by this call.  ``phases`` builds the library with the stage clocks of
     ``csrc/fused_pass.cuh`` on (``-DKPP_PHASES``, for chip_phases.py)
     under its own name; the port itself always loads the one without.
-    Several processes (the ranks of a distributed run) may build into one
-    directory at once."""
+    The multi-warp and cluster libraries, whose ptxas work is the longest,
+    start first; ``nice`` raises the nvcc processes' niceness (a build
+    that runs beside other work).  Several processes (the ranks of a
+    distributed run) may build into one directory at once."""
     os.makedirs(_BUILD, exist_ok=True)
     procs = {}
-    for dt in dtypes:
-        for zaxis in zaxes:
-            for ns in slots:
-                out = _lib_path(dt, ns, phases, zaxis)
-                if os.path.exists(out):
-                    continue
-                tmp = tmp_name(out)
-                spread = {MW: 1, CL: 2}.get(ns)
-                lib_flags = ([f"-DKPP_NS={MW_NS}", f"-DKPP_MW={spread}"]
-                             if spread else [f"-DKPP_NS={ns}"])
-                cmd = [_nvcc(), *NVCC_FLAGS, f"-DKPP_REAL={_REALS[dt]}",
-                       *lib_flags, f"-DKPP_ZL={zaxis}",
-                       *(["-DKPP_PHASES"] if phases else []),
-                       "-o", tmp, os.path.join(_CSRC, "fused_kernels.cu")]
-                procs[dt, ns, zaxis] = (out, tmp, subprocess.Popen(
-                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                    text=True))
+    jobs = [(dt, ns, zaxis) for dt in dtypes for zaxis in zaxes
+            for ns in slots]
+    nice_cmd = shutil.which("nice") if nice else None
+    for dt, ns, zaxis in sorted(jobs, key=lambda j: j[1] not in (MW, CL)):
+        out = _lib_path(dt, ns, phases, zaxis)
+        if os.path.exists(out):
+            continue
+        tmp = tmp_name(out)
+        spread = {MW: 1, CL: 2}.get(ns)
+        lib_flags = ([f"-DKPP_NS={MW_NS}", f"-DKPP_MW={spread}"]
+                     if spread else [f"-DKPP_NS={ns}"])
+        cmd = [*([nice_cmd, "-n", str(nice)] if nice_cmd else []), _nvcc(),
+               *NVCC_FLAGS, f"-DKPP_REAL={_REALS[dt]}", *lib_flags,
+               f"-DKPP_ZL={zaxis}", *(["-DKPP_PHASES"] if phases else []),
+               "-o", tmp, os.path.join(_CSRC, "fused_kernels.cu")]
+        procs[dt, ns, zaxis] = (out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
     reports, failed = {}, []
     for key, (out, tmp, p) in procs.items():
         log, _ = p.communicate()
@@ -412,7 +416,7 @@ def smem_bytes_mw(cw: int, grid_dev: int, esize: int) -> int:
     levels a row; aref is read from device memory."""
     lz = 32 * MW_NS * cw
     ng = 0 if grid_dev else 6
-    return (ng * lz + N_SLOTS * lz + N_COLV + N_BC) * esize + lz * 4
+    return (ng * lz + N_SLOTS_MW * lz + N_COLV + N_BC) * esize + lz * 4
 
 
 def smem_bytes_cl(cw: int, esize: int) -> int:
@@ -422,7 +426,7 @@ def smem_bytes_cl(cw: int, esize: int) -> int:
     broadcast cells, and its levels' row extents, at ``128 * cw`` levels;
     aref and the grid rows are read from device memory."""
     lb = 32 * MW_NS * cw
-    return (N_SLOTS * lb + N_COLV + N_BC_CL) * esize + lb * 4
+    return (N_SLOTS_MW * lb + N_COLV + N_BC_CL) * esize + lb * 4
 
 
 def launch_geometry(nz: int, dtype, ncol: int,

@@ -78,7 +78,7 @@ def parse_namelist(text: str) -> Dict[str, Dict[str, Any]]:
         body = m.group(2)
         entries: Dict[str, Any] = {}
         # tokenize assignments: var = v1, v2, ...  var2 = ...
-        assigns = re.split(r"(\w+(?:\(\d+\))?)\s*=", body)
+        assigns = re.split(r"(\w+(?:\([^)]*\))?)\s*=", body)
         # assigns[0] is leading junk; pairs follow
         for i in range(1, len(assigns) - 1, 2):
             var = assigns[i].strip().upper()
@@ -333,7 +333,7 @@ def config_from_namelist(text: str) -> Tuple[KppConfig, Dict[str, Any]]:
         for var, val in g.get(grp, {}).items():
             if (grp, var) in consumed:
                 continue
-            base = re.sub(r"\(\d+\)$", "", var)
+            base = re.sub(r"\([^)]*\)$", "", var)
             if base not in declared:
                 raise ValueError(
                     f"unknown namelist variable {var} in {grp} — the "
@@ -343,13 +343,19 @@ def config_from_namelist(text: str) -> Tuple[KppConfig, Dict[str, Any]]:
                 raise ValueError(
                     f"indexed namelist assignment {grp}%{var} is not "
                     f"supported — write the whole {base} array instead")
-            if base in couple_defaults and int(val) != couple_defaults[base]:
-                raise ValueError(
-                    f"{grp}%{base}={val}: coupled-grid index addressing "
-                    "(ifirst/ilast/jfirst/jlast != domain window) is not "
-                    "implemented — subdomains are selected by lon/lat "
-                    "coordinate match (README 'Intentional deviations'; "
-                    "mckpp_physics_overrides.F90:28-39)")
+            if base in couple_defaults:
+                try:
+                    window = int(val) == couple_defaults[base]
+                except (TypeError, ValueError):   # a list or a string
+                    window = False
+                if not window:
+                    raise ValueError(
+                        f"{grp}%{base}={val}: coupled-grid index "
+                        "addressing (ifirst/ilast/jfirst/jlast != domain "
+                        "window) is not implemented — subdomains are "
+                        "selected by lon/lat coordinate match (README "
+                        "'Intentional deviations'; "
+                        "mckpp_physics_overrides.F90:28-39)")
             # declared but inert (dead in the reference too, or Fortran
             # array sizing): accept and surface in extras
             extras.setdefault(grp, {})[var] = val

@@ -67,6 +67,10 @@ struct EmuDim { unsigned x = 0, y = 0, z = 0; };
 static thread_local EmuDim threadIdx, blockIdx;
 static EmuDim blockDim;
 static std::atomic<bool> g_broken{false};
+// the barriers of the last launch: a block's (__syncthreads and its
+// _count and _and forms) and a cluster's, each counted once by thread 0 of
+// every block that reaches it
+static std::atomic<long> g_block_bars{0}, g_cluster_bars{0};
 
 struct EmuBar {
   std::mutex m;
@@ -107,7 +111,10 @@ static thread_local EmuCluster* t_cl;
 
 static inline int emu_warp() { return int(threadIdx.x) >> 5; }
 static inline int emu_lane() { return int(threadIdx.x) & 31; }
-static inline void __syncthreads() { t_blk->bar.wait(); }
+static inline void __syncthreads() {
+  if (threadIdx.x == 0) ++g_block_bars;
+  t_blk->bar.wait();
+}
 static inline void __syncwarp(unsigned = 0xffffffffu) {
   t_blk->warp[emu_warp()].wait();
 }
@@ -135,6 +142,7 @@ static unsigned __ballot_sync(unsigned, int p) {
 static int __all_sync(unsigned m, int p) { return __ballot_sync(m, p) == ~0u; }
 static int __syncthreads_count(int p) {
   EmuBlock* b = t_blk;
+  if (threadIdx.x == 0) ++g_block_bars;
   b->bar.wait();
   if (p) b->acc.fetch_add(1);
   b->bar.wait();
@@ -151,7 +159,10 @@ template <typename T> static inline T __ldg(const T* p) { return *p; }
 static inline unsigned __umulhi(unsigned a, unsigned b) {
   return unsigned((uint64_t(a) * b) >> 32);
 }
-static inline void cl_sync() { t_cl->bar.wait(); }
+static inline void cl_sync() {
+  if (threadIdx.x == 0) ++g_cluster_bars;
+  t_cl->bar.wait();
+}
 template <typename T> static T* cl_map(T* p, int rank) {
   const auto off = reinterpret_cast<unsigned char*>(p) - t_blk->smem;
   return reinterpret_cast<T*>(t_cl->smem[rank] + off);
@@ -170,6 +181,8 @@ static int emu_grid(const Geometry& G, F body) {
   const int cb = G.cb > 1 ? G.cb : 1, nt = 32 * G.warps;
   blockDim.x = unsigned(nt);
   g_broken = false;
+  g_block_bars = 0;
+  g_cluster_bars = 0;
   for (int c = 0; c < G.blocks / cb; ++c) {
     EmuCluster cl;
     cl.bar.n = cb * nt;
@@ -254,6 +267,10 @@ static int emu_pass(const PassParams& P, const Geometry& G,
 
 extern "C" {
 void emu_zaxis(int zaxis) { g_zaxis = zaxis; }
+void emu_barriers(long* out) {
+  out[0] = g_block_bars;
+  out[1] = g_cluster_bars;
+}
 int kpp_real_bytes() { return int(sizeof(Real)); }
 int kpp_max_wz() { return kpp::MAXWZ; }
 int kpp_fused_pass(int full, const void* ins, const void* outs,
@@ -303,6 +320,7 @@ def build_emu(tmp_path_factory, ns, zl):
     lib.kpp_fused_step.argtypes = [vp, vp, vp, vp, vp]
     lib.kpp_fused_step.restype = ci
     lib.emu_zaxis.argtypes = [ci]
+    lib.emu_barriers.argtypes = [vp]
     return lib
 
 
@@ -310,6 +328,22 @@ def build_emu(tmp_path_factory, ns, zl):
 def emu(tmp_path_factory):
     """The emulation with one warp a column at EMU_NS slots."""
     return build_emu(tmp_path_factory, EMU_NS, False)
+
+
+@pytest.fixture(scope="module")
+def barriers():
+    """{(spread, kernel): (block barriers, cluster barriers)} of the
+    emulated launches this file makes, filled by the tests that make them
+    (the cluster's at nz = 1100, the block's at nz = 1000)."""
+    return {}
+
+
+def count_barriers(lib):
+    """(block, cluster) barriers of ``lib``'s last launch, each counted
+    once a block."""
+    out = (ctypes.c_long * 2)()
+    lib.emu_barriers(ctypes.addressof(out))
+    return out[0], out[1]
 
 
 class Stop(Exception):
@@ -401,7 +435,8 @@ def kernels(pass_impl, w):
 
 
 @pytest.mark.parametrize("pass_impl", ["cuda_step", "cuda"])
-def test_cluster_equals_one_warp_at_nz1100(emu, monkeypatch, pass_impl):
+def test_cluster_equals_one_warp_at_nz1100(emu, monkeypatch, pass_impl,
+                                           barriers):
     """nz = 1100 (WZ 1102): the cluster geometry launch_geometry takes (2
     blocks of 5 warps) against one warp of 36 slots, bit for bit."""
     nz = 1100
@@ -411,6 +446,7 @@ def test_cluster_equals_one_warp_at_nz1100(emu, monkeypatch, pass_impl):
     assert (geom.lib, geom.cb, geom.cw, geom.blocks) == (ck.CL, 2, 5, 6)
     for k in kernels(pass_impl, w):
         got = run(emu, k, a, geom, monkeypatch)
+        barriers["cl", k.name] = count_barriers(emu)
         ref = run(emu, k, a, one_warp(nz, 3, kref), monkeypatch)
         for i, (x, y) in enumerate(zip(got, ref)):
             assert torch.equal(x, y), (k.name if hasattr(k, "name") else
@@ -422,7 +458,8 @@ def test_cluster_equals_one_warp_at_nz1100(emu, monkeypatch, pass_impl):
 
 
 @pytest.mark.parametrize("pass_impl", ["cuda_step", "cuda"])
-def test_cluster_equals_block_at_nz1000(emu, monkeypatch, pass_impl):
+def test_cluster_equals_block_at_nz1000(emu, monkeypatch, pass_impl,
+                                        barriers):
     """nz = 1000 (WZ 1002): a cluster forced to 2 blocks of 4 warps
     against the multi-warp kernels of one block (8 warps), bit for bit."""
     nz = 1000
@@ -433,8 +470,42 @@ def test_cluster_equals_block_at_nz1000(emu, monkeypatch, pass_impl):
     for k in kernels(pass_impl, w):
         got = run(emu, k, a, forced_cluster(3, kref, 2, 4), monkeypatch)
         ref = run(emu, k, a, block, monkeypatch)
+        barriers["cw", k.name] = count_barriers(emu)
         for i, (x, y) in enumerate(zip(got, ref)):
             assert torch.equal(x, y), i
+
+
+# (block, cluster) barriers of one launch on the inputs above (3 columns,
+# one of them land; the step's columns run 18 and 6 passes): at most what
+# the design with one barrier a PCR or scan stage and one a run of
+# broadcasts takes.  Before it (two barriers a stage, one a broadcast,
+# the RMSD sums read across blocks), in the comments: the cw step 2.5x as
+# many, the cl step's cluster barriers 2.4x.
+BARRIERS = {("cw", "fused_step"): (1310, 0),       # (3230, 0)
+            ("cw", "fused_pass_fast"): (168, 0),   # (405, 0)
+            ("cw", "fused_pass_full"): (294, 0),   # (417, 0)
+            ("cl", "fused_step"): (88, 2788),      # (80, 6820)
+            ("cl", "fused_pass_fast"): (6, 360),   # (6, 858)
+            ("cl", "fused_pass_full"): (6, 636)}   # (6, 882)
+
+
+def test_barriers_per_launch(emu, monkeypatch, barriers):
+    """The barriers of the cw (nz = 1000, 8 warps) and cl (nz = 1100, 2
+    blocks of 5 warps) launches above, counted by the emulation's
+    barriers, at most ``BARRIERS``; read from the runs the tests above
+    made (made here only where those did not run)."""
+    for pass_impl, kname in (("cuda_step", "fused_step"),
+                             ("cuda", "fused_pass_fast")):
+        if ("cw", kname) not in barriers:
+            test_cluster_equals_block_at_nz1000(emu, monkeypatch, pass_impl,
+                                                barriers)
+        if ("cl", kname) not in barriers:
+            test_cluster_equals_one_warp_at_nz1100(emu, monkeypatch,
+                                                   pass_impl, barriers)
+    assert set(barriers) == set(BARRIERS)
+    for key, (block, cluster) in BARRIERS.items():
+        got = barriers[key]
+        assert got[0] <= block and got[1] <= cluster, (key, got)
 
 
 # the layouts: one warp a column at 3 slots (a block of 8 or 4 columns,
@@ -524,3 +595,22 @@ def test_z_lanes_equals_col_lanes(emu_zl, monkeypatch, spread, pass_impl):
             npass, reset = got[8][:, 7], got[8][:, 5]
             assert npass[1] == 0 and (npass[[0, 2]] > 0).all()
             assert reset[0] == 3, reset
+
+
+@pytest.mark.parametrize("pass_impl", ["cuda_step", "cuda"])
+def test_cluster_reads_past_the_pushed_levels(emu, monkeypatch, pass_impl):
+    """A cluster of 2 blocks of 1 warp at nz = 130 (block 1 holds levels
+    128..131, whose aref rows reach level 13): with the geometry's kref cut
+    to 4, block 0 pushes only levels 0..3 of the reference averages' rows
+    to block 1, which reads the rest of each prefix from block 0 through
+    distributed shared memory (and the full pass, which pushes none, all
+    of it); the outputs equal the one-warp design's, bit for bit."""
+    nz, ncol, dmax = LAYOUT_SPREADS["cluster"]
+    w, a = layout_inputs(nz, ncol, dmax, pass_impl, monkeypatch)
+    kref = ck._ref_extents(a[-1])[1]
+    assert kref > 8
+    for k in kernels(pass_impl, w):
+        got = run(emu, k, a, forced_cluster(ncol, 4, 2, 1), monkeypatch)
+        ref = run(emu, k, a, one_warp(nz, ncol, kref), monkeypatch)
+        for i, (x, y) in enumerate(zip(got, ref)):
+            assert torch.equal(x, y), i

@@ -92,6 +92,22 @@ def test_namelist_every_group_parses_equal():
         tnml.config_from_namelist(" &NAME_TIMES dtsec=1.0, bogus=2 &END")
 
 
+@pytest.mark.parametrize("text, var", [
+    (" &NAME_PARAMETERS nz=40, ndim(1:3)=1,2,3 &END", "NDIM"),
+    (" &NAME_TIMES dtsec=1.0, nyear(1:2)=1998,1999 &END", "NYEAR"),
+    (" &NAME_PARAMETERS nz=40, NZTMAX(1:2)=34,34 &END", "NZTMAX"),
+    (" &NAME_COUPLE ifirst=1,2 &END", "IFIRST"),
+    (" &NAME_COUPLE ifirst='a' &END", "IFIRST"),
+])
+def test_namelist_refuses_by_name(text, var):
+    """A range subscript is an indexed assignment, and a coupled-window
+    index that is no integer is coupled-grid addressing: each raises a
+    ValueError that names the variable, not a raw TypeError."""
+    kind = "coupled-grid" if "COUPLE" in text else "indexed namelist"
+    with pytest.raises(ValueError, match=f"{kind}.*{var}|{var}.*{kind}"):
+        tnml.config_from_namelist(text)
+
+
 def _same_streams(a, b):
     assert [dataclasses.asdict(s) for s in a] == \
         [dataclasses.asdict(s) for s in b]

@@ -360,6 +360,28 @@ def test_ref_extents_and_pass_ops(nz, dmax, stretch):
     assert np.array_equal(dev.numpy(), hi)
 
 
+@pytest.mark.parametrize("nz,dmax", [(69, 1000.0), (300, 1000.0),
+                                     (1100, 2000.0)])
+def test_kernel_bytes_count_aref_prefix(nz, dmax):
+    """chip_smoke's bound counts of aref only the rows' nonzero prefixes
+    (and their int32 extents), in both layouts' forms of aref, and every
+    other input and output whole."""
+    import chip_smoke
+    aref = torch.as_tensor(_aref(nz, dmax, False), dtype=torch.float32)
+    wz = nz + 2
+    prof = torch.zeros((wz, 5), dtype=torch.float32)
+    outs = [torch.zeros((wz, 5), dtype=torch.float32),
+            torch.zeros((8, 5), dtype=torch.float32)]
+    kept = int((ck.row_extents(aref) + 1).sum())
+    assert kept < wz * wz
+    want = 4 * (wz * 5) + 4 * kept + 4 * wz + 4 * (wz * 5 + 8 * 5)
+    for a_ref in (aref, aref.t().contiguous()):     # col_lanes, z_lanes
+        got = chip_smoke.kernel_bytes([prof, a_ref], outs,
+                                      ck._kernel_aref(a_ref, 0 if a_ref is
+                                                      aref else 1))
+        assert got == want
+
+
 @pytest.mark.parametrize("nz,dscale", [(69, 2.0), (190, 5.0), (254, 10.0),
                                        (300, 5.0), (1022, 5.0), (1100, 5.0)])
 def test_ref_tile(nz, dscale):
@@ -626,20 +648,21 @@ WORST.update({(8, 69): (8, 0), (8, 94): (8, 0), (8, 95): (4, 0),
               (8, 190): (4, 1), (8, 191): (4, 1), (8, 254): (4, 1)})
 # (warps a column, grid_dev, shared-memory bytes) past 254 levels, by
 # element size and nz: float64 at 8 warps reads the grid rows from device
-# memory (242,328 B with them in shared memory, over SMEM_MAX)
-MW_GEOMETRY = {(4, 255): (3, 0, 46_412), (4, 383): (4, 0, 61_772),
-               (4, 510): (4, 0, 61_772), (4, 1022): (8, 0, 123_212),
-               (8, 255): (3, 0, 91_288), (8, 383): (4, 0, 121_496),
-               (8, 510): (4, 0, 121_496), (8, 1022): (8, 1, 193_176)}
+# memory (250,584 B with them in shared memory, over SMEM_MAX); a column
+# holds 24 rows (23 and the second PCR buffer's fifth, X5)
+MW_GEOMETRY = {(4, 255): (3, 0, 47_980), (4, 383): (4, 0, 63_852),
+               (4, 510): (4, 0, 63_852), (4, 1022): (8, 0, 127_340),
+               (8, 255): (3, 0, 94_424), (8, 383): (4, 0, 125_656),
+               (8, 510): (4, 0, 125_656), (8, 1022): (8, 1, 201_432)}
 # (blocks of the cluster, warps a block, shared-memory bytes a block) past
-# 1022 levels, by element size and nz: a block holds 23 rows of its 128 cw
-# levels, 48 column values, 37 cells and its levels' row extents
-CL_GEOMETRY = {(4, 1023): (2, 5, 61_780), (4, 2000): (2, 8, 98_644),
-               (4, 2046): (2, 8, 98_644), (4, 3070): (3, 8, 98_644),
-               (4, 8190): (8, 8, 98_644),
-               (8, 1023): (2, 5, 121_000), (8, 2000): (2, 8, 193_192),
-               (8, 2046): (2, 8, 193_192), (8, 3070): (3, 8, 193_192),
-               (8, 8190): (8, 8, 193_192)}
+# 1022 levels, by element size and nz: a block holds 24 rows of its 128 cw
+# levels, 48 column values, 45 cells and its levels' row extents
+CL_GEOMETRY = {(4, 1023): (2, 5, 64_372), (4, 2000): (2, 8, 102_772),
+               (4, 2046): (2, 8, 102_772), (4, 3070): (3, 8, 102_772),
+               (4, 8190): (8, 8, 102_772),
+               (8, 1023): (2, 5, 126_184), (8, 2000): (2, 8, 201_448),
+               (8, 2046): (2, 8, 201_448), (8, 3070): (3, 8, 201_448),
+               (8, 8190): (8, 8, 201_448)}
 
 
 def test_geometry_constants_match_the_source():
@@ -660,20 +683,23 @@ def test_geometry_constants_match_the_source():
     assert ck.MAXWZ == 8192 and ck.ONE_BLOCK_WZ == 1024
     assert ck.ONE_WARP_WZ == 256
     cells = src[src.index("  BC_RHO0 = 0,"):src.index("NBC = ")]
-    # 11 single cells, 9 for blmix's matching, 3 enhance, a crossing per
-    # warp, 4 RMSD sums
+    # 11 single cells, 9 for blmix's matching, 3 enhance, a crossing and
+    # its hmin per warp, 4 RMSD sums
     assert "BC_ENH = BC_MATCH + 9," in cells and \
-        "BC_FX = BC_ENH + 3, BC_RMSD = BC_FX + CW_MAX," in src and \
-        "NBC = BC_RMSD + 4" in src
+        "BC_FX = BC_ENH + 3, BC_HX = BC_FX + CW_MAX, " \
+        "BC_RMSD = BC_HX + CW_MAX," in src and "NBC = BC_RMSD + 4" in src
     # the single cells, then BC_MATCH
     assert len(re.findall(r"BC_\w+", cells.split("BC_ENH")[0])) == 11 + 1
-    assert ck.N_BC == 11 + 9 + 3 + 8 + 4
-    assert "KPP_HD int col_stride(int lz) { return NB * lz + NCV + NBC; }" \
+    assert ck.N_BC == 11 + 9 + 3 + 8 + 8 + 4
+    # a column over warps or a cluster: one more row (X5)
+    assert "enum { B_X5 = NB, NB_MW };" in src and \
+        ck.N_SLOTS_MW == ck.N_SLOTS + 1
+    assert "KPP_HD int col_stride(int lz) { return NB_MW * lz + NCV + NBC; }" \
         in src
     # the cluster's cells after them: a block's column AND and count
     assert "enum { BC_AND = NBC, BC_CNT, NBC_CL };" in src
     assert ck.N_BC_CL == ck.N_BC + 2
-    assert "return size_t(NB * lb + NCV + NBC_CL) * tsize" in src
+    assert "return size_t(NB_MW * lb + NCV + NBC_CL) * tsize" in src
     assert "int warps, blocks, kref, smem, ns, aref_dev, cw, grid_dev, cb;" \
         in src
     assert [f[0] for f in ck.Geometry._fields_] == \
