@@ -9,8 +9,9 @@ Drives the main path of ``chip_smoke.py`` (``--dtype``, by default
 float32; ~12% land; by default its 144,507 columns at nz = 69) at ``--nz`` levels over
 ``--dmax`` m and ``--ncol`` columns for two steps and captures each
 kernel's inputs on the third.  Then it builds the kernels of that depth
-(one warp a column up to 254 levels, a column over a block's warps, "cw",
-up to 1022, over a cluster of blocks, "cl", past it) with the stage
+(one warp a column up to 126 levels, a pair of warps a column, "pw3" and
+"pw4", up to 254, a column over a block's warps, "cw", up to 1022, over
+a cluster of blocks, "cl", past it) with the stage
 clocks of ``mckpp_torch/csrc/fused_pass.cuh`` on
 (``cuda_kernels.build(phases=True)``, a library of its own name beside
 the port's), points this process's wrappers at that library, launches
@@ -23,7 +24,10 @@ the stages' warp cycles and their number a block and a column-pass.  The
 shares are warp time (issue plus stalls), so they say where a warp waits
 as well as where it computes.
 
-At the deep spreads (the cw and cl kernels of PERF.md's table):
+At the deep spreads (the pair, cw and cl kernels of PERF.md's table):
+
+    python3 chip_phases.py --nz 150 --layout z_lanes
+    python3 chip_phases.py --nz 254 --layout z_lanes
 
     python3 chip_phases.py --nz 510 --layout z_lanes
     python3 chip_phases.py --nz 2046 --ncol 16384 --dmax 4000 --layout z_lanes
@@ -89,14 +93,18 @@ def main(argv=()):
         caps[kname] = cap.first(kname)
         del m, cap
     del st, prm, frc
-    geom = ck.launch_geometry(nz, dtype, ncol)
+    # the geometry the wrappers take on these inputs (aref's real prefix)
+    a = caps["fused_step"][1]
+    geom = ck.launch_geometry(nz, dtype, ncol, ck._ref_extents(
+        ck._kernel_aref(a[-1], zaxis))[1])
+    del a
     lib = ck.load(dtype, geom.lib, phases=True, zaxis=zaxis)
     ck._libs[dtype, geom.lib, zaxis] = lib   # the wrappers' library
     # barriers are counted once a block (by its thread 0): a column over
     # a cluster counts its barriers once in each of its cb blocks, and a
-    # block of one-warp columns counts those of its first warp's column
-    per_column = (geom.cb if geom.cw > 1 or geom.cb > 1
-                  else 1.0 / geom.warps)
+    # block of several columns (one warp or a pair of warps each) counts
+    # those of its first column
+    per_column = (geom.cb if geom.cb > 1 else 1.0 / geom.cols_per_block)
     for kname, (w, a) in caps.items():
         out = w.launch(*a)
         torch.cuda.synchronize()
@@ -122,7 +130,9 @@ def main(argv=()):
                  "nz": nz, "ncol": ncol, "dmax": args.dmax,
                  "layout": args.layout, "dtype": args.dtype,
                  "library": ck._lib_tag(geom.lib),
-                 "warps_per_block": geom.warps, "blocks_per_cluster": geom.cb,
+                 "warps_per_block": geom.warps,
+                 "columns_per_block": geom.cols_per_block,
+                 "blocks_per_cluster": geom.cb,
                  "ms_instrumented": ms, "warp_cycles": total,
                  "share": {s: buf[i] / total for i, s in enumerate(STAGES)},
                  "block_warp_cycles": btotal,

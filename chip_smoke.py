@@ -27,11 +27,11 @@ Phases, each printing JSON lines; any breach raises, so the script exits
    default flags and with double diffusion, nz = 126 (WZ = 128) in
    float32, a deep-mixing case at nz = 100 whose kmix reaches below
    level 64, float64 at nz = 100 with aref kept whole (a block of 4
-   warps), each at the same bar; then past 126 levels (6 and 8 slots):
+   warps), each at the same bar; then past 126 levels (a pair of warps a
+   column, 3 slots to nz = 190 and 4 past it, several columns a block):
    nz = 127, 190 and 254 in float32 and float64 on a uniform and a
-   stretched grid (dscale 5) at 37 columns with land, double diffusion
-   in one case, float64 at 254 stretched with aref read from device
-   memory, a mixed block at nz = 127 (land, a trap column, uneven pass
+   stretched grid (dscale 5) at 37 columns with land (a ragged last
+   block), double diffusion in one case, a mixed block at nz = 127 (land, a trap column, uneven pass
    counts), a deep-mixing case at nz = 254 whose kmix reaches below level
    128, each at the same bar; then past 254 levels (a column over 3 to 8
    warps): nz = 255, 383 and 1022 in float32 and float64 on a uniform
@@ -50,7 +50,8 @@ Phases, each printing JSON lines; any breach raises, so the script exits
    each at the same bar; nz = 8191 raises ValueError naming the 8192
    limit, and nz = 2046 under "auto" runs the cluster step kernel; then
    the z_lanes build joined, its ptxas tables and clusters printed, and
-   in each spread (3, 4, 6 and 8 slots at nz = 69, 100, 190 and 254, a
+   in each spread (3 and 4 slots at nz = 69 and 100, a pair of warps of
+   3 and 4 slots at 190 and 254, a
    column over 4 and 8 warps at 510 and 1022, a cluster of 2 blocks at
    2046) and dtype the z_lanes kernels on a col_lanes launch's inputs
    transposed, every output equal to the col_lanes one transposed bit
@@ -122,7 +123,8 @@ Phases, each printing JSON lines; any breach raises, so the script exits
    kernels timed at nz = 100 on 16,384 columns against their plain
    versions and bounds;
 11. deep main path: the step alone at the TerraMaris width at nz = 150
-   (6 slots), 254 (8 slots) and 510 (a column over 4 warps), at nz = 1022
+   and 254 (a pair of warps a column, 3 and 4 slots) and 510 (a column
+   over 4 warps), at nz = 1022
    (8 warps) on 16,384 columns over 2000 m and at nz = 2046 (a cluster
    of 2 blocks of 8 warps) on 16,384 columns over 4000 m, then in
    z_lanes at nz = 510 and 2046, float32, counts from 0 over a few steps
@@ -850,14 +852,15 @@ def gate_wide_aref():
     return {k: v for k, v in out.items() if "/" not in k}
 
 
-# past 126 levels, the 6- and 8-slot kernels: nz = 127, 190 and 254 in
-# float32 and float64 on a uniform grid and a stretched one (dscale 5), 37
-# columns with ~10% land; double diffusion at (190, float64, stretched);
-# float64 at 254 on the stretched grid reads aref from device memory
+# past 126 levels, the pair kernels (a column over a pair of warps of 3
+# slots to WZ = 192, of 4 past it): nz = 127, 190 and 254 in float32 and
+# float64 on a uniform grid and a stretched one (dscale 5), 37 columns
+# with ~10% land (a ragged last block); double diffusion at (190,
+# float64, stretched); aref read from device memory
 DEEP_DSCALE = 5.0
 GATE_DEEP = [(nz, dt, ds) for nz in (127, 190, 254)
              for dt in ("float32", "float64") for ds in (0.0, DEEP_DSCALE)]
-ONE_WARP_NZ = 254       # the most levels one warp a column takes (WZ = 256)
+PAIR_MAXNZ = 254        # the most levels a pair of warps takes (WZ = 256)
 # past 254 levels, a column over several warps: the first nz of 3 and of 4
 # warps and the last of 8 (WZ = 1024), both dtypes, both grids; double
 # diffusion at (383, float64, stretched)
@@ -884,8 +887,9 @@ def take_worst(worst, dtype, res):
 
 def gate_levels():
     """The kernels past 126 levels, each case held at the phase-2 bar on
-    the first step's inputs, with the level slots, warps and aref
-    placement its step launch took; the mixed block (a land column, a
+    the first step's inputs, with the library (a pair of warps a column
+    of 3 or 4 slots), the columns a block and aref's placement its step
+    launch took; the mixed block (a land column, a
     column the trap retries and uneven pass counts) at nz = 127; the
     deep-mixing inputs at nz = 254 over 100 m (kmix past level 128)
     against the serial-sum plain version.  Returns ({kernel: worst f32},
@@ -899,13 +903,18 @@ def gate_levels():
         flags = dict(GATE_FLAGS[fname], dscale=dscale)
         tol = TOL_F32 if dtype == "float32" else TOL_F64
         res, _, g = gate_case(37, nz, dtype, flags, tol, 70 + i, warm=0)
-        want_dev = int(dtype == "float64" and nz == 254 and dscale > 0)
-        if g.ns != (6 if nz <= 190 else 8) or g.aref_dev != want_dev:
+        ns = 3 if nz + 2 <= 192 else 4
+        if (g.lib, g.ns, g.cw, g.aref_dev, g.grid_dev) != (f"pw{ns}", ns, 2,
+                                                           1, 0) \
+                or g.cols_per_block < 2 or 37 % g.cols_per_block == 0:
             raise AssertionError(f"nz = {nz} {dtype} dscale {dscale}: "
-                                 f"{g.ns} slots, aref_dev {g.aref_dev}")
+                                 f"library {g.lib}, {g.ns} slots, {g.cw} "
+                                 f"warps a column, {g.cols_per_block} "
+                                 f"columns a block, aref_dev {g.aref_dev}")
         emit({"phase": "gate", "ncol": 37, "nz": nz, "flags": fname,
-              "dtype": dtype, "dscale": dscale, "level_slots": g.ns,
-              "warps_per_block": g.warps, "kref": g.kref,
+              "dtype": dtype, "dscale": dscale, "library": g.lib,
+              "level_slots": g.ns, "warps_per_column": g.cw,
+              "columns_per_block": g.cols_per_block, "kref": g.kref,
               "aref": "device" if g.aref_dev else "shared",
               "max_rel": res})
         take_worst(worst, dtype, res)
@@ -919,7 +928,7 @@ def gate_levels():
           "reset": cs[5].tolist()})
     take_worst(worst, "float32", res)
     take_worst(worst, "float32",
-               gate_deep(ONE_WARP_NZ, 100.0, 128, plain_cases=()))
+               gate_deep(PAIR_MAXNZ, 100.0, 128, plain_cases=()))
     return worst["float32"], worst["float64"], len(GATE_DEEP) + 2
 
 
@@ -1089,12 +1098,12 @@ def gate_cluster():
 
 
 # the z_lanes gate, (nz, dscale, dmax): each spread of the kernels in both
-# dtypes, one warp a column at 3, 4, 6 and 8 slots (float64 at 254 on the
-# stretched grid reads aref from device memory), a column over 4 and over
+# dtypes, one warp a column at 3 and 4 slots, a pair of warps of 3 (nz =
+# 190) and of 4 slots (254, stretched), a column over 4 and over
 # 8 warps (float64 at 8 reads the grid rows from device memory) and over a
 # cluster of 2 blocks of 8 warps (2 m levels, as GATE_CL)
 GATE_ZL = [(69, 0.0, 1000.0), (100, 0.0, 1000.0), (190, 0.0, 1000.0),
-           (ONE_WARP_NZ, DEEP_DSCALE, 1000.0), (510, 0.0, 1000.0),
+           (PAIR_MAXNZ, DEEP_DSCALE, 1000.0), (510, 0.0, 1000.0),
            (MW_MAXNZ, 0.0, 2044.0), (2046, 0.0, 4092.0)]
 ZL_PLAIN_NZ = 69        # the case of each dtype also held to the plain
 
@@ -1150,7 +1159,6 @@ def gate_zlanes(ptxas, zl_build):
                     g = ck.launch_geometry(nz, a[0].dtype, 37,
                                            ck._ref_extents(a[-1])[1])
                     geoms[w.name] = ck._lib_tag(g.lib, 1) + (
-                        "/aref_dev" if g.aref_dev and g.cw == 1 else "") + (
                         "/grid_dev" if g.grid_dev and g.cb == 1 else "")
                 del model, st, prm, frc, cap
             if set(res) & set(REPLACES) != set(REPLACES):
@@ -1538,13 +1546,14 @@ def phase_times_ns4(name, ptxas):
     return rows
 
 
-# the step alone past 126 levels, float32, (nz, columns, dmax): 6 slots at
-# nz = 150 and 8 at 254 at the TerraMaris width, a column over 4 warps at
+# the step alone past 126 levels, float32, (nz, columns, dmax): a pair of
+# warps a column of 3 slots at nz = 150 and of 4 at 254 at the TerraMaris
+# width, a column over 4 warps at
 # 510 there too (over 1000 m), over 8 warps at 1022 on 16,384 columns
 # over 2000 m, and over a cluster of 2 blocks of 8 warps at 2046 on 16,384
 # columns over 4000 m (~2 m levels, where the hmix loop converges: at
 # nz = 1022 over 1000 m every active column ran to the 200-pass cap)
-DEEP_MAIN = ((150, NCOL_MAIN, 1000.0), (ONE_WARP_NZ, NCOL_MAIN, 1000.0),
+DEEP_MAIN = ((150, NCOL_MAIN, 1000.0), (PAIR_MAXNZ, NCOL_MAIN, 1000.0),
              (510, NCOL_MAIN, 1000.0), (MW_MAXNZ, 16_384, 2000.0),
              (2046, 16_384, 4000.0))
 # ... and in z_lanes: a column over 4 warps at nz = 510 and over a cluster
@@ -1563,9 +1572,10 @@ def phase_deep_main(name, smi, ptxas, depths=DEEP_MAIN, layout="col_lanes"):
     run (the phase-2 bar) and timed beside its bound (:func:`kernel_row`,
     the plain version timed once).  The peak device memory of the path's run
     and of the phase with the plain versions' temporaries.  Returns the
-    rows, named by kernel and library (``_ns6``, ``_ns8``, ``_cw4``,
-    ``_cw8``, ``_cl2x8``: blocks of a cluster x warps of a block; then
-    ``_zl`` in z_lanes), at ``depths`` in ``layout``."""
+    rows, named by kernel and library (``_pw3``, ``_pw4``: a pair of
+    warps of 3 or 4 slots; ``_cw4``, ``_cw8``, ``_cl2x8``: blocks of a
+    cluster x warps of a block; then ``_zl`` in z_lanes), at ``depths`` in
+    ``layout``."""
     import torch
     from mckpp_torch.ops import cuda_kernels as ck
     rows, lines = [], []
@@ -1609,7 +1619,7 @@ def phase_deep_main(name, smi, ptxas, depths=DEEP_MAIN, layout="col_lanes"):
                 f"{row['warps_per_block']}" if row["library"] == ck.CL
                 else f"{kname}_cw{row['warps_per_column']}"
                 if row["library"] == ck.MW
-                else f"{kname}_ns{row['level_slots']}") + tag
+                else f"{kname}_{row['library']}") + tag
             rows.append(row)
         del cap
         lines.append({"nz": nz, "ncol": ncol, "dmax": dmax,
@@ -1679,8 +1689,9 @@ def phase_deep_column(name, smi, work, device="cuda", nz=DEEP_COLUMN_NZ,
     over ``dmax`` m (``benchmark_inputs.write_single_column``; 250 over
     250 m, 1000 over 2000 m and 2000 over 4000 m), a model day (72 steps)
     of the CLI in float32 on ``device``, its outputs held (finite, hmix in
-    [0, dmax]) and its kernels those launch_geometry takes there (8 slots
-    at 250, a column over 8 warps at 1000, over a cluster of 2 blocks at
+    [0, dmax]) and its kernels those launch_geometry takes there (a pair
+    of warps of 4 slots at 250, a column over 8 warps at 1000, over a
+    cluster of 2 blocks at
     2000); then the same inputs in float64 for
     ``steps64`` steps through the CLI three times: on ``device`` with the
     kernels, on ``device`` with the plain step body (:class:`plain_step`),
@@ -2997,8 +3008,9 @@ def main():
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     # each kernel x library x layout a path launched: 3 slots on the main
-    # path (phase 3, both layouts), 4 on single_column's (phase 10), 6 and
-    # 8 slots, a column over 4 and 8 warps and a cluster on the deep main
+    # path (phase 3, both layouts), 4 on single_column's (phase 10), a pair
+    # of warps of 3 and 4 slots, a column over 4 and 8 warps and a cluster
+    # on the deep main
     # path (phase 11; z_lanes at 4 warps and the cluster)
     emit({"kernels": [{k: r[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -18,11 +18,19 @@
 // chip, is bound by operations.  What the design does about it
 // (fused_pass.cuh has the details):
 // * one warp per column, levels on lanes (NS slots of 32 levels: NS = 3
-//   for WZ <= 96, 4 for WZ <= 128, 6 for WZ <= 192, 8 for WZ <= 256), so
-//   a column's profiles live in registers and a small per-warp
-//   shared-memory area, not in per-thread local memory (L2/HBM); at 6 and
-//   8 slots a thread holds up to the 255 registers it may, and what ptxas
-//   spills goes to local memory;
+//   for WZ <= 96, 4 for WZ <= 128), so a column's profiles live in
+//   registers and a small per-warp shared-memory area, not in per-thread
+//   local memory (L2/HBM);
+// * past 128 levels (WZ <= 256) one column over a pair of warps of NS = 3
+//   (WZ <= 192) or 4 slots, several columns a block (the "pw3" and "pw4"
+//   libraries, KPP_MW=3): a thread holds 3 or 4 slots where one warp
+//   would hold 6 or 8 (220-255 registers, 8 warps an SM), the column's
+//   rows shared by its two warps, which meet at a named barrier of their
+//   own (bar.sync 1 + the column's place in the block, 64 threads; its
+//   barrier.red forms for the column AND and count), so a column never
+//   waits for the block's others; the multi-warp body below, aref read
+//   from device memory; a level row of a profile staged as a run of the
+//   block's columns;
 // * past 256 levels (WZ <= 1024) one column a block over CW = 3..8 warps
 //   of 4 slots (the "cw" library, KPP_MW): the 4-slot register footprint,
 //   the column's rows shared by its warps, block barriers where levels
@@ -57,19 +65,21 @@
 //   COL_LANES reads one value a level at stride ncol (a 32-byte sector for
 //   each 4- or 8-byte value);
 // * the reference averages run over each aref row's nonzero prefix, from
-//   a copy in shared memory, or from a tile in device memory where no
-//   block holds the copy (float64 at 8 slots on a stretched grid).
+//   a copy in shared memory (one warp a column) or from a tile in device
+//   memory (a column over several warps or a cluster).
 // The launch geometry (warps per block, blocks, aref columns kept, dynamic
 // shared-memory bytes, level slots, aref's placement, warps a column, the
 // grid rows' placement, the blocks of a column's cluster) comes from the
 // wrapper; the launcher checks the bytes against smem_bytes(),
-// smem_bytes_mw() or smem_bytes_cl().  One library holds the three
-// kernels of one type and one number of level slots, or (KPP_MW=1, NS =
-// 4) of a column over several warps, or (KPP_MW=2, NS = 4) of a column
-// over a cluster, in one layout (KPP_ZL=0 COL_LANES, 1 Z_LANES).  Build:
+// smem_bytes_pw(), smem_bytes_mw() or smem_bytes_cl().  One library holds
+// the three kernels of one type and one number of level slots, or
+// (KPP_MW=3, NS = 3 or 4) of a column over a pair of warps, or (KPP_MW=1,
+// NS = 4) of a column over several warps, or (KPP_MW=2, NS = 4) of a
+// column over a cluster, in one layout (KPP_ZL=0 COL_LANES, 1 Z_LANES).
+// Build:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
-//        -shared -Xcompiler -fPIC -DKPP_REAL=float|double -DKPP_NS=3|4|6|8
-//        [-DKPP_MW=1|2] [-DKPP_ZL=1]
+//        -shared -Xcompiler -fPIC -DKPP_REAL=float|double -DKPP_NS=3|4
+//        [-DKPP_MW=1|2|3] [-DKPP_ZL=1]
 // -fmad=false keeps each multiply and add rounded on its own, as the
 // unfused eager torch ops that the kernels are held against round them.
 #include <cuda_runtime.h>
@@ -106,9 +116,16 @@
 // for one block, 255 registers, the step on 16,384 columns gave back most
 // of its gain and the fast pass ran slower).  float64, whose values take
 // two registers each, keeps one block of 256 threads an SM (capped as
-// float32, its cw step ran 12% and its cl step 30% slower).
+// float32, its cw step ran 12% and its cl step 30% slower).  The pair
+// kernels (KPP_MW=3) in float32 are capped at 128 registers a thread: one
+// block of 8 columns, 16 warps an SM; the step spills (44 B a thread at 3
+// slots, ~270 at 4) where at 168 it did not (141 and 168 registers, 12
+// warps an SM), but ran 10-15% faster so.  float64: one block of 4
+// columns (8 warps) an SM.
 #if KPP_MW == 1 && KPP_F32
 #define KPP_BOUNDS(T, NS) __maxnreg__(168)
+#elif KPP_MW == 3 && KPP_F32
+#define KPP_BOUNDS(T, NS) __maxnreg__(128)
 #else
 #define KPP_BOUNDS(T, NS) \
   __launch_bounds__(MAX_WARPS * 32, MinBlocks<T, NS>::value)
@@ -128,7 +145,8 @@ template <typename T, int NS> struct MinBlocks {
 template <> struct MinBlocks<float, 3> { static constexpr int value = 2; };
 
 static_assert(CW_MAX == MAX_WARPS, "a column's warps fill at most a block");
-static_assert(!KPP_MW || KPP_NS == MW_NS, "a column over warps has 4 slots");
+static_assert(!KPP_MW || KPP_NS == MW_NS || (KPP_MW == PAIR && KPP_NS == 3),
+              "a column over warps has 4 slots (a pair: 3 or 4)");
 
 template <typename T, bool FULL, int NS, Spread MW, Layout L>
 __global__ void KPP_BOUNDS(T, NS)
@@ -160,6 +178,14 @@ bool geometry_ok(const PassParams& P, const Geometry& G,
            && size_t(G.smem) == smem_bytes_cl(G.cw, tsize)
            && size_t(G.blocks) == size_t(P.ncol) * G.cb;
   if (G.cb != 1) return false;
+  if (KPP_MW == PAIR)   // cols = warps / 2 columns a block, each over a
+                        // pair of warps; aref from device memory
+    return common && G.cw == PW_CW && G.warps >= PW_CW
+           && G.warps % PW_CW == 0 && G.warps <= PW_CW * PW_COLS_MAX
+           && P.wz <= 32 * PW_CW * KPP_NS && G.aref_dev == 1 && in.aref_t
+           && G.grid_dev == 0
+           && size_t(G.smem) == smem_bytes_pw(KPP_NS, G.warps / PW_CW, tsize)
+           && size_t(G.blocks) * (G.warps / PW_CW) >= size_t(P.ncol);
   if (KPP_MW)   // one column a block over cw warps, aref from device memory
     return common && G.cw >= 2 && G.cw <= CW_MAX && G.warps == G.cw
            && P.wz <= 32 * KPP_NS * G.cw && G.aref_dev == 1 && in.aref_t
@@ -167,11 +193,8 @@ bool geometry_ok(const PassParams& P, const Geometry& G,
            && size_t(G.smem) == smem_bytes_mw(G.cw, G.grid_dev, tsize)
            && G.blocks >= P.ncol;
   return common && G.cw == 1 && G.grid_dev == 0 && P.wz <= 32 * KPP_NS
-         && G.warps >= 1 && G.warps <= MAX_WARPS
-         && (G.aref_dev == 0 || G.aref_dev == 1)
-         && (!G.aref_dev || (KPP_NS >= AREF_DEV_MIN_NS && in.aref_t))
-         && size_t(G.smem) == smem_bytes(KPP_NS, G.aref_dev ? 0 : G.kref,
-                                         G.warps, tsize)
+         && G.warps >= 1 && G.warps <= MAX_WARPS && G.aref_dev == 0
+         && size_t(G.smem) == smem_bytes(KPP_NS, G.kref, G.warps, tsize)
          && size_t(G.blocks) * G.warps >= size_t(P.ncol);
 }
 
@@ -199,11 +222,10 @@ inline cudaLaunchConfig_t cluster_launch(const Geometry& G,
 }
 #endif
 
-// A block of fewer than MAX_WARPS warps is taken where the shared memory
-// of 8 would not fit (float64 from NS = 4 up, float at NS = 8 with a deep
-// aref prefix).  With aref_dev (from AREF_DEV_MIN_NS slots up, and always
-// in the MW library) the kernels read in.aref_t, which must be given; with
-// grid_dev (MW) in.grid_t.
+// A one-warp block of fewer than MAX_WARPS warps is taken where the
+// shared memory of 8 would not fit (float64 with a deep aref prefix).  With aref_dev (a column over several warps or a cluster) the
+// kernels read in.aref_t, which must be given; with grid_dev (MW)
+// in.grid_t.
 template <typename K>
 int launch(K kern, const PassParams& P, const Geometry& G, cudaStream_t stream,
            const Inputs<KPP_REAL>& in, const Outputs<KPP_REAL>& out) {
@@ -277,9 +299,11 @@ int kpp_real_bytes() { return int(sizeof(Real)); }
 int kpp_zaxis() { return int(LAYOUT); }
 
 // the levels this library's kernels cover (32 x its level slots, times
-// the most warps of a block in the MW libraries, times the most blocks of
-// a cluster in the CLUSTER one)
+// the 2 warps of a column in the PAIR libraries, the most warps of a
+// block in the MW libraries, times the most blocks of a cluster in the
+// CLUSTER one)
 int kpp_max_wz() {
+  if (MWL == kpp::PAIR) return 32 * kpp::PW_CW * NSL;
   return 32 * NSL * (MWL ? kpp::CW_MAX : 1)
          * (MWL == kpp::CLUSTER ? kpp::CB_MAX : 1);
 }

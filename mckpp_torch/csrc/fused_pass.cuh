@@ -1,5 +1,6 @@
 // The fused ocean pass and the whole ocean step for ONE column, run by ONE
-// warp (up to 256 levels) or by the CW warps of one block (past 256).
+// warp (up to 128 levels), by a pair of warps (up to 256), by the CW warps
+// of one block (up to 1024) or by a cluster of blocks (past 1024).
 // Twins of _pass_body and _step_body in mckpp_torch/ops/fused_pass.py,
 // which are the plain versions these kernels are held against.
 //
@@ -18,13 +19,12 @@
 // Levels on lanes: level k of the warp's column sits on lane k % 32, slot
 // k / 32.  The number of slots NS is a template parameter of every
 // function below: NS = 3 covers WZ <= 96 (the production TerraMaris shape,
-// nz = 69), NS = 4 covers WZ <= 128 (nz = 100 of the single-column
-// configuration), NS = 6 covers WZ <= 192 and NS = 8 WZ <= 256 (a
-// 250-level single column at 1 m); cuda_kernels.launch_geometry picks
-// the smallest that covers WZ.  A live profile is an array T x[NS] in
-// registers whose every index is a compile-time constant after unrolling,
-// so no profile is indexed in local memory (at 6 and 8 slots a thread
-// holds up to 255 registers, and what ptxas spills lives there).
+// nz = 69) and NS = 4 covers WZ <= 128 (nz = 100 of the single-column
+// configuration); cuda_kernels.launch_geometry picks the smaller that
+// covers WZ, and past 128 levels a column spreads over warps (below).  A
+// live profile is an array T x[NS] in registers whose every index is a
+// compile-time constant after unrolling, so no profile is indexed in
+// local memory.
 // Level-parallel work runs per lane (relaxation, EOS, solar terms, shear
 // and dbloc, rimix with z121, ddmix, bldepth's per-level terms, blmix,
 // tridcof and tridrhs, the T/S increments).  A stage that needs another level reads it from the
@@ -35,7 +35,7 @@
 // loops and never waits for another column.
 //
 // A column over several warps (the template parameter MW, the spread:
-// WARP, BLOCK or CLUSTER; as a flag, "over several warps"), the "cw"
+// WARP, BLOCK, CLUSTER or PAIR; as a flag, "over several warps"), the "cw"
 // library (MW = BLOCK): past 256 levels one block holds one column, spread
 // over CW = 2..8 warps of NS = 4 slots (WZ <= 128 CW, ONE_BLOCK_WZ =
 // 1024).  Level k sits on warp k / 128, lane k % 32, slot (k % 128) / 32;
@@ -90,6 +90,22 @@
 // (a block's slice holds only its own levels), and a block's shared
 // memory outlives its neighbours' reads of it: the kernel ends on a
 // cluster barrier before the write-back.
+//
+// A column over a pair of warps, several columns a block (MW = PAIR, the
+// "pw3" and "pw4" libraries): past 128 levels (WZ <= 256) a block holds C
+// columns, each over PW_CW = 2 warps of NS = 3 (WZ <= 192) or 4 slots.
+// Level k of column c sits on warp 2 c + k / (32 NS), lane k % 32, slot
+// (k % (32 NS)) / 32; each column's rows (NB_MW of LZ = 64 NS levels, then
+// its column values and broadcast cells: col_stride) lie one after
+// another behind the block's grid rows.  The body is the multi-warp one,
+// but a column's warps meet at a named barrier of their own (pair_sync:
+// bar.sync 1 + c, 64 threads), and the column AND and count are that
+// barrier's reductions (pair_and, pair_count), so no column waits for the
+// block's others until the write-back.  aref is read from device memory.
+// The staging moves each level row of a profile as one run of C values
+// (COL_LANES), or each column's levels as runs of consecutive values,
+// staged by its own warps (Z_LANES).  A thread holds 3 or 4 slots where
+// the one-warp build would hold 6 or 8, so an SM holds more warps.
 //
 // Order-sensitive pieces keep the plain version's numbers:
 // * bldepth's bulk Richardson scan is the plain max-plus doubling scan,
@@ -163,15 +179,19 @@ __shared__ unsigned long long kpp_bar[2];
 
 namespace kpp {
 
-constexpr int NS_MAX = 8;         // level slots per lane of a one-warp column
+constexpr int NS_MAX = 4;         // level slots per lane of a one-warp column
 constexpr int MW_NS = 4;          // ... of a column over several warps (MW)
 constexpr int CW_MAX = 8;         // warps of one block's share of a column
 constexpr int ONE_BLOCK_WZ = 32 * MW_NS * CW_MAX;  // levels a block covers
 constexpr int CB_MAX = 8;         // blocks of a column's cluster (portable)
 constexpr int MAXWZ = ONE_BLOCK_WZ * CB_MAX;  // levels a column covers (8192)
 // how a column's levels spread: over one warp's lanes, over the warps of
-// one block (the "cw" library), over the blocks of a cluster ("cl")
-enum Spread { WARP = 0, BLOCK = 1, CLUSTER = 2 };
+// one block (the "cw" library), over the blocks of a cluster ("cl"), over
+// a pair of warps, several columns a block ("pw3", "pw4")
+enum Spread { WARP = 0, BLOCK = 1, CLUSTER = 2, PAIR = 3 };
+constexpr int PW_CW = 2;          // PAIR: the warps of one column
+constexpr int PW_COLS_MAX = 8;    // ... the columns of one block at most
+                                  // (named barriers 1..15 exist)
 // how a launch's arrays lie in device memory (the header above): a
 // profile (WZ, ncol) or (ncol, WZ), colscal (NSC, ncol) or (ncol, NSC),
 // the column outputs (8 or 16, ncol) or (ncol, 8 or 16); the grid rows,
@@ -195,11 +215,32 @@ template <typename T> KPP_DEV T* cl_map(T* p, int rank) {
   asm("mapa.u64 %0, %1, %2;" : "=l"(q) : "l"(p), "r"(rank));
   return q;
 }
+// PAIR: the barrier of this thread's column, named barrier 1 + its column
+// in the block over the column's 64 threads (it orders their shared-memory
+// accesses as __syncthreads does the block's), and the AND and the count
+// of p over those threads, that barrier's reductions; a host build
+// defines pair_sync, pair_and and pair_count itself
+KPP_DEV int pair_bar() { return 1 + int(threadIdx.x >> 6); }
+KPP_DEV void pair_sync() {
+  asm volatile("bar.sync %0, 64;" ::"r"(pair_bar()) : "memory");
+}
+KPP_DEV bool pair_and(bool p) {
+  int r;
+  asm volatile(
+      "{\n\t.reg .pred pi, po;\n\tsetp.ne.u32 pi, %1, 0;\n\t"
+      "bar.red.and.pred po, %2, 64, pi;\n\tselp.u32 %0, 1, 0, po;\n\t}"
+      : "=r"(r) : "r"(int(p)), "r"(pair_bar()) : "memory");
+  return r != 0;
+}
+KPP_DEV int pair_count(bool p) {
+  int n;
+  asm volatile(
+      "{\n\t.reg .pred pi;\n\tsetp.ne.u32 pi, %1, 0;\n\t"
+      "bar.red.popc.u32 %0, %2, 64, pi;\n\t}"
+      : "=r"(n) : "r"(int(p)), "r"(pair_bar()) : "memory");
+  return n;
+}
 #endif
-// aref from device memory (Geometry::aref_dev) is compiled in from this
-// many slots up: below it one warp and aref's whole shared copy always
-// fit, and the 3- and 4-slot kernels keep their code without the branch
-constexpr int AREF_DEV_MIN_NS = 6;
 // In each function templated on NS, LZ is the number of levels of a
 // profile row in shared memory: 32 * NS for one warp, 32 * NS * CW for a
 // column over CW warps (Col::lz).
@@ -234,10 +275,10 @@ struct PassParams {
 // dynamic shared-memory bytes (smem_bytes below, checked by the launcher),
 // level slots per lane (the NS of the kernels launched), where the
 // transposed aref is read from: 0 a copy in shared memory, 1 the wrapper's
-// (kref, LZ) tile in device memory (Inputs::aref_t), taken where no block
-// of 8 down to 1 warps holds the shared copy (float64 at 8 slots on a
-// stretched grid) and always by a column over several warps; the warps of
-// one column (cw: 1, or 2..CW_MAX for the MW kernels, whose block is one
+// (kref, LZ) tile in device memory (Inputs::aref_t), taken by a column
+// over several warps (one warp a column always holds the shared copy);
+// the warps of one column (cw: 1, 2 for the PAIR kernels, whose block is
+// warps / 2 columns, or 3..CW_MAX for the MW kernels, whose block is one
 // column); and where the MW kernels read the grid rows: 0 a copy in
 // shared memory, 1 the wrapper's padded (6, LZ) tile (Inputs::grid_t);
 // the blocks of one column's cluster (cb: 1, or 2..CB_MAX for the
@@ -341,6 +382,15 @@ KPP_HD size_t smem_bytes_cl(int cw, int tsize) {
          + size_t(lb) * sizeof(int);
 }
 
+// dynamic shared memory of one PAIR block, cols columns over a pair of
+// warps of ns slots each (LZ = 64 ns): the grid rows (6 x LZ), the
+// columns' areas, then hi (LZ ints); aref is read from device memory
+KPP_HD size_t smem_bytes_pw(int ns, int cols, int tsize) {
+  const int lz = 32 * PW_CW * ns;
+  return size_t(6 * lz + cols * col_stride(lz)) * tsize
+         + size_t(lz) * sizeof(int);
+}
+
 // full-pass diagnostic outputs (ops/fused_pass.py full tuple, after u..s)
 enum {
   FO_COLOUT = 0, FO_DIFM, FO_DIFS, FO_DIFT, FO_GHAT, FO_RHO, FO_CP, FO_ALPHA,
@@ -363,7 +413,7 @@ template <typename T> struct ColOut { T hbl, kbl, rho0, cp0; };
 template <typename T> struct Grid {
   const T *zm, *hm, *dm, *tdn, *tup, *pfx;  // LZ each, 0 beyond wz
   const T* arefT;   // (kref, LZ): arefT[k * LZ + n] = aref[n * wz + k]
-  const T* arefG;   // the same tile in device memory, or nullptr (arefT)
+  const T* arefG;   // (MW) the tile in device memory, else nullptr
   const int* hi;    // LZ: last nonzero k of aref row n, -1 beyond wz
 };
 
@@ -424,6 +474,8 @@ template <typename T, int NS, Spread MW> struct Col : ColCluster<MW> {
   KPP_DEV Row<T, MW> slot(int i) const {
     if constexpr (MW == CLUSTER)
       return ClRow<T>{b + i * this->lb, this->lb, lzc, this->me, this->mg};
+    else if constexpr (MW == PAIR)
+      return b + i * (32 * PW_CW * NS);
     else if constexpr (MW)
       return b + i * lzc;
     else
@@ -431,12 +483,14 @@ template <typename T, int NS, Spread MW> struct Col : ColCluster<MW> {
   }
 };
 
-// the barrier of one column's threads: its warp, (MW) its block or
-// (CLUSTER) its cluster
+// the barrier of one column's threads: its warp, (MW) its block,
+// (CLUSTER) its cluster or (PAIR) its pair of warps
 template <Spread MW> KPP_DEV void col_sync() {
   KPP_CLOCK(kpp_s0);
   if constexpr (MW == CLUSTER)
     cl_sync();
+  else if constexpr (MW == PAIR)
+    pair_sync();
   else if (MW)
     __syncthreads();
   else
@@ -602,7 +656,8 @@ KPP_DEV void pcr_solve(const Col<T, NS, MW>& w, const T (&cu)[NS],
                        const T (&cc)[NS], const T (&cl)[NS], T (&rhs0)[NS],
                        T (&rhs1)[NS], int nz, int wz, Row<T, MW> x5,
                        const Row<T, MW>* y5 = nullptr, int* cur = nullptr) {
-  const int LZ = MW ? w.lzc : 32 * NS, k0 = w.lev0();
+  const int LZ = MW == PAIR ? 32 * PW_CW * NS : MW ? w.lzc : 32 * NS,
+            k0 = w.lev0();
   const Row<T, MW> xa = x5;
   const Row<T, MW> xc = x5 + LZ;
   const Row<T, MW> xb = x5 + 2 * LZ;
@@ -707,16 +762,15 @@ KPP_DEV void pcr_solve(const Col<T, NS, MW>& w, const T (&cu)[NS],
 }
 
 // the reference sums of level n over aref row n's nonzero prefix k =
-// 0..hi, in k order: sum_k aT[k * lz + n] * x[k] for x = x0, x1, x2.  DEV:
-// aT is the tile in device memory, read through the read-only path (one
-// tile for every column, so it stays in L2); else the block's shared copy.
-// x0..x2 are rows of the column (R: Row).
-template <typename T, bool DEV, typename R>
+// 0..hi, in k order: sum_k aT[k * lz + n] * x[k] for x = x0, x1, x2, aT
+// the block's shared copy (one warp a column); x0..x2 are rows of the
+// column
+template <typename T, typename R>
 KPP_DEV void ref_sums(const T* aT, int lz, int n, int hi, R x0, R x1, R x2,
                       T* u_out, T* v_out, T* b_out) {
   T u = T(0), v = T(0), b = T(0);
   for (int k = 0; k <= hi; ++k) {
-    const T a = DEV ? __ldg(aT + k * lz + n) : aT[k * lz + n];
+    const T a = aT[k * lz + n];
     u = u + a * x0[k];
     v = v + a * x1[k];
     b = b + a * x2[k];
@@ -900,7 +954,7 @@ KPP_DEV void pass_warp(const PassParams& P, const Grid<T>& g,
                        T (&u)[NS], T (&v)[NS], T (&t)[NS], T (&s)[NS],
                        T (&ux)[NS], T (&vx)[NS], T (&tx)[NS], T (&sx)[NS],
                        T f_cor, ColOut<T>* co) {
-  const int LZ = MW ? w.lzc : 32 * NS;
+  const int LZ = MW == PAIR ? 32 * PW_CW * NS : MW ? w.lzc : 32 * NS;
   const int nz = P.nz, wz = P.wz, k0 = w.lev0();
   const T dto = T(P.dto), grav = T(P.grav), zbot = T(P.zbot);
   const T lam = T(LAMBDA_SMOOTH), oml = T(1.0 - LAMBDA_SMOOTH);
@@ -1059,12 +1113,9 @@ KPP_DEV void pass_warp(const PassParams& P, const Grid<T>& g,
         uref = urefv[q];
         vref = vrefv[q];
         bref = brefv[q];
-      } else if ((MW || NS >= AREF_DEV_MIN_NS) && g.arefG)
-        ref_sums<T, true>(g.arefG, LZ, n, g.hi[n], X0, X1, X2, &uref, &vref,
-                          &bref);
-      else
-        ref_sums<T, false>(g.arefT, LZ, n, g.hi[n], X0, X1, X2, &uref,
-                           &vref, &bref);
+      } else {
+        ref_sums(g.arefT, LZ, n, g.hi[n], X0, X1, X2, &uref, &vref, &bref);
+      }
       urefv[q] = uref;
       vrefv[q] = vref;
       T zref = T(EPSILON_KPP) * g.zm[n];
@@ -1516,7 +1567,11 @@ KPP_DEV void pass_warp(const PassParams& P, const Grid<T>& g,
   // per system as two solves).
   bool ts_eq = true;
   KPP_FOR_Q ts_eq = ts_eq && difs[q] == dift[q];
-  bool same_ts = MW ? __syncthreads_and(ts_eq) : __all_sync(FULLMASK, ts_eq);
+  bool same_ts;
+  if constexpr (MW == PAIR)
+    same_ts = pair_and(ts_eq);
+  else
+    same_ts = MW ? __syncthreads_and(ts_eq) : __all_sync(FULLMASK, ts_eq);
   if constexpr (MW == CLUSTER) same_ts = cl_sum(w, !same_ts, BC_AND) == 0;
   // MW: the barrier of the AND (CLUSTER: of cl_sum) is past the V solve's
   // readers; the T and S solves start on y5 (X0..X2 are read here)
@@ -1695,7 +1750,7 @@ KPP_DEV bool instability(const PassParams& P, const Grid<T>& g,
                          const Col<T, NS, MW>& w, const T (&u)[NS],
                          const T (&v)[NS], const T (&t)[NS], const T (&s)[NS],
                          T* fmul) {
-  const int LZ = MW ? w.lzc : 32 * NS;
+  const int LZ = MW == PAIR ? 32 * PW_CW * NS : MW ? w.lzc : 32 * NS;
   const int nz = P.nz, wz = P.wz, k0 = w.lev0();
   const Row<T, MW> X0 = w.slot(B_X0);
   // X1..X4: the four RMSD term rows, consecutive
@@ -1711,8 +1766,11 @@ KPP_DEV bool instability(const PassParams& P, const Grid<T>& g,
       T dxv = k_abs(t[q] - (k + 1 < wz ? X0[k + 1] : T(0)));
       bad = k_abs(u[q]) >= T(10) || k_abs(v[q]) >= T(10) || dxv >= T(10);
     }
-    nbad += MW ? __syncthreads_count(bad)
-               : __popc(__ballot_sync(FULLMASK, bad));
+    if constexpr (MW == PAIR)
+      nbad += pair_count(bad);
+    else
+      nbad += MW ? __syncthreads_count(bad)
+                 : __popc(__ballot_sync(FULLMASK, bad));
   }
   if constexpr (MW == CLUSTER) nbad = cl_sum(w, nbad, BC_CNT);
   // RMSD terms (d * d * w per level), summed serially in level order
@@ -1914,6 +1972,12 @@ KPP_DEV Block<T, NS, MW> block_view(const Geometry& G, unsigned char* raw) {
   b.g.pfx = sm + 5 * LZ;
   b.g.arefT = sm + 6 * LZ;
   b.g.arefG = nullptr;
+  if constexpr (MW == PAIR) {   // the columns' areas, then hi
+    b.cols = sm + 6 * LZ;
+    b.g.hi = reinterpret_cast<const int*>(b.cols + G.warps / PW_CW
+                                                       * col_stride(LZ));
+    return b;
+  }
   if constexpr (MW == CLUSTER) {   // the column's area, then hi of its LZ
     b.cols = sm;
     b.g.hi = reinterpret_cast<const int*>(sm + NB_MW * LZ + NCV + NBC_CL);
@@ -1924,8 +1988,7 @@ KPP_DEV Block<T, NS, MW> block_view(const Geometry& G, unsigned char* raw) {
     b.g.hi = reinterpret_cast<const int*>(b.cols + col_stride(LZ));
     return b;
   }
-  const bool dev = NS >= AREF_DEV_MIN_NS && G.aref_dev;
-  b.cols = sm + (6 + (dev ? 0 : G.kref)) * LZ;
+  b.cols = sm + (6 + G.kref) * LZ;
   b.g.hi = reinterpret_cast<const int*>(b.cols + G.warps * warp_stride(NS));
   return b;
 }
@@ -2052,6 +2115,71 @@ KPP_DEV Block<T, NS, CLUSTER> load_cluster(const PassParams& P,
   return b;
 }
 
+// PAIR: load the grid rows and the row extents (one copy for the block's
+// columns) and the inputs of the block's C = warps / 2 columns into their
+// areas; aref is read from device memory.  COL_LANES: thread tid stages
+// column tid % C at levels tid / C + 64 q, so each level row of a profile
+// moves as one run of C values; Z_LANES: each column's two warps stage
+// its levels tid % 64 + 64 q (32 consecutive values a warp access).
+template <typename T, bool STEP, int NS, Layout L>
+KPP_DEV Block<T, NS, PAIR> load_pair(const PassParams& P, const Geometry& G,
+                                     const Inputs<T>& in, unsigned char* raw,
+                                     Stager* st_out) {
+  constexpr int LZ = 32 * PW_CW * NS, TC = 32 * PW_CW;   // TC: a column's
+  Block<T, NS, PAIR> b = block_view<T, NS, PAIR>(G, raw);  // threads
+  const int tid = threadIdx.x, nt = blockDim.x, C = G.warps / PW_CW;
+  const int wz = P.wz, nc = P.ncol;
+  T* sm = reinterpret_cast<T*>(raw);
+  for (int k = tid; k < LZ; k += nt) {
+    const bool in_z = k < wz;
+    sm[k] = in_z ? in.p[IN_ZM][k] : T(0);
+    sm[LZ + k] = in_z ? in.p[IN_HM][k] : T(1);
+    sm[2 * LZ + k] = in_z ? in.p[IN_DM][k] : T(0);
+    sm[3 * LZ + k] = in_z ? in.p[IN_TDN][k] : T(0);
+    sm[4 * LZ + k] = in_z ? in.p[IN_TUP][k] : T(0);
+    sm[5 * LZ + k] = (in_z && P.l_advect) ? in.p[IN_PFX][k] : T(0);
+    const_cast<int*>(b.g.hi)[k] = in_z ? in.ref_hi[k] : -1;
+  }
+  b.g.arefG = in.aref_t;
+  Stager st;
+  if constexpr (L == Z_LANES) {   // a column's warps: its own column
+    st.j = tid / TC;
+    st.k0 = tid % TC;
+  } else {
+    st.j = tid % C;
+    st.k0 = tid / C;
+  }
+  st.kstep = TC;
+  st.col = size_t(blockIdx.x) * C + st.j;
+  st.col_ok = st.col < size_t(nc);
+  T* wb = b.cols + st.j * col_stride(LZ);
+  constexpr int NFIRST = STEP ? 4 : 8, NPROF = NFIRST + 6;
+  T v[NPROF][NS], cs[NS];
+#pragma unroll
+  for (int i = 0; i < NPROF; ++i) {
+    const int src = i < NFIRST ? IN_U + i : IN_UO + (i - NFIRST);
+    fetch<PAIR, L>(st, in.p[src], wz, L == Z_LANES ? wz : nc, v[i]);
+  }
+  fetch<PAIR, L>(st, in.p[IN_COLSCAL], NSC, L == Z_LANES ? NSC : nc, cs);
+#pragma unroll
+  for (int i = 0; i < NPROF; ++i) {
+    const int slot = i < NFIRST ? B_U + i : B_UO + (i - NFIRST);
+    stash<PAIR>(st, wb + slot * LZ, wz, v[i]);
+  }
+  stash<PAIR>(st, wb + NB_MW * LZ, NSC, cs);
+  const int fslot[4] = {B_OCNT, B_SAL, B_FCZ, B_SFCZ};
+  const bool fon[4] = {bool(P.l_relax_ocnt), bool(P.l_relax_sal),
+                       bool(P.l_fcorr_withz), bool(P.l_sfcorr_withz)};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (!fon[i]) continue;
+    fetch<PAIR, L>(st, in.p[IN_OCNT + i], wz, L == Z_LANES ? wz : nc, v[i]);
+    stash<PAIR>(st, wb + fslot[i] * LZ, wz, v[i]);
+  }
+  *st_out = st;
+  return b;
+}
+
 // Load the grid rows (unless they are read from device memory), aref's
 // nonzero columns (likewise) and the block's column inputs
 // (profiles into their slots, colscal into the column values).  The loads
@@ -2063,6 +2191,8 @@ KPP_DEV Block<T, NS, MW> load_block(const PassParams& P, const Geometry& G,
                                     Stager* st_out) {
   if constexpr (MW == CLUSTER)
     return load_cluster<T, STEP, NS, L>(P, G, in, raw, st_out);
+  if constexpr (MW == PAIR)
+    return load_pair<T, STEP, NS, L>(P, G, in, raw, st_out);
   const int LZ = MW ? 32 * NS * G.cw : 32 * NS;
   Block<T, NS, MW> b = block_view<T, NS, MW>(G, raw);
   const int tid = threadIdx.x, nt = blockDim.x, W = MW ? 1 : G.warps;
@@ -2090,7 +2220,7 @@ KPP_DEV Block<T, NS, MW> load_block(const PassParams& P, const Geometry& G,
       const_cast<int*>(b.g.hi)[k] = in_z ? in.ref_hi[k] : -1;
     }
   }
-  if (MW || (NS >= AREF_DEV_MIN_NS && G.aref_dev)) {
+  if (MW) {
     b.g.arefG = in.aref_t;
   } else {
     T* arefT = sm + 6 * LZ;
@@ -2142,10 +2272,20 @@ KPP_DEV Block<T, NS, MW> load_block(const PassParams& P, const Geometry& G,
 }
 
 // the column of warp wi (MW: the block's column, whose warp wi holds
-// levels 128 wi .. 128 wi + 127)
+// levels 128 wi .. 128 wi + 127; PAIR: the block's column wi / 2)
 template <typename T, int NS, Spread MW>
 KPP_DEV Col<T, NS, MW> col_of(const Block<T, NS, MW>& b, const Geometry& G,
                               int wi, int lane) {
+  if constexpr (MW == PAIR) {   // column wi / 2, whose warp wi % 2 holds
+    constexpr int LZ = 32 * PW_CW * NS;   // levels 32 NS (wi % 2) ..
+    Col<T, NS, MW> w;
+    w.b = b.cols + wi / PW_CW * col_stride(LZ);
+    w.cv = w.b + NB_MW * LZ;
+    w.lane = lane;
+    w.k0 = 32 * NS * (wi % PW_CW) + lane;
+    w.lzc = LZ;
+    return w;
+  }
   const int LZ = MW ? 32 * NS * G.cw : 32 * NS;
   Col<T, NS, MW> w;
   w.b = MW ? b.cols : b.cols + wi * warp_stride(NS);
@@ -2167,11 +2307,14 @@ KPP_DEV Col<T, NS, MW> col_of(const Block<T, NS, MW>& b, const Geometry& G,
 }
 
 // does warp wi of this block have a column (MW: the block's; CLUSTER:
-// the cluster's)
+// the cluster's; PAIR: the block's column wi / 2)
 template <Spread MW>
 KPP_DEV bool has_column(const PassParams& P, const Geometry& G, int wi) {
   if constexpr (MW == CLUSTER)
     return size_t(blockIdx.x / G.cb) < size_t(P.ncol);
+  if constexpr (MW == PAIR)
+    return size_t(blockIdx.x) * (G.warps / PW_CW) + wi / PW_CW
+           < size_t(P.ncol);
   return MW ? size_t(blockIdx.x) < size_t(P.ncol)
             : size_t(blockIdx.x) * G.warps + wi < size_t(P.ncol);
 }
@@ -2206,6 +2349,34 @@ KPP_DEV void store_cluster(const PassParams& P, const Geometry& G,
       stage_out<NS, CLUSTER, L>(st, out.p[i] + off, wb + (B_U + i) * LZ, wz,
                                 ps);
     stage_out<NS, CLUSTER, L>(st, out.p[8], wb + NB_MW * LZ + NSC, ncv, cvs);
+  }
+}
+
+// PAIR: write the outputs of the block's columns (the full pass's, or the
+// fast pass's and the step's 8) from their areas, as load_pair staged them
+template <typename T, bool FULL, int NS, Layout L>
+KPP_DEV void store_pair(const PassParams& P, const Stager& st,
+                        const Block<T, NS, PAIR>& b, const Outputs<T>& out) {
+  constexpr int LZ = 32 * PW_CW * NS;
+  const int wz = P.wz, nc = P.ncol;
+  const T* wb = b.cols + st.j * col_stride(LZ);
+  if (FULL) {
+#pragma unroll
+    for (int i = 0; i < 4 + N_FO; ++i) {
+      if (i == 4 + FO_COLOUT)
+        stage_out<NS, PAIR, L>(st, out.p[i], wb + NB_MW * LZ + NSC, 16,
+                               L == Z_LANES ? 16 : nc);
+      else
+        stage_out<NS, PAIR, L>(st, out.p[i], wb + full_slot(i) * LZ, wz,
+                               L == Z_LANES ? wz : nc);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      stage_out<NS, PAIR, L>(st, out.p[i], wb + (B_U + i) * LZ, wz,
+                             L == Z_LANES ? wz : nc);
+    stage_out<NS, PAIR, L>(st, out.p[8], wb + NB_MW * LZ + NSC, 8,
+                           L == Z_LANES ? 8 : nc);
   }
 }
 
@@ -2276,6 +2447,8 @@ KPP_DEV void pass_block(const PassParams& P, const Geometry& G,
   KPP_BAR_FLUSH;
   if constexpr (MW == CLUSTER) {
     store_cluster<T, FULL, NS, L>(P, G, st, b, out);
+  } else if constexpr (MW == PAIR) {
+    store_pair<T, FULL, NS, L>(P, st, b, out);
   } else {
   const int wz = P.wz, nc = P.ncol;
   const T* wb = b.cols + st.j * warp_stride(NS);
@@ -2331,6 +2504,8 @@ KPP_DEV void step_block(const PassParams& P, const Geometry& G,
   KPP_BAR_FLUSH;
   if constexpr (MW == CLUSTER) {
     store_cluster<T, false, NS, L>(P, G, st, b, out);
+  } else if constexpr (MW == PAIR) {
+    store_pair<T, false, NS, L>(P, st, b, out);
   } else {
   const int wz = P.wz, nc = P.ncol;
   const T* wb = b.cols + st.j * warp_stride(NS);

@@ -29,14 +29,18 @@ whole 32-byte sectors; the reference averages run over each ``aref`` row's
 nonzero prefix (:func:`row_extents`, computed once per ``aref`` tensor).
 :func:`launch_geometry` computes the launch geometry the C side is given,
 with the number of level slots a lane carries: each kernel is a template
-on it, built for ``SLOTS`` = 3 (``nz + 2 <= 96``), 4 (``<= 128``), 6
-(``<= 192``) and 8 (``<= 256``), and a launch takes the smallest that
-covers its levels.  At 6 and 8 slots a thread holds 220 to 255
-registers, the most it may (``chip_smoke.py`` phase 1 prints what ptxas
-spills).  The transposed ``aref`` sits in
-shared memory beside the warps' areas; where no block of 8 down to 1
-warps holds it (float64 at 8 slots on a stretched grid) the kernels read
-it from a tile in device memory instead (:func:`_ref_tile`).
+on it, built for ``SLOTS`` = 3 (``nz + 2 <= 96``) and 4 (``<= 128``), and
+a launch takes the smaller that covers its levels.  The transposed
+``aref`` sits in shared memory beside the warps' areas.
+
+Past 128 levels (``nz + 2 <= PAIR_WZ`` = 256) a column spreads over a
+pair of warps (``PW_CW``) of 3 (``nz + 2 <= 192``) or 4 slots a lane, the
+libraries ``PAIRS`` ("pw3", "pw4"), ``PW_COLS`` columns a block (8 in
+float32, 4 in float64): the column's rows in shared memory are shared by
+its two warps, which meet at a barrier of their own (a named barrier per
+column), so a thread holds 3 or 4 slots where one warp a column would
+hold 6 or 8, and an SM holds more warps; ``aref`` is read from a tile in
+device memory (:func:`_ref_tile`).
 
 Past 256 levels (``nz + 2 <= ONE_BLOCK_WZ`` = 1024) one column spreads
 over the ``cw`` = ceil((nz + 2) / 128) warps of one block, each with
@@ -70,7 +74,8 @@ A wrapper called with CPU tensors runs the plain torch body
 raises.  The kernels are built by ``nvcc`` from the sources in ``csrc/``
 on first use, into ``mckpp_torch/_build/``: one library for each dtype,
 layout and number of level slots, and one for each dtype and layout of
-the multi-warp and of the cluster kernels (``LIBS``).
+the pair kernels at 3 and 4 slots, of the multi-warp and of the cluster
+kernels (``LIBS``).
 """
 
 from __future__ import annotations
@@ -108,13 +113,20 @@ _lock = threading.Lock()
 # launch geometry (the constants of csrc/fused_pass.cuh and fused_kernels.cu)
 WARPS = 8              # warps per block at most (MAX_WARPS): columns of
                        # one warp each, or the warps of one column (CW_MAX)
-SLOTS = (3, 4, 6, 8)   # level slots per lane of the one-warp kernels (NS)
+SLOTS = (3, 4)         # level slots per lane of the one-warp kernels (NS)
+PW_CW = 2              # the warps of a column over a pair of warps
+PAIRS = ("pw3", "pw4")  # ... its libraries, 3 and 4 slots a lane
+# ... its columns a block, by element size: one block an SM, as many warps
+# as the kernels' registers let it hold (float32: 128 a thread, 16 warps;
+# float64: 255, 8 warps)
+PW_COLS = {4: 8, 8: 4}
 MW = "cw"              # the library of a column over several warps
 MW_NS = 4              # ... its level slots a lane: 128 levels a warp
 CL = "cl"              # the library of a column over a cluster of blocks
 CB_MAX = 8             # ... its blocks at most (the portable cluster size)
-LIBS = SLOTS + (MW, CL)   # the libraries of one dtype and layout
-ONE_WARP_WZ = 32 * SLOTS[-1]      # the most levels one warp takes (256)
+LIBS = SLOTS + PAIRS + (MW, CL)   # the libraries of one dtype and layout
+ONE_WARP_WZ = 32 * SLOTS[-1]      # the most levels one warp takes (128)
+PAIR_WZ = 32 * PW_CW * 4          # ... a pair of warps takes (256)
 ONE_BLOCK_WZ = 32 * MW_NS * WARPS  # ... one block takes (1024)
 MAXWZ = ONE_BLOCK_WZ * CB_MAX     # the most levels (nz + 2) a kernel takes
 N_SLOTS = 23           # per-column profile rows (NB)
@@ -125,8 +137,6 @@ N_BC_CL = N_BC + 2     # CL: and a block's column AND and count (NBC_CL)
 NO_CLUSTER = -2        # the launcher's code for a cluster the card cannot
                        # hold (KPP_NO_CLUSTER)
 SMEM_MAX = 232_448     # dynamic shared memory one block may use (H100)
-AREF_DEV_MIN_NS = 6    # the fewest slots whose kernels read aref from
-                       # device memory (below, the shared copy always fits)
 
 
 def reset_counts():
@@ -152,8 +162,9 @@ def _source_hash() -> str:
 
 
 def _lib_tag(lib, zaxis=0) -> str:
-    """"ns3" .. "ns8", "cw" or "cl", then "_zl" for the z_lanes build."""
-    tag = lib if lib in (MW, CL) else f"ns{lib}"
+    """"ns3", "ns4", "pw3", "pw4", "cw" or "cl", then "_zl" for the
+    z_lanes build."""
+    tag = lib if isinstance(lib, str) else f"ns{lib}"
     return tag + ("_zl" if zaxis else "")
 
 
@@ -167,15 +178,16 @@ def _lib_path(dtype, lib, phases=False, zaxis=0) -> str:
 def build(dtypes=(torch.float32, torch.float64), phases=False,
           slots=LIBS, zaxes=(0,), nice=0) -> dict:
     """Compile the kernels for ``dtypes``, the libraries ``slots`` (level
-    slots of the one-warp kernels, or ``MW`` or ``CL``) and the layouts
+    slots of the one-warp kernels, or one of ``PAIRS``, ``MW`` or ``CL``)
+    and the layouts
     ``zaxes`` (0 col_lanes, the default, or 1 z_lanes; one nvcc process
     per library, all run together) unless an up-to-date library exists.
     Returns {(dtype, lib, zaxis): ptxas report} for the libraries built
     by this call.  ``phases`` builds the library with the stage clocks of
     ``csrc/fused_pass.cuh`` on (``-DKPP_PHASES``, for chip_phases.py)
     under its own name; the port itself always loads the one without.
-    The multi-warp and cluster libraries, whose ptxas work is the longest,
-    start first; ``nice`` raises the nvcc processes' niceness (a build
+    The pair, multi-warp and cluster libraries, whose ptxas work is the
+    longest, start first; ``nice`` raises the nvcc processes' niceness (a build
     that runs beside other work).  Several processes (the ranks of a
     distributed run) may build into one directory at once."""
     os.makedirs(_BUILD, exist_ok=True)
@@ -183,14 +195,15 @@ def build(dtypes=(torch.float32, torch.float64), phases=False,
     jobs = [(dt, ns, zaxis) for dt in dtypes for zaxis in zaxes
             for ns in slots]
     nice_cmd = shutil.which("nice") if nice else None
-    for dt, ns, zaxis in sorted(jobs, key=lambda j: j[1] not in (MW, CL)):
+    for dt, ns, zaxis in sorted(jobs, key=lambda j: isinstance(j[1], int)):
         out = _lib_path(dt, ns, phases, zaxis)
         if os.path.exists(out):
             continue
         tmp = tmp_name(out)
         spread = {MW: 1, CL: 2}.get(ns)
         lib_flags = ([f"-DKPP_NS={MW_NS}", f"-DKPP_MW={spread}"]
-                     if spread else [f"-DKPP_NS={ns}"])
+                     if spread else [f"-DKPP_NS={ns[2:]}", "-DKPP_MW=3"]
+                     if ns in PAIRS else [f"-DKPP_NS={ns}"])
         cmd = [*([nice_cmd, "-n", str(nice)] if nice_cmd else []), _nvcc(),
                *NVCC_FLAGS, f"-DKPP_REAL={_REALS[dt]}", *lib_flags,
                f"-DKPP_ZL={zaxis}", *(["-DKPP_PHASES"] if phases else []),
@@ -224,9 +237,9 @@ def _lib(dtype, ns, zaxis=0):
 
 
 def load(dtype, ns, phases=False, zaxis=0):
-    """The kernel library for ``dtype`` at ``ns`` level slots (or ``MW``
-    or ``CL``) in layout ``zaxis``, built if missing (``phases``: see
-    :func:`build`)."""
+    """The kernel library for ``dtype`` at ``ns`` level slots (or one of
+    ``PAIRS``, ``MW`` or ``CL``) in layout ``zaxis``, built if missing
+    (``phases``: see :func:`build`)."""
     path = _lib_path(dtype, ns, phases, zaxis)
     if not os.path.exists(path):
         build((dtype,), phases, slots=(ns,), zaxes=(zaxis,))
@@ -248,7 +261,8 @@ def load(dtype, ns, phases=False, zaxis=0):
         lib.kpp_phase_zero.restype = ci
     if lib.kpp_real_bytes() != torch.empty((), dtype=dtype).element_size():
         raise RuntimeError(f"{path} was built for another dtype")
-    want = {MW: ONE_BLOCK_WZ, CL: MAXWZ}.get(ns, 32 * ns)
+    want = {MW: ONE_BLOCK_WZ, CL: MAXWZ}.get(ns) or (
+        32 * PW_CW * int(ns[2:]) if ns in PAIRS else 32 * ns)
     if lib.kpp_max_wz() != want:
         raise RuntimeError(f"{path}: {lib.kpp_max_wz()} levels, expected "
                            f"{want}")
@@ -365,8 +379,9 @@ def _check(arrays, kw, n_prof):
 class Geometry(ctypes.Structure):
     """Field for field the C struct kpp::Geometry (csrc/fused_pass.cuh);
     ``aref_dev`` is 1 where the kernels read aref from device memory,
-    ``cw`` the warps of one column in a block (1, or 2..8 for the ``MW``
-    library, whose block is one column, or 1..8 for the ``CL`` library),
+    ``cw`` the warps of one column in a block (1; 2 for the ``PAIRS``
+    libraries, whose block is ``warps / 2`` columns; 3..8 for the ``MW``
+    library, whose block is one column; or 1..8 for the ``CL`` library),
     ``grid_dev`` 1 where the ``MW`` or ``CL`` kernels read the grid rows
     from device memory and ``cb`` the blocks of a column's cluster (1, or
     2..8 for the ``CL`` library)."""
@@ -383,7 +398,8 @@ class Geometry(ctypes.Structure):
     @property
     def lib(self):
         """The library whose kernels take this geometry."""
-        return CL if self.cb > 1 else MW if self.cw > 1 else self.ns
+        return (CL if self.cb > 1 else MW if self.cw > PW_CW
+                else f"pw{self.ns}" if self.cw == PW_CW else self.ns)
 
     @property
     def levels(self) -> int:
@@ -429,6 +445,17 @@ def smem_bytes_cl(cw: int, esize: int) -> int:
     return (N_SLOTS_MW * lb + N_COLV + N_BC_CL) * esize + lb * 4
 
 
+def smem_bytes_pw(ns: int, cols: int, esize: int) -> int:
+    """Dynamic shared memory of one block of the pair kernels, ``cols``
+    columns over a pair of warps of ``ns`` slots each (csrc/fused_pass.cuh
+    smem_bytes_pw): the grid rows, the columns' rows, values and broadcast
+    cells, and the row extents, at ``64 * ns`` levels a row; aref is read
+    from device memory."""
+    lz = 32 * PW_CW * ns
+    col = N_SLOTS_MW * lz + N_COLV + N_BC
+    return (6 * lz + cols * col) * esize + lz * 4
+
+
 def launch_geometry(nz: int, dtype, ncol: int,
                     kref: int | None = None) -> Geometry:
     """Warps per block, blocks, aref columns the reference averages read,
@@ -436,13 +463,13 @@ def launch_geometry(nz: int, dtype, ncol: int,
     column and the grid rows' placement of one launch at ``nz`` levels
     over ``ncol`` columns.  ``kref`` is the number of ``aref`` columns the
     reference averages read (:func:`row_extents`); the default is the
-    worst case, all ``nz + 2``.  Up to 256 levels a column is one warp:
-    the level slots are the fewest of ``SLOTS`` that cover ``nz + 2``; a
+    worst case, all ``nz + 2``.  Up to 128 levels a column is one warp:
+    the level slots are the fewer of ``SLOTS`` that cover ``nz + 2``; a
     block takes ``WARPS`` warps (columns), or half as many until its
-    shared memory fits (float64 from 4 slots up, float32 at 8 with a deep
-    aref prefix).  Where not even one warp fits beside aref's shared copy,
-    aref is read from device memory (``aref_dev``) and the warps are
-    halved again from 8 without it.  Past 256 levels a block is one
+    shared memory fits (float64 at 4 slots with a deep aref prefix), aref
+    in shared memory.  Up to 256 a column is a pair of warps of 3 or 4
+    slots, ``PW_COLS`` columns a block, aref read from device memory
+    (``aref_dev``).  Past 256 levels a block is one
     column over ``cw`` = ceil((nz + 2) / 128) warps of ``MW_NS`` slots,
     aref read from device memory, the grid rows too where they leave the
     column no room (``grid_dev``: float64 at 8 warps).  Past 1024 levels a column
@@ -464,7 +491,7 @@ def launch_geometry(nz: int, dtype, ncol: int,
         return Geometry(warps=cw, blocks=ncol * cb, kref=kref,
                         smem=smem_bytes_cl(cw, esize), ns=MW_NS, aref_dev=1,
                         cw=cw, grid_dev=1, cb=cb)
-    if wz > ONE_WARP_WZ:
+    if wz > PAIR_WZ:
         cw = -(-wz // (32 * MW_NS))
         for grid_dev in (0, 1):
             smem = smem_bytes_mw(cw, grid_dev, esize)
@@ -473,19 +500,19 @@ def launch_geometry(nz: int, dtype, ncol: int,
                                 ns=MW_NS, aref_dev=1, cw=cw,
                                 grid_dev=grid_dev, cb=1)
         raise ValueError(f"{smem} bytes of shared memory exceed {SMEM_MAX}")
+    if wz > ONE_WARP_WZ:
+        ns = 3 if wz <= 32 * PW_CW * 3 else 4
+        cols = PW_COLS[esize]
+        return Geometry(warps=PW_CW * cols, blocks=-(-ncol // cols),
+                        kref=kref, smem=smem_bytes_pw(ns, cols, esize),
+                        ns=ns, aref_dev=1, cw=PW_CW, grid_dev=0, cb=1)
     ns = next(n for n in SLOTS if 32 * n >= wz)
-    placements = ((0, kref), (1, 0)) if ns >= AREF_DEV_MIN_NS else \
-        ((0, kref),)
-    for aref_dev, kept in placements:
-        warps = WARPS
-        while warps > 1 and smem_bytes(ns, kept, warps, esize) > SMEM_MAX:
-            warps //= 2
-        smem = smem_bytes(ns, kept, warps, esize)
-        if smem <= SMEM_MAX:
-            return Geometry(warps=warps, blocks=-(-ncol // warps),
-                            kref=kref, smem=smem, ns=ns, aref_dev=aref_dev,
-                            cw=1, grid_dev=0, cb=1)
-    raise ValueError(f"{smem} bytes of shared memory exceed {SMEM_MAX}")
+    warps = WARPS
+    while warps > 1 and smem_bytes(ns, kref, warps, esize) > SMEM_MAX:
+        warps //= 2
+    return Geometry(warps=warps, blocks=-(-ncol // warps), kref=kref,
+                    smem=smem_bytes(ns, kref, warps, esize), ns=ns,
+                    aref_dev=0, cw=1, grid_dev=0, cb=1)
 
 
 def max_clusters(dtype, geom: Geometry, kernel: str, zaxis=0) -> int:
@@ -559,14 +586,12 @@ def _ref_extents(aref: torch.Tensor):
     return tuple(_ref_entry(aref)[2:4])
 
 
-def _ref_tile(aref: torch.Tensor, ns: int, cw: int = 1,
-              cb: int = 1) -> torch.Tensor:
+def _ref_tile(aref: torch.Tensor, ns: int, cw: int, cb: int) -> torch.Tensor:
     """``aref`` transposed into a (kref, 32 ns cw cb) tile on its device,
     zero past its ``nz + 2`` columns: ``tile[k, n] = aref[n, k]``, the
-    layout of the kernels' shared copy, read from device memory where that
-    copy does not fit or the column spreads over ``cw`` warps (of ``cb``
-    blocks) (``Geometry.aref_dev``).  Made once per aref tensor and
-    width."""
+    layout of the one-warp kernels' shared copy, read from device memory
+    where the column spreads over ``cw`` warps (of ``cb`` blocks)
+    (``Geometry.aref_dev``).  Made once per aref tensor and width."""
     entry = _ref_entry(aref)
     lz = 32 * ns * cw * cb
     if lz not in entry[4]:

@@ -126,9 +126,10 @@ def hold_to_plain(monkeypatch, setups, nz, tol, aref_dev=None, first=None,
     (``serial``: with the reference averages summed serially,
     :func:`serial_sums`): floats within ``tol`` of each output's scale,
     the integer rows equal; each launch on the fewest level slots that
-    cover nz + 2 (past 256 levels a column over ceil((nz + 2) / 128) warps
-    of 4 slots, past 1024 over a cluster of ceil((nz + 2) / 1024) blocks),
-    and (``aref_dev`` not None) with aref in that placement."""
+    cover nz + 2 (past 128 levels a column over a pair of warps of 3 or 4
+    slots, past 256 over ceil((nz + 2) / 128) warps of 4 slots, past 1024
+    over a cluster of ceil((nz + 2) / 1024) blocks), and (``aref_dev`` not
+    None) with aref in that placement."""
     names = set()
     ns, cw, cb = _expected_slots(nz)
     for m, st, prm, frc in setups:
@@ -189,14 +190,13 @@ def test_kernels_match_plain(cuda, monkeypatch, dtype, tol, ncol, nz):
                                        (1022, 5.0), (1023, 0.0),
                                        (2046, 5.0)])
 def test_deep_kernels_match_plain(cuda, monkeypatch, dtype, tol, nz, dscale):
-    """Past 126 levels: 6 slots (nz 127 and 190) and 8 (nz 254), on a
-    uniform and a stretched grid, 13 columns (a ragged last block) with a
-    land column; past 254 a column over 3 (nz 255), 4 (383) and 8 (1022)
-    warps; past 1022 a column over a cluster of 2 blocks (nz 1023, 5 warps
-    each, and 2046, 8 each).  float64 at nz = 254 on the stretched grid reads aref from
-    device memory (no block holds its shared copy), as every launch past
-    254 does; every other case keeps it in shared memory.  Some column's
-    hmix loop runs to its
+    """Past 126 levels: a column over a pair of warps of 3 slots (nz 127
+    and 190) and of 4 (nz 254), several columns a block, on a uniform and
+    a stretched grid, 13 columns (a ragged last block) with a land column;
+    past 254 a column over 3 (nz 255), 4 (383) and 8 (1022) warps; past
+    1022 a column over a cluster of 2 blocks (nz 1023, 5 warps each, and
+    2046, 8 each).  Every one of these launches reads aref from device
+    memory.  Some column's hmix loop runs to its
     limit (~200 passes), so the per-pass kernel is held on its first 8
     calls.  The plain bodies sum the reference averages serially
     (:func:`serial_sums`): the stretched grids' aref rows reach 48 to 122
@@ -210,8 +210,7 @@ def test_deep_kernels_match_plain(cuda, monkeypatch, dtype, tol, nz, dscale):
         wet[3] = False
         setups.append((m, st, prm.replace(l_ocean=wet, run_physics=wet),
                        frc))
-    dev = int(nz > 254 or (dtype == "float64" and nz == 254 and dscale > 0))
-    hold_to_plain(monkeypatch, setups, nz, tol, aref_dev=dev, first=8,
+    hold_to_plain(monkeypatch, setups, nz, tol, aref_dev=1, first=8,
                   serial=True)
 
 
@@ -314,12 +313,15 @@ def _fewest_slots(nz):
 
 def _expected_slots(nz):
     """(level slots, warps a column in a block, blocks a column) of a
-    launch at nz: the fewest slots of one warp up to WZ = 256, past it 4
-    slots on ceil(WZ / 128) warps, past 1024 on a cluster of cb =
-    ceil(WZ / 1024) blocks of ceil(WZ / (128 cb)) warps."""
+    launch at nz: the fewest slots of one warp up to WZ = 128, up to 256
+    a pair of warps of 3 (WZ <= 192) or 4 slots, past it 4 slots on
+    ceil(WZ / 128) warps, past 1024 on a cluster of cb = ceil(WZ / 1024)
+    blocks of ceil(WZ / (128 cb)) warps."""
     wz = nz + 2
-    if wz <= 256:
+    if wz <= 128:
         return _fewest_slots(nz), 1, 1
+    if wz <= 256:
+        return (3 if wz <= 192 else 4), 2, 1
     cb = -(-wz // 1024)
     return 4, -(-wz // (128 * cb)), cb
 
@@ -387,8 +389,9 @@ def test_kernel_bytes_count_aref_prefix(nz, dmax):
 def test_ref_tile(nz, dscale):
     """The device-memory placement's tile is aref transposed, cut to its
     kref columns and padded with zeros to the 32 x slots levels of the
-    launch (x the warps of a column past 254 levels, x the blocks of its
-    cluster past 1022), made once per aref tensor and width."""
+    launch (x the warps of a column past 126 levels: 2 of a pair, or
+    past 254 those of a block; x the blocks of its cluster past 1022),
+    made once per aref tensor and width."""
     aref = torch.as_tensor(_aref(nz, 250.0, True, dscale))
     kref = ck._ref_extents(aref)[1]
     ns, cw, cb = _expected_slots(nz)
@@ -465,6 +468,33 @@ def _check_mw(g, nz, dtype, ncol):
         <= ck.SMEM_MAX
 
 
+def _check_pw(g, nz, dtype, ncol):
+    """A launch past 128 levels up to 256: columns over a pair of warps of
+    3 (WZ <= 192) or 4 slots, ``PW_COLS`` columns a block (the named
+    barriers 1..PW_COLS_MAX of the C side); every level on exactly one
+    (warp, lane, slot) of its column and both warps holding some; aref
+    from device memory, the grid rows in shared memory; the block's shared
+    memory smem_bytes_pw, within SMEM_MAX."""
+    wz = nz + 2
+    ns = 3 if wz <= 192 else 4
+    cols = ck.PW_COLS[dtype.itemsize]
+    assert 2 <= cols <= 8
+    assert (g.ns, g.cw, g.warps, g.cols_per_block, g.cb) == \
+        (ns, 2, 2 * cols, cols, 1)
+    assert (g.blocks, g.aref_dev, g.grid_dev, g.lib, g.levels) == \
+        (-(-ncol // cols), 1, 0, f"pw{ns}", 64 * ns)
+    # the kernels' map of level k of a column: warp k // (32 ns) of its
+    # pair, lane k % 32, slot (k % (32 ns)) // 32
+    k = np.arange(g.levels)
+    place = np.stack([k // (32 * ns), k % 32, (k % (32 * ns)) // 32])
+    assert (place[0] < 2).all() and (place[2] < ns).all()
+    assert len({tuple(p) for p in place.T}) == g.levels
+    assert np.array_equal(place[0] * 32 * ns + place[2] * 32 + place[1], k)
+    assert set(place[0][:wz]) == {0, 1}
+    assert g.smem == ck.smem_bytes_pw(ns, cols, dtype.itemsize) \
+        <= ck.SMEM_MAX
+
+
 def _check_cl(g, nz, dtype, ncol):
     """A launch past 1024 levels: one column over a cluster of cb =
     ceil(WZ / 1024) blocks of cw = ceil(WZ / (128 cb)) warps of 4 slots,
@@ -503,12 +533,13 @@ CL_NZ = sorted(set(range(1023, 8191, 97)) | set(CL_EDGES))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_launch_geometry(dtype):
     """Every nz the kernels take fits one block's shared memory, with aref
-    kept whole (the worst case) or read from device memory where no block
-    holds it, on the fewest level slots that cover nz + 2 up to 256
-    levels (one warp a column, 8 columns a block or fewer) and past them
-    on a column over ceil((nz + 2) / 128) warps, past 1024 on a cluster of
-    blocks (:func:`_check_cl`, every 97th nz and the edges); the grid
-    covers every ncol exactly; past 8192 levels the geometry raises."""
+    kept whole (the worst case), on the fewest level slots that cover nz +
+    2 up to 128 levels (one warp a column, 8 columns a block or fewer),
+    up to 256 on a column over a pair of warps (:func:`_check_pw`), past
+    them on a column over ceil((nz + 2) / 128) warps, past 1024 on a
+    cluster of blocks (:func:`_check_cl`, every 97th nz and the edges);
+    the grid covers every ncol exactly; past 8192 levels the geometry
+    raises."""
     for nz in CL_NZ:
         for kref in (None, 0, 9):
             for ncol in (1, 7, 37, 144_507):
@@ -527,11 +558,14 @@ def test_launch_geometry(dtype):
                 if nz + 2 > 256:
                     _check_mw(g, nz, dtype, ncol)
                     continue
+                if nz + 2 > 128:
+                    _check_pw(g, nz, dtype, ncol)
+                    continue
                 assert g.ns == _fewest_slots(nz)
-                assert (g.cw, g.grid_dev, g.lib) == (1, 0, g.ns)
-                assert g.smem == ck.smem_bytes(
-                    g.ns, 0 if g.aref_dev else g.kref, g.warps,
-                    dtype.itemsize)
+                assert (g.cw, g.grid_dev, g.lib, g.aref_dev) == \
+                    (1, 0, g.ns, 0)
+                assert g.smem == ck.smem_bytes(g.ns, g.kref, g.warps,
+                                               dtype.itemsize)
                 assert 1 <= g.warps <= 8 and g.warps == g.cols_per_block
     with pytest.raises(ValueError, match="8192 levels"):
         ck.launch_geometry(8191, dtype, 8)
@@ -542,31 +576,28 @@ def test_launch_geometry(dtype):
 def test_launch_geometry_on_real_grids(dtype, dscale):
     """For every nz in 1..254 on a uniform grid and stretched grids
     (``dscale`` 5 and 10), with the kref of the grid's own aref: the
-    geometry never raises, takes the fewest slots, fits SMEM_MAX, and
-    reads aref from device memory exactly where its shared copy does not
-    fit beside even one warp (then with as many warps as fit without
-    it).  Past 254 (the edges of each warp count and every 7th nz, so
-    that building the arefs stays cheap): a column over ceil(WZ / 128)
-    warps with the grid's kref; past 1022 (the edges up to 3070, whose
-    dense aref is 75 MB in float64): a cluster with the grid's kref."""
+    geometry never raises, fits SMEM_MAX, takes the fewest slots of one
+    warp with aref's shared copy up to nz 126 (as many warps as fit
+    beside it), and a pair of warps a column past it
+    (:func:`_check_pw`).  Past 254 (the edges of each warp count and every
+    7th nz, so that building the arefs stays cheap): a column over
+    ceil(WZ / 128) warps with the grid's kref; past 1022 (the edges up to
+    3070, whose dense aref is 75 MB in float64): a cluster with the
+    grid's kref."""
     esize = dtype.itemsize
-    n_dev = 0
     for nz in range(1, 255):
         aref = _aref(nz, 250.0, dscale > 0, dscale or 2.0)
         kref = int(ck.row_extents(aref).max()) + 1
         g = ck.launch_geometry(nz, dtype, 37, kref)
-        assert g.ns == _fewest_slots(nz) and g.kref == kref
-        shared_fits = ck.smem_bytes(g.ns, kref, 1, esize) <= ck.SMEM_MAX
-        assert g.aref_dev == int(not shared_fits)
-        kept = 0 if g.aref_dev else kref
-        assert g.smem == ck.smem_bytes(g.ns, kept, g.warps, esize) \
+        assert g.kref == kref
+        if nz + 2 > 128:
+            _check_pw(g, nz, dtype, 37)
+            continue
+        assert g.ns == _fewest_slots(nz) and g.aref_dev == 0
+        assert g.smem == ck.smem_bytes(g.ns, kref, g.warps, esize) \
             <= ck.SMEM_MAX
         assert g.warps == 8 or \
-            ck.smem_bytes(g.ns, kept, 2 * g.warps, esize) > ck.SMEM_MAX
-        n_dev += g.aref_dev
-    # float64 at 8 slots on the stretched grids: 37 and 64 of the 64 nz
-    assert n_dev == {(torch.float64, 5.0): 37,
-                     (torch.float64, 10.0): 64}.get((dtype, dscale), 0)
+            ck.smem_bytes(g.ns, kref, 2 * g.warps, esize) > ck.SMEM_MAX
     # past 254: the edges of each warp count, and every 7th nz between
     edges = {128 * cw + d for cw in range(3, 9) for d in (-3, -2, -1)}
     for nz in sorted((edges - {1023}) | set(range(255, 1023, 7))):
@@ -590,16 +621,16 @@ def test_launch_geometry_on_real_grids(dtype, dscale):
 def test_level_slots(dtype, nz):
     """The slots, warps and shared memory a launch takes at the levels of
     the five configurations and at the edges of each instantiation: 3
-    slots up to nz 94 (WZ 96), 4 up to nz 126 (WZ 128), 6 up to nz 190
-    (WZ 192), 8 up to nz 254 (WZ 256); past it one column a block over 3
+    slots up to nz 94 (WZ 96), 4 up to nz 126 (WZ 128); then a column over
+    a pair of warps of 3 slots up to nz 190 (WZ 192) and of 4 up to nz 254
+    (WZ 256), its columns a block and shared memory pinned below, aref
+    from device memory; past it one column a block over 3
     warps of 4 slots (nz 255 up to 382), 4 (nz 383 to 510), ... 8 (nz
     1022, WZ 1024), its shared memory pinned below; past it a cluster of
     blocks (nz 1023: 2 of 5 warps; 2000 and 2046: 2 of 8; 3070: 3 of 8;
     8190: 8 of 8), pinned below; a raise naming the limit at 8191.  With
-    aref's real prefix (kref of a uniform grid) a
-    one-warp block keeps 8 warps in float32, and in float64 up to 4 slots
-    (4 warps at 6, 2 at 8); with aref kept whole a block takes fewer, or
-    reads aref from device memory where no block holds it."""
+    aref's real prefix (kref of a uniform grid) a one-warp block keeps 8
+    warps; with aref kept whole a block takes fewer where 8 do not fit."""
     if nz == 8191:
         with pytest.raises(ValueError, match=r"nz\+2=8193 .*8192 levels"):
             ck.launch_geometry(nz, dtype, 37)
@@ -616,6 +647,13 @@ def test_level_slots(dtype, nz):
         return
     kref = int(ck.row_extents(_aref(nz, 1000.0, False)).max()) + 1
     g = ck.launch_geometry(nz, dtype, 37, kref)
+    if 126 < nz <= 254:
+        ns, warps, smem = PW_GEOMETRY[esize, nz]
+        for geom in (g, ck.launch_geometry(nz, dtype, 37)):
+            assert (geom.ns, geom.cw, geom.warps, geom.cb) == (ns, 2, warps, 1)
+            assert (geom.blocks, geom.aref_dev, geom.grid_dev, geom.smem) == \
+                (-(-37 // (warps // 2)), 1, 0, smem)
+        return
     if nz > 254:
         cw, grid_dev, smem = MW_GEOMETRY[esize, nz]
         assert (g.ns, g.cw, g.warps, g.blocks, g.kref) == (4, cw, cw, 37, kref)
@@ -624,28 +662,27 @@ def test_level_slots(dtype, nz):
         assert (worst.cw, worst.grid_dev, worst.smem) == (cw, grid_dev, smem)
         return
     assert g.ns == _fewest_slots(nz)
-    warps = 8 if dtype == torch.float32 else {3: 8, 4: 8, 6: 4, 8: 2}[g.ns]
-    assert (g.warps, g.blocks, g.aref_dev) == (warps, -(-37 // warps), 0)
-    assert g.smem == ck.smem_bytes(g.ns, kref, warps, esize) <= ck.SMEM_MAX
+    assert (g.warps, g.blocks, g.aref_dev) == (8, -(-37 // 8), 0)
+    assert g.smem == ck.smem_bytes(g.ns, kref, 8, esize) <= ck.SMEM_MAX
     worst = ck.launch_geometry(nz, dtype, 37)
-    assert (worst.warps, worst.aref_dev) == WORST[dtype.itemsize, nz]
-    kept = 0 if worst.aref_dev else nz + 2
-    assert worst.smem == ck.smem_bytes(g.ns, kept, worst.warps, esize) \
+    assert (worst.warps, worst.aref_dev) == (WORST[dtype.itemsize, nz], 0)
+    assert worst.smem == ck.smem_bytes(g.ns, nz + 2, worst.warps, esize) \
         <= ck.SMEM_MAX
     assert worst.warps == 8 or \
-        ck.smem_bytes(g.ns, kept, 2 * worst.warps, esize) > ck.SMEM_MAX
-    assert worst.aref_dev == int(
-        ck.smem_bytes(g.ns, nz + 2, 1, esize) > ck.SMEM_MAX)
+        ck.smem_bytes(g.ns, nz + 2, 2 * worst.warps, esize) > ck.SMEM_MAX
 
 
-# (warps, aref_dev) with aref kept whole (kref = nz + 2), by element size
-# and nz: 8 warps and the shared copy unless noted
-WORST = {(4, nz): (8, 0) for nz in (69, 94, 95, 100, 126)}
-WORST.update({(4, 127): (4, 0), (4, 190): (4, 0), (4, 191): (1, 0),
-              (4, 254): (8, 1)})
-WORST.update({(8, 69): (8, 0), (8, 94): (8, 0), (8, 95): (4, 0),
-              (8, 100): (4, 0), (8, 126): (2, 0), (8, 127): (4, 1),
-              (8, 190): (4, 1), (8, 191): (4, 1), (8, 254): (4, 1)})
+# warps a block with aref kept whole (kref = nz + 2), by element size and
+# nz (the shared copy always fits beside one warp up to 128 levels)
+WORST = {(4, nz): 8 for nz in (69, 94, 95, 100, 126)}
+WORST.update({(8, 69): 8, (8, 94): 8, (8, 95): 4, (8, 100): 4, (8, 126): 2})
+# (level slots, warps a block, shared-memory bytes) of a column over a pair
+# of warps, by element size and nz: float32 8 columns a block, float64 4;
+# a column holds 24 rows of 64 ns levels, 48 column values and 43 cells
+PW_GEOMETRY = {(4, 127): (3, 16, 155_744), (4, 190): (3, 16, 155_744),
+               (4, 191): (4, 16, 206_688), (4, 254): (4, 16, 206_688),
+               (8, 127): (3, 8, 160_352), (8, 190): (3, 8, 160_352),
+               (8, 191): (4, 8, 212_832), (8, 254): (4, 8, 212_832)}
 # (warps a column, grid_dev, shared-memory bytes) past 254 levels, by
 # element size and nz: float64 at 8 warps reads the grid rows from device
 # memory (250,584 B with them in shared memory, over SMEM_MAX); a column
@@ -668,20 +705,30 @@ CL_GEOMETRY = {(4, 1023): (2, 5, 64_372), (4, 2000): (2, 8, 102_772),
 def test_geometry_constants_match_the_source():
     """launch_geometry mirrors csrc/fused_pass.cuh's shared-memory layout:
     the slot count, the column values, the level slots, the most warps a
-    block takes and the Geometry struct (aref's placement last)."""
+    block takes, a pair column's warps and a block's most columns, and the
+    Geometry struct (aref's placement last)."""
     with open(ck._CSRC + "/fused_pass.cuh") as f:
         src = f.read()
     slots = src[src.index("  B_U = 0,"):src.index(", NB\n")]
     assert len(re.findall(r"B_\w+", slots)) == ck.N_SLOTS
     assert "constexpr int NCV = NSC + 16;" in src and ck.N_COLV == 32 + 16
-    assert "constexpr int NS_MAX = 8;" in src and ck.SLOTS[-1] == 8
+    assert "constexpr int NS_MAX = 4;" in src and ck.SLOTS == (3, 4)
     assert "constexpr int MW_NS = 4;" in src and ck.MW_NS == 4
     assert "constexpr int CW_MAX = 8;" in src and ck.WARPS == 8
     assert "constexpr int ONE_BLOCK_WZ = 32 * MW_NS * CW_MAX;" in src
     assert "constexpr int CB_MAX = 8;" in src and ck.CB_MAX == 8
     assert "constexpr int MAXWZ = ONE_BLOCK_WZ * CB_MAX;" in src
     assert ck.MAXWZ == 8192 and ck.ONE_BLOCK_WZ == 1024
-    assert ck.ONE_WARP_WZ == 256
+    assert ck.ONE_WARP_WZ == 128 and ck.PAIR_WZ == 256
+    # a column over a pair of warps: 2 warps, at most 8 columns a block
+    # (named barriers 1..8 of the 16), its block's bytes
+    assert "constexpr int PW_CW = 2;" in src and ck.PW_CW == 2
+    assert "constexpr int PW_COLS_MAX = 8;" in src and \
+        max(ck.PW_COLS.values()) <= 8
+    assert ck.PAIRS == ("pw3", "pw4")
+    assert "return size_t(6 * lz + cols * col_stride(lz)) * tsize" in src
+    assert "KPP_DEV int pair_bar() { return 1 + int(threadIdx.x >> 6); }" \
+        in src
     cells = src[src.index("  BC_RHO0 = 0,"):src.index("NBC = ")]
     # 11 single cells, 9 for blmix's matching, 3 enhance, a crossing and
     # its hmin per warp, 4 RMSD sums
@@ -714,11 +761,13 @@ def test_geometry_constants_match_the_source():
         ck.SMEM_MAX == 232_448
     assert "in->aref_t = static_cast<const Real*>(ip[kpp::N_IN + 1]);" in ker
     assert "in->grid_t = static_cast<const Real*>(ip[kpp::N_IN + 2]);" in ker
-    assert "  return 32 * NSL * (MWL ? kpp::CW_MAX : 1)\n" \
+    assert "  if (MWL == kpp::PAIR) return 32 * kpp::PW_CW * NSL;\n" \
+           "  return 32 * NSL * (MWL ? kpp::CW_MAX : 1)\n" \
            "         * (MWL == kpp::CLUSTER ? kpp::CB_MAX : 1);" in ker
+    assert "G.warps <= PW_CW * PW_COLS_MAX" in ker
     assert "constexpr int KPP_NO_CLUSTER = -2;" in ker and \
         ck.NO_CLUSTER == -2
-    assert f"constexpr int AREF_DEV_MIN_NS = {ck.AREF_DEV_MIN_NS};" in src
+    assert "AREF_DEV_MIN_NS" not in src + ker   # one warp: aref shared
 
 
 def test_stage_marks_match_chip_phases():

@@ -20,7 +20,8 @@ compiles apart).
 
 On the card (``gpu``, skipped here): the z_lanes kernels against the
 col_lanes kernels on the same inputs transposed, bit for bit, in each
-spread (one warp at 3, 4, 6 and 8 slots, a column over a block's warps
+spread (one warp at 3 and 4 slots, a pair of warps at 3 and 4, a column
+over a block's warps
 and over a cluster) and dtype, and against the z_lanes plain version at
 ``chip_smoke.py``'s bar.  JAX is imported inside the fixtures that use
 it, so on the card's machine, which has no JAX, those cases skip and the
@@ -222,8 +223,8 @@ def test_lib_names_carry_the_layout():
 
 
 # each spread of the kernels: (nz, dscale) whose launch takes it
-GPU_SPREADS = {"ns3": (12, 0.0), "ns4": (100, 0.0), "ns6": (190, 0.0),
-               "ns8": (254, 5.0), "cw": (383, 5.0), "cl": (1023, 0.0)}
+GPU_SPREADS = {"ns3": (12, 0.0), "ns4": (100, 0.0), "pw3": (190, 0.0),
+               "pw4": (254, 5.0), "cw": (383, 5.0), "cl": (1023, 0.0)}
 
 
 @pytest.mark.gpu
@@ -239,6 +240,8 @@ def test_z_lanes_kernels_equal_col_lanes(cuda, monkeypatch, dtype, tol,
     ``tol`` with the integer rows equal."""
     from test_torch_kernels import serial_sums
     nz, dscale = GPU_SPREADS[spread]
+    assert ck._lib_tag(ck.launch_geometry(nz, getattr(torch, dtype),
+                                          13).lib) == spread
     seen = set()
     for impl in ("cuda", "cuda_step"):
         m, st, prm, frc = model(13, impl, cuda, dtype, nz, dscale)
