@@ -1,0 +1,6 @@
+"""peak_mem_gib: ``torch.cuda.max_memory_allocated()`` over the timed run
+(reset after the warm run), in GiB."""
+
+
+def read(run):
+    return run.peak_bytes / 2**30 if run.peak_bytes else None
