@@ -29,11 +29,11 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import os
 import queue
 import socket
 import sys
-import time
 import traceback
 from concurrent.futures import ThreadPoolExecutor
 
@@ -75,7 +75,8 @@ def _parser():
                         "versions)")
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="write a torch.profiler trace (trace.json) of a "
-                        "few steady-state steps into DIR")
+                        "few steady-state steps into DIR, every thread's "
+                        "where torch's profiler can follow them")
     p.add_argument("--profile-steps", type=int, default=6,
                    help="number of steps to trace under --profile")
     p.add_argument("--multi-device", action="store_true",
@@ -99,6 +100,37 @@ def _parser():
 def _sync(device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _profiler(device):
+    """The ``--profile`` window's profiler: the host, the card where the
+    run has one, and every thread (the writer and prefetch threads too)
+    where this torch's profiler can follow them."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    try:
+        every = torch._C._profiler._ExperimentalConfig(
+            profile_all_threads=True)
+    except (AttributeError, TypeError):        # a torch without the option
+        every = None
+    return profile(activities=acts, experimental_config=every)
+
+
+def _steady(marks_us: dict, num_steps: int, ndtocn: int):
+    """(seconds, steps) of the run's second half on the hour marks
+    (:class:`~mckpp_torch.utils.timer.HourMarks`): from the first hour
+    that starts at or after the midpoint step to the end of the last;
+    None under 4 steps or where no hour starts there."""
+    if num_steps < 4:
+        return None
+    h = -(-(num_steps // 2) // ndtocn)       # first hour at step >= mid
+    n2 = num_steps - h * ndtocn
+    end = (num_steps - 1) // ndtocn + 1
+    if n2 <= 0 or h not in marks_us or end not in marks_us:
+        return None
+    return (marks_us[end] - marks_us[h]) / 1e6, n2
 
 
 def _free_port() -> int:
@@ -165,7 +197,8 @@ def run(argv=None) -> dict:
     """The CLI's run; returns its summary (segments, graph captures and
     replays, kernel launches, the steady-state rate, bytes written and the
     files each NetCDF writer wrote, the paths written, the timer report,
-    and the rank, world size and emit gathers of a distributed run).
+    the span log and the byte counters (``utils/timer.py``), and the
+    rank, world size and emit gathers of a distributed run).
     Under ``--multi-device`` it returns {"workers": [each worker's]}."""
     argv = list(sys.argv[1:] if argv is None else argv)
     args = _parser().parse_args(argv)
@@ -184,7 +217,8 @@ def run(argv=None) -> dict:
 
     timers = Timers()
     timers.start("Initialization")
-    cfg, extras = nml.load_config(args.namelist)
+    with timers.span("setup.namelist", device=False):
+        cfg, extras = nml.load_config(args.namelist)
     if args.dtype:
         cfg = dataclasses.replace(cfg, dtype=args.dtype)
     mckpp_print(ROUTINE, f"read namelist {args.namelist}")
@@ -195,7 +229,7 @@ def run(argv=None) -> dict:
     layout = (dist.make_layout(d.nx * d.ny, device=device) if world > 1
               else None)
     model, st, prm, frc, flux_provider, mgr = setup_mod.build(
-        cfg, args.data_dir, device=device, layout=layout)
+        cfg, args.data_dir, device=device, layout=layout, timers=timers)
     ncol_local = st.u.shape[0]
     # the rate counts every process's (padded) columns
     ncol = layout.ncol if layout is not None else ncol_local
@@ -228,33 +262,38 @@ def run(argv=None) -> dict:
     else:
         streams = default_streams(
             cfg.time.dto, split_freq_days=cfg.output.split_freq_days)
-    diag = DiagnosticsManager(
-        streams, d.nx, d.ny, model.grid.zm, outdir=args.output_dir,
-        start_time_days=cfg.time.startt, dto_seconds=cfg.time.dto,
-        l_ocean=l_ocean, write_mode=args.output_mode, lons=lons_ax,
-        lats=lats_ax)
-    diag.set_layout(layout)
-    restart = RestartControl(
-        f"{args.output_dir}/{cfg.output.restart_outfile}",
-        cfg.output.ndt_per_restart, cfg.time.num_timesteps,
-        cfg.time.dto, cfg.time.startt,
-        netcdf_grid=((d.nx, d.ny) if cfg.output.l_restart_netcdf else None),
-        layout=layout)
+    with timers.span("setup.output"):
+        diag = DiagnosticsManager(
+            streams, d.nx, d.ny, model.grid.zm, outdir=args.output_dir,
+            start_time_days=cfg.time.startt, dto_seconds=cfg.time.dto,
+            l_ocean=l_ocean, write_mode=args.output_mode, lons=lons_ax,
+            lats=lats_ax, timers=timers)
+        diag.set_layout(layout)
+        restart = RestartControl(
+            f"{args.output_dir}/{cfg.output.restart_outfile}",
+            cfg.output.ndt_per_restart, cfg.time.num_timesteps,
+            cfg.time.dto, cfg.time.startt,
+            netcdf_grid=((d.nx, d.ny) if cfg.output.l_restart_netcdf
+                         else None),
+            layout=layout, timers=timers)
     _sync(device)
     timers.stop("Initialization")
 
     num_steps = args.steps or cfg.time.num_timesteps
+    ndtocn = cfg.time.ndtocn
 
     # Flux prefetch: the next flux-cadence step's file read + host->device
     # copy runs on a background thread while the model steps; one-slot
     # lookahead keeps memory bounded
-    flux_exec = ThreadPoolExecutor(max_workers=1)
+    flux_exec = ThreadPoolExecutor(max_workers=1,
+                                   thread_name_prefix="flux-prefetch")
     flux_next = {}                    # time_days -> Future
 
     def flux_at(time_days):
         fut = flux_next.pop(time_days, None)
         if fut is not None:
-            return fut.result()
+            with timers.span("forcing.flux_wait", device=False):
+                return fut.result()
         if flux_provider is not None:
             return flux_provider(time_days)
         return forcing_mod.constant_test_fluxes(ncol_local, model.dtype,
@@ -267,35 +306,27 @@ def run(argv=None) -> dict:
 
     use_chain = os.environ.get("MCKPP_CHAIN", "1") != "0"
     mckpp_print(ROUTINE, f"timestepping loop: {num_steps} steps")
-    t_half = None
     # --profile: trace a window of steady-state steps from the midpoint
     prof_start = num_steps // 2 + 1 if num_steps >= 4 else 1
     prof_end = min(num_steps, prof_start + max(1, args.profile_steps) - 1)
     prof = None
-    half_marker = num_steps // 2 + 1 if num_steps >= 4 else None
 
     def pre_step(nt):
-        """Host-side events before the physics: steady-state / profile
-        markers, the flux-cadence update and the ancillary refresh."""
-        nonlocal t_half, prof, st, frc
-        if nt == half_marker:
-            _sync(device)
-            t_half = time.perf_counter()
+        """Host-side events before the physics: the profile start, the
+        flux-cadence update and the ancillary refresh."""
+        nonlocal prof, st, frc
         if args.profile and nt == prof_start and prof is None:
-            from torch.profiler import ProfilerActivity, profile
             _sync(device)
-            acts = [ProfilerActivity.CPU]
-            if device.type == "cuda":
-                acts.append(ProfilerActivity.CUDA)
-            prof = profile(activities=acts)
+            prof = _profiler(device)
             prof.__enter__()
         time_days = cfg.time.startt + (nt - 1) * cfg.time.dto / 86400.0
-        if (nt - 1) % cfg.time.ndtocn == 0:
+        if (nt - 1) % ndtocn == 0:
             timers.start("Update surface fluxes")
             raw = flux_at(time_days)
-            st, frc = forcing_mod.update_fluxes(
-                cfg, st, prm, frc, raw, nt <= 1, model.grid.dm)
-            nt_next = nt + cfg.time.ndtocn
+            with timers.span("forcing.fluxes"):
+                st, frc = forcing_mod.update_fluxes(
+                    cfg, st, prm, frc, raw, nt <= 1, model.grid.dm)
+            nt_next = nt + ndtocn
             if nt_next <= num_steps:
                 flux_schedule(cfg.time.startt
                               + (nt_next - 1) * cfg.time.dto / 86400.0)
@@ -324,10 +355,15 @@ def run(argv=None) -> dict:
             mckpp_print(ROUTINE, f"profiler trace of steps {prof_start}-"
                         f"{prof_end} written to {args.profile}")
 
+    def hour_of(nt):
+        """The coupling hour of step nt (no chain crosses an hour)."""
+        return (nt - 1) // ndtocn
+
     summary = {"segments": num_steps, "captures": 0, "replays": 0,
                "chain": use_chain, "rank": rank, "world": world}
     launches0 = dict(ck.LAUNCHES)
     writes0 = dict(ncio.WRITES)
+    marks = timers.hour_marks(device)
     if use_chain:
         # graphs where the step never waits on the host: the whole-step
         # kernel; the per-pass path ("cuda") syncs inside each step
@@ -336,7 +372,8 @@ def run(argv=None) -> dict:
             mckpp_print(ROUTINE, f"pass_impl {model.pass_impl!r} waits on "
                         "the host inside each step: the chain runs its "
                         "spans without CUDA graphs")
-        stepper = ChainedStepper(model._step, diag, graphs=graphs)
+        stepper = ChainedStepper(model._step, diag, graphs=graphs,
+                                 timers=timers)
 
         def end_pred(nt):
             return (emit_due(diag, nt)
@@ -345,52 +382,62 @@ def run(argv=None) -> dict:
                     or (args.profile and nt == prof_end))
 
         def start_pred(nt):
-            return (mgr.due_any(nt) or nt == half_marker
-                    or (args.profile and nt == prof_start))
+            return mgr.due_any(nt) or (args.profile and nt == prof_start)
 
         max_k = int(os.environ.get("MCKPP_CHAIN_MAX", "32"))
-        segments = plan_segments(num_steps, ndtocn=cfg.time.ndtocn,
+        segments = plan_segments(num_steps, ndtocn=ndtocn,
                                  end_pred=end_pred, start_pred=start_pred,
                                  max_k=max_k)
         mckpp_print(ROUTINE, f"chained dispatch: {len(segments)} segments "
                     f"for {num_steps} steps (max k "
                     f"{max(k for _, k in segments)}, CUDA graphs "
                     f"{'on' if graphs else 'off'})")
-        for nt0, k in segments:
-            pre_step(nt0)
-            nt_end = nt0 + k - 1
-            timers.start("Physics")
-            need_full = (diag.needs_full(nt_end)
-                         or (cfg.output.l_restartw and restart.due(nt_end)))
-            st, accums, inst_fields = stepper.exec(nt0, k, st, prm, frc,
-                                                   final_full=need_full)
-            timers.stop("Physics")
-            timers.start("Diagnostic output")
-            stepper.commit(nt_end, k, accums, inst_fields)
-            timers.stop("Diagnostic output")
-            post_step(nt_end)
+        for h, segs in itertools.groupby(segments,
+                                         key=lambda s: hour_of(s[0])):
+            with timers.hour_span(h):
+                for nt0, k in segs:
+                    pre_step(nt0)
+                    nt_end = nt0 + k - 1
+                    timers.start("Physics")
+                    need_full = (diag.needs_full(nt_end)
+                                 or (cfg.output.l_restartw
+                                     and restart.due(nt_end)))
+                    st, accums, inst_fields = stepper.exec(
+                        nt0, k, st, prm, frc, final_full=need_full)
+                    timers.stop("Physics")
+                    timers.start("Diagnostic output")
+                    stepper.commit(nt_end, k, accums, inst_fields)
+                    timers.stop("Diagnostic output")
+                    post_step(nt_end)
         summary.update(segments=len(segments), captures=stepper.captures,
                        replays=stepper.replays)
     else:
-        for nt in range(1, num_steps + 1):
-            pre_step(nt)
-            timers.start("Physics")
-            # steps where no stream samples a wide field (and no restart
-            # is due) skip the diagnostic-materialization pass
-            need_full = (diag.needs_full(nt)
-                         or (cfg.output.l_restartw and restart.due(nt)))
-            st = model.step(st, prm, frc, first_step=(nt <= 1),
-                            with_diags=need_full)
-            timers.stop("Physics")
-            timers.start("Diagnostic output")
-            diag.step(nt, st, prm, frc)
-            timers.stop("Diagnostic output")
-            post_step(nt)
+        for h, steps in itertools.groupby(range(1, num_steps + 1),
+                                          key=hour_of):
+            with timers.hour_span(h):
+                for nt in steps:
+                    pre_step(nt)
+                    timers.start("Physics")
+                    # steps where no stream samples a wide field (and no
+                    # restart is due) skip the diagnostic-materialization
+                    # pass
+                    need_full = (diag.needs_full(nt)
+                                 or (cfg.output.l_restartw
+                                     and restart.due(nt)))
+                    st = model.step(st, prm, frc, first_step=(nt <= 1),
+                                    with_diags=need_full)
+                    timers.stop("Physics")
+                    timers.start("Diagnostic output")
+                    diag.step(nt, st, prm, frc)
+                    timers.stop("Diagnostic output")
+                    post_step(nt)
+    marks.mark(hour_of(num_steps) + 1)          # the last hour's end
 
     _sync(device)
-    if t_half is not None:
-        n2 = num_steps - num_steps // 2
-        dt2 = time.perf_counter() - t_half
+    marks.finish()
+    steady = _steady(marks.marks_us, num_steps, ndtocn)
+    if steady is not None:
+        dt2, n2 = steady
         summary.update(steady_s=dt2, steady_steps=n2,
                        column_steps_per_s=ncol * n2 / dt2)
         mckpp_print(ROUTINE, f"steady-state: {dt2:.3f} s for the last {n2} "
@@ -415,11 +462,13 @@ def run(argv=None) -> dict:
                 f"{'none (CPU run)' if peak is None else f'{peak} bytes'}")
     report = timers.report()
     print(report)
+    print(timers.span_report())
     summary.update(launches=launches, paths=dict(paths),
                    restarts=list(written), bytes_written=diag.bytes_written,
                    timers=report, ncol=ncol, num_steps=num_steps,
                    emit_gathers=diag.emit_gathers, writes=writes,
-                   peak_memory_bytes=peak)
+                   peak_memory_bytes=peak, spans=timers.spans(),
+                   counters=dict(timers.counters))
     if args.distributed:
         dist.shutdown()
     return summary

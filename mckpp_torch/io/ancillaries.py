@@ -42,6 +42,7 @@ from ..config import KppConfig
 from ..parallel.distributed import any_across_processes
 from ..parallel.sharding import pad_rows
 from ..state import Forcing
+from ..utils.timer import NO_TIMERS
 from . import ncio
 
 
@@ -192,12 +193,14 @@ class FluxFileReader:
     host-locally (the fluxes are the most frequent read)."""
 
     def __init__(self, cfg: KppConfig, lon0: float, lat0: float,
-                 dtype=torch.float64, device="cpu"):
+                 dtype=torch.float64, device="cpu", timers=None):
         d = cfg.domain
         self.cfg = cfg
         self.npts = d.nx * d.ny
         self.dtype, self.device = dtype, device
         self.layout = None
+        # counts the bytes each read copies to the device
+        self.timers = NO_TIMERS if timers is None else timers
         self.rd = AncillaryReader(cfg.forcing.forcing_file, lon0, lat0,
                                   d.nx, d.ny, time_name="time")
 
@@ -215,7 +218,9 @@ class FluxFileReader:
             a = self.rd.read2d(v, pos, rows)
             if lay is not None:
                 a = pad_rows(a, lay.hi - lay.lo)
-            return torch.as_tensor(a, dtype=self.dtype, device=self.device)
+            t = torch.as_tensor(a, dtype=self.dtype, device=self.device)
+            self.timers.count("forcing.h2d_bytes", t.nbytes)
+            return t
         taux = g("taux")
         return forcing_mod.RawFluxes(
             taux=taux, tauy=g("tauy"), swf=g("swf"), lwf=g("lwf"),
@@ -229,8 +234,11 @@ class BoundaryManager:
     (mckpp_initialize_fields_mod.F90:70-118)."""
 
     def __init__(self, cfg: KppConfig, lon0: float, lat0: float,
-                 nzp1: int, sref: np.ndarray):
+                 nzp1: int, sref: np.ndarray, timers=None):
         self.cfg = cfg
+        # the SST update's spans and the bytes each read copies to the
+        # device
+        self.timers = NO_TIMERS if timers is None else timers
         self.nzp1 = nzp1
         self.sref = np.asarray(sref)
         # with a column layout (set_layout) every read fetches this
@@ -299,11 +307,12 @@ class BoundaryManager:
             return a - self.cfg.constants.tk0
         return a
 
-    @staticmethod
-    def _dev(arr, like: torch.Tensor) -> torch.Tensor:
+    def _dev(self, arr, like: torch.Tensor) -> torch.Tensor:
         """Host array -> tensor of ``like``'s dtype and device."""
-        return torch.as_tensor(np.asarray(arr), dtype=like.dtype,
-                               device=like.device)
+        t = torch.as_tensor(np.asarray(arr), dtype=like.dtype,
+                            device=like.device)
+        self.timers.count("ancillary.h2d_bytes", t.nbytes)
+        return t
 
     # ---- individual reads -------------------------------------------------
     def _upd(self, reader, ndt, periodic, period, method):
@@ -316,9 +325,12 @@ class BoundaryManager:
         b = self.cfg.boundary
         _, pos = self._upd(self.sst, b.ndtupdsst, b.l_periodic_climsst,
                            b.climsst_period, 1)
-        sst = self._kelvin(self._get2d(self.sst, "sst", pos))
+        with self.timers.span("ancillary.sst.read",
+                                  device=False):
+            sst = self._kelvin(self._get2d(self.sst, "sst", pos))
         # uncoupled: SST0 is the whole domain (mckpp_physics_overrides_sst0)
-        frc = frc.replace(sst0=self._dev(sst, frc.sst0))
+        with self.timers.span("ancillary.sst.h2d"):
+            frc = frc.replace(sst0=self._dev(sst, frc.sst0))
         # the SST read zeroes the ice/surface-current climatologies when
         # their own readers are off (mckpp_read_sst_mod.F90:88-96)
         if not b.l_climice:

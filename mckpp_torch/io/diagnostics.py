@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from ..state import ColumnParams, Forcing, State
+from ..utils.timer import NO_TIMERS
 from . import ncio
 
 DEPTH_FIELDS = ("u", "v", "T", "S", "B", "wu", "wv", "wT", "wS", "wB",
@@ -154,13 +155,19 @@ class DiagnosticsManager:
                  outdir: str = ".", start_time_days: float = 0.0,
                  dto_seconds: float = 0.0, l_ocean=None,
                  async_write: bool = True, write_mode: str = "single",
-                 lons=None, lats=None):
+                 lons=None, lats=None, timers=None):
         """``write_mode``: "single" writes each stream from rank 0 (XIOS
         one_file); "shard" has every rank write its own rows (XIOS
-        multiple_file).  ``l_ocean`` is the whole domain's mask."""
+        multiple_file).  ``l_ocean`` is the whole domain's mask.
+        ``timers``: a ``utils.timer.Timers`` that takes the emit's spans
+        (``diag.emit``, ``diag.cap_wait`` on the loop thread; ``diag.d2h``,
+        ``diag.fill``, ``diag.pack``, ``diag.write`` on the writer's, each
+        with the hour of the emit that queued it) and the fetch's
+        bytes."""
         if write_mode not in ("single", "shard"):
             raise ValueError(f"write_mode {write_mode!r}")
         self.write_mode = write_mode
+        self.timers = NO_TIMERS if timers is None else timers
         # windows gathered across processes on emit (stays 0 in shard
         # mode; the CLI reports it)
         self.emit_gathers = 0
@@ -187,8 +194,9 @@ class DiagnosticsManager:
         self.bytes_written = 0
         # async writer: the device->host fetch + NetCDF encode of a closed
         # window runs on a background thread (XIOS's detached server)
-        self._writer = ThreadPoolExecutor(max_workers=1) if async_write \
-            else None
+        self._writer = (ThreadPoolExecutor(max_workers=1,
+                                           thread_name_prefix="diag-writer")
+                        if async_write else None)
         self._pending = []
         self._plock = threading.Lock()
         # bound on emitted-but-unfetched window BYTES (device-buffer
@@ -257,6 +265,10 @@ class DiagnosticsManager:
                            {out: fields[src] for out, src, _ in inst})
 
     def _emit(self, s: Stream, nt: int, instant_fields=None):
+        with self.timers.span("diag.emit"):
+            self._emit_window(s, nt, instant_fields)
+
+    def _emit_window(self, s: Stream, nt: int, instant_fields):
         acc = dict(self._accum[s.name] or {})
         if instant_fields:
             acc.update(instant_fields)
@@ -280,7 +292,7 @@ class DiagnosticsManager:
                 self._write_split(s)
             self._split_idx[s.name] = k
         ops = {out: op for out, _, op in s.resolved_entries()}
-        packed = (acc, cnt, ops)
+        packed = (acc, cnt, ops, self.timers.hour)
         if self._writer is not None:
             # fetch on the writer thread now, so the device buffers free
             # as soon as the copy lands; block here when the emitted but
@@ -288,11 +300,14 @@ class DiagnosticsManager:
             # when its server buffer fills)
             nbytes = sum(_nbytes(v) for v in acc.values())
             cap = self._max_pending_mb * 1e6
-            while self._inflight and \
-                    self._inflight_bytes + nbytes > cap:
-                fut0, nb0 = self._inflight.popleft()
-                fut0.result()
-                self._inflight_bytes -= nb0
+            if self._inflight and self._inflight_bytes + nbytes > cap:
+                with self.timers.span("diag.cap_wait",
+                                      device=False):
+                    while self._inflight and \
+                            self._inflight_bytes + nbytes > cap:
+                        fut0, nb0 = self._inflight.popleft()
+                        fut0.result()
+                        self._inflight_bytes -= nb0
             packed = self._writer.submit(self._materialize, packed)
             self._inflight.append((packed, nbytes))
             self._inflight_bytes += nbytes
@@ -303,22 +318,26 @@ class DiagnosticsManager:
         return self.layout.local_rows(self.nx * self.ny)
 
     def _materialize(self, packed):
-        acc, cnt, ops = packed
+        acc, cnt, ops, hour = packed
+        timers = self.timers
         mask = self.mask
         if self._sharded and mask is not None:
             lo, hi = self._shard_rows()
             mask = mask[lo:hi]
         rec = {}
         for k, v in acc.items():
-            if self._sharded:
-                a = self.layout.local_shard(v)    # own rows, no collective
-            else:
-                a = _host(v)[: self.nx * self.ny]     # unpadded
-            if ops[k] == "average":
-                a = a / cnt
-            if mask is not None:
-                a = a.copy()
-                a[mask, ...] = FILL_VALUE
+            with timers.span("diag.d2h", hour):
+                if self._sharded:
+                    a = self.layout.local_shard(v)  # own rows, no collective
+                else:
+                    a = _host(v)[: self.nx * self.ny]     # unpadded
+            timers.count("diag.d2h_bytes", _nbytes(v))
+            with timers.span("diag.fill", hour, device=False):
+                if ops[k] == "average":
+                    a = a / cnt
+                if mask is not None:
+                    a = a.copy()
+                    a[mask, ...] = FILL_VALUE
             rec[k] = a
         return rec
 
@@ -333,17 +352,34 @@ class DiagnosticsManager:
         if self._multi and self.write_mode == "single" \
                 and self.layout.rank != 0:
             return                 # the single writer is rank 0
+        hour = self.timers.hour
         if self._writer is not None:
             self._pending.append(
-                self._writer.submit(self._encode, s, recs, split_idx))
+                self._writer.submit(self._encode, s, recs, split_idx, hour))
         else:
-            self._encode(s, recs, split_idx)
+            self._encode(s, recs, split_idx, hour)
 
-    def _encode(self, s: Stream, recs, split_idx):
+    def _encode(self, s: Stream, recs, split_idx, hour=None):
         # windows materialized on this same single writer thread before
         # this job are complete already (FIFO)
         recs = [(t, p.result() if isinstance(p, Future)
                  else self._materialize(p)) for t, p in recs]
+        with self.timers.span("diag.pack", hour, device=False):
+            dims, coords, fields, attrs, var_attrs, fname = self._pack(
+                s, recs, split_idx)
+        path = os.path.join(self.outdir, fname)
+        os.makedirs(self.outdir, exist_ok=True)
+        with self.timers.span("diag.write", hour, device=False):
+            ncio.write_fields(path, dims, coords, fields, attrs=attrs,
+                              var_attrs=var_attrs)
+        with self._plock:
+            self.paths[fname if s.split_freq_days else s.name] = path
+            self.bytes_written += os.path.getsize(path)
+        return path
+
+    def _pack(self, s: Stream, recs, split_idx):
+        """The file's dimensions, coordinates, fields (the records
+        stacked), attributes and name."""
         times = [t for t, _ in recs]
         nt = len(recs)
         nzp1 = len(self.zm)
@@ -390,8 +426,6 @@ class DiagnosticsManager:
             fname = f"{s.name}_{split_start:09.3f}{suffix}.nc"
         else:
             fname = f"{s.name}{suffix}.nc"
-        path = os.path.join(self.outdir, fname)
-        os.makedirs(self.outdir, exist_ok=True)
         # self-describing time metadata: XIOS stamps a Gregorian calendar
         # with origin 0000-01-01 + (day-counter + 1) days
         # (mckpp_xios_io.F90:41,63); "days since 0000-01-02" makes a CF
@@ -411,12 +445,7 @@ class DiagnosticsManager:
         if self.mask is not None:
             for name in fields:
                 var_attrs[name] = {"_FillValue": FILL_VALUE}
-        ncio.write_fields(path, dims, coords, fields, attrs=attrs,
-                          var_attrs=var_attrs)
-        with self._plock:
-            self.paths[fname if s.split_freq_days else s.name] = path
-            self.bytes_written += os.path.getsize(path)
-        return path
+        return dims, coords, fields, attrs, var_attrs, fname
 
     def flush(self):
         """Write any remaining buffered records, wait for the writer to

@@ -26,7 +26,8 @@ import numpy as np
 import torch
 
 from ..convert import to_numpy
-from ..state import ColumnParams, Forcing, State
+from ..state import ColumnParams, Forcing, State, tree_map
+from ..utils.timer import NO_TIMERS
 from . import ncio
 
 
@@ -176,12 +177,16 @@ class RestartControl:
     runs on the caller's thread and ``maybe_write`` returns the .npz path.
     With a ``layout`` over several processes the state is gathered to rank
     0 first, synchronously on the calling (loop) thread, since the gather
-    is a collective; only rank 0 writes."""
+    is a collective; only rank 0 writes.  ``timers``: a
+    ``utils.timer.Timers`` that takes the spans ``restart.d2h`` (the
+    fetch to the host) and ``restart.save`` (the files), with the hour of
+    the loop's call, ``restart.wait`` (:meth:`flush`'s wait) and the
+    fetch's bytes."""
 
     def __init__(self, outfile: str, ndt_per_restart: int, num_timesteps: int,
                  dto: float, start_days: float,
                  netcdf_grid: Optional[Tuple[int, int]] = None,
-                 layout=None, async_write: bool = True):
+                 layout=None, async_write: bool = True, timers=None):
         self.outfile = outfile
         self.cadence = ndt_per_restart
         self.last = num_timesteps
@@ -190,24 +195,34 @@ class RestartControl:
         self.netcdf_grid = netcdf_grid
         self.layout = layout
         self.written = []
-        self._writer = (ThreadPoolExecutor(max_workers=1) if async_write
-                        else None)
+        self.timers = NO_TIMERS if timers is None else timers
+        self._writer = (ThreadPoolExecutor(max_workers=1,
+                                           thread_name_prefix="restart-writer")
+                        if async_write else None)
         self._pending = []
 
     def due(self, nt: int) -> bool:
         return bool(self.cadence and nt % self.cadence == 0) or nt == self.last
 
-    def _write(self, nt, st, prm, frc):
-        t = self.start + (nt - 1) * self.dto / 86400.0
-        p = save_restart(self.outfile, st, prm, frc, nt, t, self.dto)
-        self.written.append(p)
-        if self.netcdf_grid is not None:
-            nx, ny = self.netcdf_grid
-            valid = t + self.dto / 86400.0
-            pn = export_reference_restart(
-                f"{self.outfile}_{valid:012.5f}.nc", st, prm,
-                nx, ny, t, self.dto)
-            self.written.append(pn)
+    def _write(self, nt, st, prm, frc, hour=None):
+        timers = self.timers
+        with timers.span("restart.d2h", hour):
+            st, prm, frc = (tree_map(lambda a: a.cpu(), x)
+                            for x in (st, prm, frc))
+        timers.count("restart.d2h_bytes", sum(
+            getattr(x, n).nbytes for x in (st, prm, frc)
+            for n in x.__dataclass_fields__))
+        with timers.span("restart.save", hour, device=False):
+            t = self.start + (nt - 1) * self.dto / 86400.0
+            p = save_restart(self.outfile, st, prm, frc, nt, t, self.dto)
+            self.written.append(p)
+            if self.netcdf_grid is not None:
+                nx, ny = self.netcdf_grid
+                valid = t + self.dto / 86400.0
+                pn = export_reference_restart(
+                    f"{self.outfile}_{valid:012.5f}.nc", st, prm,
+                    nx, ny, t, self.dto)
+                self.written.append(pn)
         return p
 
     def maybe_write(self, nt: int, st, prm, frc):
@@ -219,7 +234,7 @@ class RestartControl:
             if self.layout.rank != 0:
                 return
         if self._writer is None:
-            return self._write(nt, st, prm, frc)
+            return self._write(nt, st, prm, frc, self.timers.hour)
         # fail fast: surface an already-failed detached write now
         still = []
         for fut in self._pending:
@@ -228,12 +243,14 @@ class RestartControl:
             else:
                 still.append(fut)
         self._pending = still + [
-            self._writer.submit(self._write, nt, st, prm, frc)]
+            self._writer.submit(self._write, nt, st, prm, frc,
+                                self.timers.hour)]
         return None
 
     def flush(self):
         """Wait for queued restart writes; returns the paths written."""
-        for fut in self._pending:
-            fut.result()
+        with self.timers.span("restart.wait", device=False):
+            for fut in self._pending:
+                fut.result()
         self._pending = []
         return self.written

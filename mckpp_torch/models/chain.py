@@ -47,6 +47,7 @@ import torch
 from ..io.diagnostics import DiagnosticsManager, WIDE_FIELDS, extract_fields
 from ..ops import cuda_kernels as ck
 from ..state import tree_map
+from ..utils.timer import NO_TIMERS
 
 _OPS = {"average": torch.add, "minimum": torch.minimum,
         "maximum": torch.maximum}
@@ -113,6 +114,15 @@ def plan_segments(num_steps: int, *, ndtocn: int, end_pred,
     return segments
 
 
+def _nbytes(tree) -> int:
+    """The bytes of every tensor in a (state, {stream: {out: tensor}},
+    {src: tensor}) triple."""
+    st, acc, inst = tree
+    return (sum(getattr(st, n).nbytes for n in st.__dataclass_fields__)
+            + sum(a.nbytes for d in acc.values() for a in d.values())
+            + sum(a.nbytes for a in inst.values()))
+
+
 class _Buffers:
     """The static inputs and outputs of the captured graphs, allocated
     outside any capture.  ``held`` maps a buffer to the tensor whose
@@ -133,9 +143,11 @@ class _Buffers:
             raise ValueError(f"chain input {tuple(src.shape)}/{src.dtype} "
                              f"does not fit its graph buffer "
                              f"{tuple(dst.shape)}/{dst.dtype}")
-        if self.held.get(id(dst)) is not src:
-            dst.copy_(src)
-            self.held[id(dst)] = src
+        if self.held.get(id(dst)) is src:
+            return 0
+        dst.copy_(src)
+        self.held[id(dst)] = src
+        return dst.nbytes
 
     def _pairs(self, st, prm, frc, accums):
         for bufs, vals in ((self.st, st), (self.prm, prm), (self.frc, frc)):
@@ -145,9 +157,11 @@ class _Buffers:
             for o, a in d.items():
                 yield self.acc[sn][o], a
 
-    def load(self, st, prm, frc, accums):
-        for dst, src in self._pairs(st, prm, frc, accums):
-            self._put(dst, src)
+    def load(self, st, prm, frc, accums) -> int:
+        """Copy the inputs that are not in place yet; returns the bytes
+        copied."""
+        return sum(self._put(dst, src)
+                   for dst, src in self._pairs(st, prm, frc, accums))
 
     def ensure_inst(self, fields):
         for src, a in fields.items():
@@ -187,8 +201,9 @@ class ChainedStepper:
     """
 
     def __init__(self, step_fn, diag: DiagnosticsManager, *,
-                 graphs: bool = False):
+                 graphs: bool = False, timers=None):
         self.diag = diag
+        self.timers = NO_TIMERS if timers is None else timers
         self.red_spec = reducing_spec(diag)
         self.wide_reducing = has_wide_reducing(diag)
         self._step_fn = step_fn
@@ -265,19 +280,26 @@ class ChainedStepper:
     def _replay(self, key, st, prm, frc, accums):
         if self._buf is None:
             self._buf = _Buffers(st, prm, frc, accums)
-        buf = self._buf
-        buf.load(st, prm, frc, accums)
+        buf, timers = self._buf, self.timers
+        with timers.span("chain.load"):
+            timers.count("chain.load_bytes", buf.load(st, prm, frc, accums))
         entry = self._graphs.get(key)
         if entry is None:
-            buf.ensure_inst(extract_fields(buf.st, buf.prm, buf.frc, key[4]))
-            entry = self._capture(key, buf)
+            with timers.span("chain.capture"):
+                buf.ensure_inst(extract_fields(buf.st, buf.prm, buf.frc,
+                                               key[4]))
+                entry = self._capture(key, buf)
         graph, launches = entry
-        graph.replay()
+        with timers.span("chain.replay"):
+            graph.replay()
         # a replay launches every kernel its capture recorded, once
         for name, n in launches.items():
             ck.LAUNCHES[name] += n
         self.replays += 1
-        return buf.hand_out(prm, frc, key[4])
+        with timers.span("chain.hand_out"):
+            out = buf.hand_out(prm, frc, key[4])
+        timers.count("chain.hand_out_bytes", _nbytes(out))
+        return out
 
     def _capture(self, key, buf):
         # the eager warm-up: the kernels' lazy set-up happens here

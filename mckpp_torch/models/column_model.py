@@ -20,6 +20,7 @@ import torch
 from .. import forcing as forcing_mod
 from ..config import KppConfig
 from ..grid import VerticalGrid, make_vertical_grid
+from ..ops import cuda_kernels as ck
 from ..ops import wscale as wscale_mod
 from ..ops.eos import abk80, cpsw
 from ..ops.ocnstep import apply_vmix, interior_fluxes, ocnstep
@@ -114,6 +115,14 @@ class KppModel:
 
     def _tensor(self, a):
         return torch.as_tensor(a, device=self.device)
+
+    def load_library(self) -> None:
+        """Load (build where missing) the kernel library that the step
+        launches, ahead of its first launch; nothing off the card's
+        kernels."""
+        if self.pass_impl in ("cuda", "cuda_step"):
+            zaxis = 0 if self.cfg.physics.pass_layout == "col_lanes" else 1
+            ck.preload(self.grid.nz, self.dtype, zaxis)
 
     # ------------------------------------------------------------------
     # Initialization (reference: mckpp_initialize_ocean.F90:18-111)

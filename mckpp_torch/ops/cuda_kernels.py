@@ -236,6 +236,13 @@ def _lib(dtype, ns, zaxis=0):
         return lib
 
 
+def preload(nz: int, dtype, zaxis=0) -> None:
+    """Load (build where missing) the library whose kernels run ``nz``
+    levels in ``dtype`` and layout ``zaxis``, ahead of their first
+    launch."""
+    _lib(dtype, launch_geometry(nz, dtype, 1).lib, zaxis)
+
+
 def load(dtype, ns, phases=False, zaxis=0):
     """The kernel library for ``dtype`` at ``ns`` level slots (or one of
     ``PAIRS``, ``MW`` or ``CL``) in layout ``zaxis``, built if missing

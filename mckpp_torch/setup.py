@@ -35,6 +35,7 @@ from .io import restart as restart_io
 from .io.ancillaries import BoundaryManager, FluxFileReader
 from .models.column_model import KppModel, model_dtype, resolve_device
 from .state import init_forcing, init_params, init_state
+from .utils.timer import NO_TIMERS
 
 
 def vinterp(var_in: np.ndarray, var_z: np.ndarray, model_z: np.ndarray) -> np.ndarray:
@@ -200,65 +201,79 @@ def relaxation_rates(cfg: KppConfig) -> Tuple[np.ndarray, np.ndarray, np.ndarray
             expand(b.relax_ocnt_in, b.l_relax_ocnt))
 
 
-def build(cfg: KppConfig, data_dir: str = ".", device=None, layout=None):
+def build(cfg: KppConfig, data_dir: str = ".", device=None, layout=None,
+          timers=None):
     """Assemble (model, state, params, forcing, flux_provider,
     boundary_mgr) ready to run — the reference's initialization call stack
     (SURVEY.md section 3.1).  ``device``: as for :class:`KppModel` (the
     card unless the caller asks for the CPU).  ``layout``: a
     ``ColumnLayout``; the state, parameters and forcing come back as this
     process's slab (padding columns inactive), a restart is sliced to it
-    on the host, and the readers are set to read its rows only."""
+    on the host, and the readers are set to read its rows only.
+    ``timers``: a ``utils.timer.Timers`` that takes the spans
+    ``setup.inputs`` (the input files and the ancillaries' opens and first
+    reads), ``setup.library`` (the kernel library's load, or build) and
+    ``setup.initial_pass`` (the initial mixing pass, or the restart's
+    read), and the ancillary and flux readers' copy counts."""
+    timers = NO_TIMERS if timers is None else timers
     cfg.validate()
     d = cfg.domain
     dt, dev = model_dtype(cfg), resolve_device(device)
     if layout is not None and layout.device != dev:
         raise ValueError(f"the layout's slabs are on {layout.device} and the "
                          f"model on {dev}: make both on one device")
-    dlon, dlat, l_ocean, ocdepth = load_landsea(cfg, data_dir)
-    vgrid = load_vgrid(cfg, data_dir, dt, dev)
+    with timers.span("setup.inputs"):
+        dlon, dlat, l_ocean, ocdepth = load_landsea(cfg, data_dir)
+        vgrid = load_vgrid(cfg, data_dir, dt, dev)
     model = KppModel(cfg, vgrid=vgrid, device=dev)
+    with timers.span("setup.library"):
+        model.load_library()
     nzp1 = model.grid.nzp1
     model_z = model.grid.zm.double().cpu().numpy()
 
-    jerlov = load_optics(cfg, data_dir, dlon[0], dlat[0], d.nx, d.ny)
-    nmode, mode, adv = load_advection(cfg, data_dir, dlon[0], dlat[0],
-                                      d.nx, d.ny)
-    r_sst, r_sal, r_ocnt = relaxation_rates(cfg)
-    cplwght = load_cplwght(cfg, data_dir, dlon[0], dlat[0], d.nx, d.ny)
-    # run_physics gating (mckpp_initialize_fields_mod.F90:146-153)
-    if cfg.boundary.l_couple:
-        run_physics = l_ocean & (cplwght > 0.0)
-    else:
-        run_physics = l_ocean
-
-    fl = lambda a: torch.as_tensor(np.asarray(a), dtype=dt, device=dev)
-    it = lambda a: torch.as_tensor(np.asarray(a), device=dev)
-    prm = init_params(d.npts, nzp1, dtype=dt, device=dev)
-    prm = prm.replace(
-        f=coriolis(fl(dlat), twopi=cfg.constants.twopi),
-        dlat=fl(dlat), dlon=fl(dlon), ocdepth=fl(ocdepth),
-        jerlov=it(jerlov), l_ocean=it(l_ocean), run_physics=it(run_physics),
-        cplwght=fl(cplwght), relax_sst=fl(r_sst), relax_sal=fl(r_sal),
-        relax_ocnt=fl(r_ocnt), nmodeadv=it(nmode), modeadv=it(mode),
-        advection=fl(adv))
-
-    if cfg.init.l_restart:
-        rpath = os.path.join(data_dir, cfg.init.restart_infile)
-        if rpath.endswith(".npz"):
-            # native bit-exact checkpoint (either package's); under a
-            # layout it stays on the host until sliced to the slab
-            st, prm, frc, _, _ = restart_io.load_restart(
-                rpath, device="cpu" if layout is not None else dev)
+    with timers.span("setup.inputs"):
+        jerlov = load_optics(cfg, data_dir, dlon[0], dlat[0], d.nx, d.ny)
+        nmode, mode, adv = load_advection(cfg, data_dir, dlon[0], dlat[0],
+                                          d.nx, d.ny)
+        r_sst, r_sal, r_ocnt = relaxation_rates(cfg)
+        cplwght = load_cplwght(cfg, data_dir, dlon[0], dlat[0], d.nx, d.ny)
+        # run_physics gating (mckpp_initialize_fields_mod.F90:146-153)
+        if cfg.boundary.l_couple:
+            run_physics = l_ocean & (cplwght > 0.0)
         else:
-            # reference-format NetCDF restart (mckpp_xios_io.F90:436-465)
-            st = init_state(d.npts, nzp1, dt, dev)
-            frc = init_forcing(d.npts, nzp1, dt, dev)
-            st, prm, _ = restart_io.import_reference_restart(
-                rpath, st, prm, grid=model.grid)
-    else:
-        u0, t0, s0 = load_initial_profiles(cfg, data_dir, model_z,
-                                           dlon[0], dlat[0], d.nx, d.ny)
-        st, prm, frc = model.initial_state(u0, t0, s0, prm)
+            run_physics = l_ocean
+
+        fl = lambda a: torch.as_tensor(np.asarray(a), dtype=dt, device=dev)
+        it = lambda a: torch.as_tensor(np.asarray(a), device=dev)
+        prm = init_params(d.npts, nzp1, dtype=dt, device=dev)
+        prm = prm.replace(
+            f=coriolis(fl(dlat), twopi=cfg.constants.twopi),
+            dlat=fl(dlat), dlon=fl(dlon), ocdepth=fl(ocdepth),
+            jerlov=it(jerlov), l_ocean=it(l_ocean),
+            run_physics=it(run_physics), cplwght=fl(cplwght),
+            relax_sst=fl(r_sst), relax_sal=fl(r_sal), relax_ocnt=fl(r_ocnt),
+            nmodeadv=it(nmode), modeadv=it(mode), advection=fl(adv))
+
+    with timers.span("setup.initial_pass"):
+        if cfg.init.l_restart:
+            rpath = os.path.join(data_dir, cfg.init.restart_infile)
+            if rpath.endswith(".npz"):
+                # native bit-exact checkpoint (either package's); under a
+                # layout it stays on the host until sliced to the slab
+                st, prm, frc, _, _ = restart_io.load_restart(
+                    rpath, device="cpu" if layout is not None else dev)
+            else:
+                # reference-format NetCDF restart
+                # (mckpp_xios_io.F90:436-465)
+                st = init_state(d.npts, nzp1, dt, dev)
+                frc = init_forcing(d.npts, nzp1, dt, dev)
+                st, prm, _ = restart_io.import_reference_restart(
+                    rpath, st, prm, grid=model.grid)
+        else:
+            with timers.span("setup.inputs"):
+                u0, t0, s0 = load_initial_profiles(
+                    cfg, data_dir, model_z, dlon[0], dlat[0], d.nx, d.ny)
+            st, prm, frc = model.initial_state(u0, t0, s0, prm)
 
     # ancillary file paths are namelist-relative: prefix the data dir
     join = lambda p: os.path.join(data_dir, p) if p not in ("", "none") else p
@@ -273,9 +288,10 @@ def build(cfg: KppConfig, data_dir: str = ".", device=None, layout=None):
             bottom_file=join(cfg.forcing.bottom_file),
             ocnt_file=join(cfg.forcing.ocnt_file),
             sal_file=join(cfg.forcing.sal_file)))
-    mgr = BoundaryManager(cfg_anc, dlon[0], dlat[0], nzp1,
-                          prm.sref.cpu().numpy())
-    frc = mgr.initial_reads(cfg.time.startt, frc)
+    with timers.span("setup.inputs"):
+        mgr = BoundaryManager(cfg_anc, dlon[0], dlat[0], nzp1,
+                              prm.sref.cpu().numpy(), timers=timers)
+        frc = mgr.initial_reads(cfg.time.startt, frc)
 
     flux_provider = None
     if cfg.forcing.l_fluxdata:
@@ -284,7 +300,7 @@ def build(cfg: KppConfig, data_dir: str = ".", device=None, layout=None):
                 cfg.forcing,
                 forcing_file=os.path.join(data_dir, cfg.forcing.forcing_file)))
         flux_provider = FluxFileReader(cfg2, dlon[0], dlat[0], dtype=dt,
-                                       device=dev)
+                                       device=dev, timers=timers)
 
     if layout is not None:
         st, prm, frc = (layout.shard_tree(t) for t in (st, prm, frc))
