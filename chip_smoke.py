@@ -12,7 +12,8 @@ Phases, each printing JSON lines; any breach raises, so the script exits
    slots a lane carries: 3 for nz + 2 <= 96, 4 for <= 128, 6 for <= 192,
    8 for <= 256; one per dtype of a column over several warps, "cw", for
    <= 1024; and one per dtype of a column over a cluster of blocks,
-   "cl", for <= 8192; twelve nvcc processes at once) and print each
+   "cl", for <= 8192; and the step glue's library, one for both dtypes
+   and layouts; thirteen nvcc processes at once) and print each
    one's ptxas table; then the clusters the card holds at once
    (cudaOccupancyMaxActiveClusters) at each cluster geometry of nz =
    1023, 2046, 3070 and 8190; then start the same twelve libraries'
@@ -68,9 +69,11 @@ Phases, each printing JSON lines; any breach raises, so the script exits
 4. full-width comparisons, one step from the same state (the main path's,
    with seeded noise on T, S and u): "cuda_step" vs "eager_step" and
    "cuda" vs "cuda_step"; "cuda_step" and "cuda" in z_lanes equal to
-   col_lanes in every state field, bit for bit;
+   col_lanes in every state field, bit for bit; then a prognostic step
+   of "cuda_step" in each layout, for the step glue's inputs;
 5. each kernel at the main-path shape in both layouts, on the inputs the
-   main path gave it: held to its plain version (the phase-2 bar), timed
+   main path gave it: held to its plain version (the phase-2 bar; the
+   step glue's two kernels, of a prognostic step, bit for bit), timed
    beside it and beside the card's bound;
 6. a device trace (``torch.profiler``) of one full step and of one
    prognostic step at the main-path width in each layout: device time by
@@ -114,7 +117,8 @@ Phases, each printing JSON lines; any breach raises, so the script exits
    columns); each with its five stream files, outputs held as in phase
    8, the step kernel launched, rates, timers and peak memory printed,
    and each kernel the run launched held to its plain version on the
-   inputs of its first launch in that run (the phase-2 bar), timed
+   inputs of its first launch in that run (the phase-2 bar; the step
+   glue's, bit for bit), timed
    beside it and its bound, with that run's launch counts;
    global_1deg once more under ``--profile``, its trace digested by
    ``mckpp_torch.tools.summarize_trace`` (idle share, kpp ms, the step
@@ -165,6 +169,11 @@ REPLACES = {"fused_pass_fast": "mckpp_tpu/ops/fused_pass.py:1031",
             "fused_pass_full": "mckpp_tpu/ops/fused_pass.py:1031",
             "fused_step": "mckpp_tpu/ops/fused_pass.py:1149"}
 SOURCE = "mckpp_torch/csrc/fused_kernels.cu"
+# the step glue's two kernels (mckpp_torch/ops/step_glue.py) replace no
+# TPU kernel: the JAX package's step leaves that glue to XLA
+GLUE = ("step_glue_in", "step_glue_out")
+GLUE_SOURCE = "mckpp_torch/csrc/step_glue.cu"
+GLUE_REPLACES = "none (XLA fuses mckpp_tpu/ops/ocnstep_fused.py's glue)"
 
 
 T_START = time.perf_counter()
@@ -316,20 +325,38 @@ def run_steps(model, st, prm, frc, nt0, n, with_diags=True):
     return st, frc
 
 
+def cloned(x):
+    """``x`` with every tensor in it copied (tuples and State-like
+    dataclasses field by field)."""
+    import dataclasses
+    import torch
+    from mckpp_torch.state import tree_map
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, tuple):
+        return tuple(cloned(y) for y in x)
+    if dataclasses.is_dataclass(x):
+        return tree_map(cloned, x)
+    return x
+
+
 class Capture:
     """Records the arguments of the first launch of each kernel while
     active (the inputs the main path gives each kernel); a launch inside
     a CUDA graph capture is passed over (its inputs are not yet
-    written), as is any later launch of a kernel already recorded."""
+    written), as is any later launch of a kernel already recorded.
+    ``glue``: the step glue's two kernels too (whose inputs hold the
+    whole state)."""
 
-    def __init__(self):
+    def __init__(self, glue=False):
         from mckpp_torch.ops import cuda_kernels as ck
-        self.ck = ck
+        from mckpp_torch.ops import step_glue as sg
+        self.classes = (ck.FusedPass, ck.FusedStep) + (
+            (sg.GlueIn, sg.GlueOut) if glue else ())
         self.calls = []
 
     def __enter__(self):
-        ck = self.ck
-        self.orig = (ck.FusedPass.launch, ck.FusedStep.launch)
+        self.orig = [c.launch for c in self.classes]
         calls = self.calls
         import torch
 
@@ -337,15 +364,16 @@ class Capture:
             def launch(w, *a, **kw):
                 if all(c[0].name != w.name for c in calls) and \
                         not torch.cuda.is_current_stream_capturing():
-                    calls.append((w, tuple(x.clone() for x in a)))
+                    calls.append((w, cloned(a)))
                 return fn(w, *a, **kw)
             return launch
-        ck.FusedPass.launch = wrap(self.orig[0])
-        ck.FusedStep.launch = wrap(self.orig[1])
+        for c, fn in zip(self.classes, self.orig):
+            c.launch = wrap(fn)
         return self
 
     def __exit__(self, *exc):
-        self.ck.FusedPass.launch, self.ck.FusedStep.launch = self.orig
+        for c, fn in zip(self.classes, self.orig):
+            c.launch = fn
 
     def first(self, name):
         for w, a in self.calls:
@@ -439,15 +467,25 @@ KERNEL_OF = (("fused_step_kernel", "fused_step"),
              ("fused_pass_kernelIdLb0", "fused_pass_fast"),
              ("fused_pass_kernelIfLb1", "fused_pass_full"),
              ("fused_pass_kernelIdLb1", "fused_pass_full"))
+# the step glue's instantiations: kernel, float or double, ZL
+GLUE_KERNEL = re.compile(r"glue_(in|out)_kernelI([fd])Lb([01])E")
+
+
+def glue_key(kname, dtype, zaxis):
+    """The step glue library's table key of one instantiation."""
+    return f"{kname}/{dtype}/{LAYOUTS[zaxis]}"
 
 
 def ptxas_table(log):
     """{kernel: {registers, stack, spill_stores, spill_loads}} from one
-    nvcc -Xptxas -v report."""
+    nvcc -Xptxas -v report (the step glue's by :func:`glue_key`)."""
     out, cur = {}, None
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
-            cur = next(k for m, k in KERNEL_OF if m in ln)
+            g = GLUE_KERNEL.search(ln)
+            cur = (glue_key(f"step_glue_{g[1]}", "float32" if g[2] == "f"
+                            else "float64", int(g[3])) if g else
+                   next(k for m, k in KERNEL_OF if m in ln))
             out[cur] = {}
         elif cur and "bytes stack frame" in ln:
             n = [int(x) for x in re.findall(r"(\d+) bytes", ln)]
@@ -464,12 +502,14 @@ CL_OCCUPANCY_NZ = (1023, 2046, 3070, 8190)
 
 
 def ptxas_tables(reports):
-    """{"float32/ns3": table, ..., "float64/cl_zl": table} of a build's
-    reports: one library per dtype, layout and level slots: "ns3" (nz + 2
-    <= 96), "ns4" (<= 128), ..., "cw" (a column over several warps, <=
-    1024), "cl" (a cluster, <= 8192), "_zl" for the z_lanes build."""
+    """{"float32/ns3": table, ..., "float64/cl_zl": table, "glue": table}
+    of a build's reports: one library per dtype, layout and level slots:
+    "ns3" (nz + 2 <= 96), "ns4" (<= 128), ..., "cw" (a column over
+    several warps, <= 1024), "cl" (a cluster, <= 8192), "_zl" for the
+    z_lanes build; "glue" the step glue's, one for both."""
     from mckpp_torch.ops import cuda_kernels as ck
-    return {f"{str(dt).replace('torch.', '')}/{ck._lib_tag(lib, z)}":
+    return {(ck._lib_tag(lib, z) if dt is None else
+             f"{str(dt).replace('torch.', '')}/{ck._lib_tag(lib, z)}"):
             ptxas_table(log) for (dt, lib, z), log in reports.items()}
 
 
@@ -534,7 +574,7 @@ def phase_device():
           "cuda": torch.version.cuda, "python": sys.version.split()[0]})
     zl_build = Background(lambda: ck.build(zaxes=(1,), nice=10))
     t0 = time.perf_counter()
-    ptxas = ptxas_tables(ck.build(zaxes=(0,)))
+    ptxas = ptxas_tables(ck.build(zaxes=(0,), slots=ck.LIBS + (ck.GLUE,)))
     build_s = time.perf_counter() - t0
     emit({"phase": "build", "layout": "col_lanes", "seconds": build_s,
           "ptxas": ptxas})
@@ -1172,7 +1212,8 @@ def gate_zlanes(ptxas, zl_build):
     st, frc = run_steps(model, st, prm, frc, 1, 2, with_diags=False)
     sync()
     if model.pass_impl != "cuda_step" or ck.LAUNCHES != {
-            "fused_pass_fast": 0, "fused_pass_full": 0, "fused_step": 2} \
+            "fused_pass_fast": 0, "fused_pass_full": 0, "fused_step": 2,
+            "step_glue_in": 2, "step_glue_out": 2} \
             or not torch_all_finite(st):
         raise AssertionError(f"z_lanes nz = 69, auto: {model.pass_impl}, "
                              f"{ck.LAUNCHES}")
@@ -1340,8 +1381,10 @@ def perturbed(st, seed=1):
 def phase_compare(st, prm, frc, nt):
     """One step from the same (perturbed) state through three paths, and
     the two kernel paths again in z_lanes, every state field equal to
-    col_lanes' bit for bit; returns the captured kernel inputs at the
-    main-path shapes ({"cuda_step": ..., "cuda/z_lanes": ...})."""
+    col_lanes' bit for bit; then one prognostic step of "cuda_step" in
+    each layout from there; returns the captured kernel inputs at the
+    main-path shapes ({"cuda_step": ..., "cuda/z_lanes": ..., and the
+    prognostic steps' "lazy:cuda_step", "lazy:cuda_step/z_lanes"})."""
     import torch
     st = perturbed(st)
     outs, caps = {}, {}
@@ -1354,6 +1397,12 @@ def phase_compare(st, prm, frc, nt):
             outs[impl] = run_steps(model, st, prm, frc, nt, 1)[0]
             sync()
         caps[impl] = cap
+        if p_impl == "cuda_step":   # the glue of the main path's steps
+            with Capture(glue=True) as cap:
+                run_steps(model, outs[impl], prm, frc, nt + 1, 1,
+                          with_diags=False)
+                sync()
+            caps["lazy:" + impl] = cap
         del model
     layouts_equal = {}
     for impl in ("cuda_step", "cuda"):
@@ -1415,16 +1464,92 @@ def kernel_bytes(a, got, aref):
         sum(x.numel() * x.element_size() for x in got)
 
 
+def glue_plain(w, a):
+    """The plain body of step glue wrapper ``w`` on its inputs ``a``."""
+    from mckpp_torch.ops import step_glue as sg
+    if w.name == "step_glue_in":
+        return sg.glue_in_body(*a, wz=w.wz, zaxis=w.zaxis)
+    return sg.glue_out_body(*a, grid=w.grid, cfg=w.cfg, zaxis=w.zaxis)
+
+
+def glue_bytes(w, a, got):
+    """The bytes a step glue kernel must move, each once.  step_glue_in
+    reads its eight inputs and writes its ten profiles.  step_glue_out
+    writes its outputs and reads the step's four profiles at their nz + 1
+    levels, the history (us, xs), the level profiles it passes on (rho,
+    cp, and tinc_fcorr / ocntcorr where it writes them), u and x of the
+    land columns and the per-column rows (flags, phases, a prognostic
+    step's surface rows); the resets to the initial or climatological
+    profiles and the bottom pin, which read a few columns, are left
+    out."""
+    nb = lambda x: x.numel() * x.element_size()
+    if w.name == "step_glue_in":
+        return sum(nb(x) for x in a) + sum(nb(x) for x in got)
+    q, st, prm, frc, comp_flag, row0, src = a
+    ncol, nzp1 = st.u.shape[:2]
+    passed = [x for x, n in zip(src, ("rho", "cp", "tinc_fcorr",
+                                      "ocntcorr")) if n in got]
+    land = int((~prm.run_physics).sum())
+    return (4 * ncol * nzp1 * q[0].element_size() + nb(st.us) + nb(st.xs)
+            + sum(nb(x) for x in passed)
+            + land * (nb(st.u) + nb(st.x)) // ncol
+            + sum(nb(x) for x in (comp_flag, prm.run_physics, prm.l_ocean,
+                                  st.old, st.new, *(row0 or ())))
+            + sum(nb(x) for x in got.values()))
+
+
+def glue_row(kname, w, a, name, ptxas, launches):
+    """:func:`kernel_row` of the step glue's two kernels: every output
+    equal to the plain body's bit for bit, timed beside it and beside
+    the card's bound by bytes (:func:`glue_bytes`)."""
+    import torch
+    _, bytes_peak = card_peaks(name)
+    got, ref = w.launch(*a), glue_plain(w, a)
+    sync()
+    pairs = (dict(enumerate(zip(got, ref))) if kname == "step_glue_in"
+             else {n: (got.get(n), ref[n]) for n in ref})
+    differ = [n for n, (x, y) in pairs.items()
+              if x is None or not torch.equal(x, y)]
+    if kname == "step_glue_out" and got.keys() != ref.keys():
+        raise AssertionError(f"{kname} wrote {sorted(got)}, its plain "
+                             f"body {sorted(ref)}")
+    if differ:
+        raise AssertionError(f"{kname}: outputs {differ} differ from the "
+                             "plain body's")
+    ms = time_cuda(lambda: w.launch(*a), 5)
+    plain_ms = time_cuda(lambda: glue_plain(w, a), 2)
+    nbytes = glue_bytes(w, a, got)
+    u = a[2] if kname == "step_glue_in" else a[1].u
+    dt = str(u.dtype).replace("torch.", "")
+    table = ptxas.get("glue", {}).get(glue_key(kname, dt, w.zaxis), {})
+    return {
+        "name": kname, "route": "cuda", "source": GLUE_SOURCE,
+        "replaces": GLUE_REPLACES, "launches": launches,
+        "max_abs_err": 0.0, "max_rel_err": 0.0, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": nbytes / bytes_peak * 1e3,
+        "bound_by": "bytes", "library_ms": None, "bytes": nbytes,
+        "ops": None, "bound_bytes_ms": nbytes / bytes_peak * 1e3,
+        "shape": [u.shape[1] + 1, u.shape[0]], "layout": LAYOUTS[w.zaxis],
+        "full_step": kname == "step_glue_out" and a[5] is None,
+        "level_slots": None, "library": "glue",
+        "registers": table.get("registers"),
+        "spill_stores": table.get("spill_stores"),
+        "spill_loads": table.get("spill_loads")}
+
+
 def kernel_row(kname, w, a, name, ptxas, launches, plain_reps=2):
     """One kernel at one shape, on the inputs ``a`` the path gave it: held
     to its plain version (the phase-2 bar), timed beside it and beside
     the card's bound; ``ptxas``: every library's table, by dtype and
     library ({"float32/ns3": {kernel: registers, spills}, ...,
-    "float32/cw": ..., "float32/cl": ...}).  ``plain_reps`` 0: the plain
-    version's time is that of the one call the comparison makes (the deep
-    shapes, where a call takes seconds)."""
+    "float32/cw": ..., "float32/cl": ..., "glue": ...}).  ``plain_reps``
+    0: the plain version's time is that of the one call the comparison
+    makes (the deep shapes, where a call takes seconds).  The step
+    glue's two kernels: :func:`glue_row`."""
     import torch
     from mckpp_torch.ops import cuda_kernels as ck
+    if kname in GLUE:
+        return glue_row(kname, w, a, name, ptxas, launches)
     flops_peak, bytes_peak = card_peaks(name)
     got = w.launch(*a)
     e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -1496,15 +1621,17 @@ def kernel_row(kname, w, a, name, ptxas, launches, plain_reps=2):
 
 def phase_times(caps, counts, name, ptxas):
     """Each kernel at the main path's shape in both layouts (z_lanes rows
-    named ``<kernel>_zl``), on the inputs phase 4 captured, with the
-    launches of its layout's main-path run."""
+    named ``<kernel>_zl``), on the inputs phase 4 captured (the step
+    glue's from its prognostic step), with the launches of its layout's
+    main-path run."""
     rows = []
     for layout in LAYOUTS:
         tag = "" if layout == "col_lanes" else "/" + layout
         sources = {"fused_pass_fast": caps["cuda" + tag],
                    "fused_pass_full": caps["cuda_step" + tag],
-                   "fused_step": caps["cuda_step" + tag]}
-        for kname in ("fused_pass_fast", "fused_pass_full", "fused_step"):
+                   "fused_step": caps["cuda_step" + tag],
+                   **dict.fromkeys(GLUE, caps["lazy:cuda_step" + tag])}
+        for kname in sources:
             w, a = sources[kname].first(kname)
             row = kernel_row(kname, w, a, name, ptxas, counts[layout][kname])
             if layout == "z_lanes":
@@ -1715,7 +1842,8 @@ def phase_deep_column(name, smi, work, device="cuda", nz=DEEP_COLUMN_NZ,
     data = os.path.join(work, f"deep_column_{nz}")
     grid = write_single_column(data, nz, dmax)
     dmax = grid["dmax"]
-    with Capture() if ptxas is not None else contextlib.nullcontext() as cap:
+    with Capture(glue=True) if ptxas is not None \
+            else contextlib.nullcontext() as cap:
         day = run_cli(data, os.path.join(data, "day"), CLI_DAY_STEPS,
                       device=device)
     n_held = hold_outputs(read_nc_dir(os.path.join(data, "day")),
@@ -1743,7 +1871,8 @@ def phase_deep_column(name, smi, work, device="cuda", nz=DEEP_COLUMN_NZ,
             continue
         w, a = cap.first(kname)
         row = kernel_row(kname, w, a, name, ptxas, n)
-        row["name"] = (f"{kname}_cl{row['blocks_per_cluster']}x"
+        row["name"] = (f"{kname}_column" if kname in GLUE else
+                       f"{kname}_cl{row['blocks_per_cluster']}x"
                        f"{row['warps_per_block']}_column")
         rows.append(row)
     rel_cpu, kmix_cpu = (restart_rel(restarts["kernels"], restarts["cpu"])
@@ -2585,7 +2714,7 @@ def phase_configs(name, smi, work, ptxas=None, device="cuda", toy=False,
                    "ensemble10_dd"):
         t0 = time.perf_counter()
         ck.reset_counts()             # this configuration's run starts here
-        with Capture() as cap:
+        with Capture(glue=True) as cap:
             if config == "ensemble10_dd":
                 res = rb.run_ensemble(work, CONFIG_STEPS, members, device,
                                       toy)

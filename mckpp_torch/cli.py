@@ -390,7 +390,7 @@ def run(argv=None) -> dict:
                                  max_k=max_k)
         mckpp_print(ROUTINE, f"chained dispatch: {len(segments)} segments "
                     f"for {num_steps} steps (max k "
-                    f"{max(k for _, k in segments)}, CUDA graphs "
+                    f"{max((k for _, k in segments), default=0)}, CUDA graphs "
                     f"{'on' if graphs else 'off'})")
         for h, segs in itertools.groupby(segments,
                                          key=lambda s: hour_of(s[0])):
@@ -463,6 +463,15 @@ def run(argv=None) -> dict:
     report = timers.report()
     print(report)
     print(timers.span_report())
+    # steps of the fused path: the whole-step kernel's launches (each
+    # graph's eager warm-up included), else the run's steps (none in a
+    # run of 0 steps)
+    steps = launches["fused_step"] or num_steps
+    if model.pass_impl != "reference" and steps:
+        print(f"step glue in kernels: {launches['step_glue_out'] / steps:.3f}"
+              f" of {steps} fused-path steps (step_glue_in "
+              f"{launches['step_glue_in']}, step_glue_out "
+              f"{launches['step_glue_out']})")
     summary.update(launches=launches, paths=dict(paths),
                    restarts=list(written), bytes_written=diag.bytes_written,
                    timers=report, ncol=ncol, num_steps=num_steps,

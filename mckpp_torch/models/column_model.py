@@ -25,7 +25,7 @@ from ..ops import wscale as wscale_mod
 from ..ops.eos import abk80, cpsw
 from ..ops.ocnstep import apply_vmix, interior_fluxes, ocnstep
 from ..ops.ocnstep_fused import make_ocnstep_fused
-from ..ops.overrides import bottomtemp, check_profile
+from ..ops.overrides import finish_step
 from ..ops.swfrac import swdk, swfrac_levels
 from ..ops.vmix import vmix
 from ..state import (ColumnParams, Forcing, State, init_forcing,
@@ -230,17 +230,12 @@ class KppModel:
         trajectory, stale wide diagnostic fields.  The reference path
         always materializes."""
         grid, cfg = self.grid, self.cfg
-        if self.pass_impl == "reference":
-            new_st, comp = ocnstep(st, prm, frc, grid, cfg, first_step,
-                                   prm.run_physics, tables=self.tables)
-        else:
-            new_st, comp = self._fused_step(st, prm, frc, first_step,
-                                            with_diags=with_diags)
-        new_st = check_profile(new_st, prm, frc, comp, grid, cfg)
-        out = select(prm.run_physics, new_st, st)
-        if cfg.forcing.l_vary_bottom_temp:
-            out = bottomtemp(out, frc, grid, cfg.time.dto)
-        return out
+        if self.pass_impl != "reference":
+            return self._fused_step(st, prm, frc, first_step,
+                                    with_diags=with_diags)
+        new_st, comp = ocnstep(st, prm, frc, grid, cfg, first_step,
+                               prm.run_physics, tables=self.tables)
+        return finish_step(new_st, st, prm, frc, comp, grid, cfg)
 
     def step(self, st, prm, frc, first_step=False, with_diags=True):
         return self._step(st, prm, frc, bool(first_step),

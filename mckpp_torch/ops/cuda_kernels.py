@@ -11,6 +11,10 @@ Kernels (``mckpp_torch/csrc/fused_kernels.cu``, device code in
 * ``fused_step`` replaces ``make_fused_step`` (``pallas_call`` at
   fused_pass.py:1149).
 
+The step glue's two kernels around ``fused_step`` (``csrc/step_glue.cu``,
+wrappers in ``ops/step_glue.py``) load from a library of their own,
+``GLUE``, one for both dtypes and layouts.
+
 What bounds them on the H100: at nz=69 a pass moves ~6.4 KB per column
 (14 profiles in, 8 out; ~10.4 KB for the full pass) against ~49,600
 floating-point operations (the EOS polynomials at every level, four PCR
@@ -97,8 +101,10 @@ from ..utils.files import tmp_name
 from . import fused_pass as fp
 
 # launches of each kernel since the last reset_counts(); a wrapper adds
-# one where it launches its kernel and nowhere else
-LAUNCHES = {"fused_pass_fast": 0, "fused_pass_full": 0, "fused_step": 0}
+# one where it launches its kernel and nowhere else (the step glue's two:
+# ops/step_glue.py)
+LAUNCHES = {"fused_pass_fast": 0, "fused_pass_full": 0, "fused_step": 0,
+            "step_glue_in": 0, "step_glue_out": 0}
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 _BUILD = os.path.join(os.path.dirname(os.path.dirname(__file__)), "_build")
@@ -125,6 +131,8 @@ MW_NS = 4              # ... its level slots a lane: 128 levels a warp
 CL = "cl"              # the library of a column over a cluster of blocks
 CB_MAX = 8             # ... its blocks at most (the portable cluster size)
 LIBS = SLOTS + PAIRS + (MW, CL)   # the libraries of one dtype and layout
+GLUE = "glue"          # the step glue's library (csrc/step_glue.cu): both
+                       # dtypes and layouts, no KPP_* defines
 ONE_WARP_WZ = 32 * SLOTS[-1]      # the most levels one warp takes (128)
 PAIR_WZ = 32 * PW_CW * 4          # ... a pair of warps takes (256)
 ONE_BLOCK_WZ = 32 * MW_NS * WARPS  # ... one block takes (1024)
@@ -153,9 +161,9 @@ def _nvcc() -> str:
     return path
 
 
-def _source_hash() -> str:
+def _source_hash(lib=None) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in _SOURCES:
+    for name in (("step_glue.cu",) if lib == GLUE else _SOURCES):
         with open(os.path.join(_CSRC, name), "rb") as f:
             h.update(f.read())
     return h.hexdigest()[:16]
@@ -163,12 +171,14 @@ def _source_hash() -> str:
 
 def _lib_tag(lib, zaxis=0) -> str:
     """"ns3", "ns4", "pw3", "pw4", "cw" or "cl", then "_zl" for the
-    z_lanes build."""
+    z_lanes build; "glue" for ``GLUE``."""
     tag = lib if isinstance(lib, str) else f"ns{lib}"
     return tag + ("_zl" if zaxis else "")
 
 
 def _lib_path(dtype, lib, phases=False, zaxis=0) -> str:
+    if lib == GLUE:             # neither dtype, layout nor stage clocks
+        return os.path.join(_BUILD, f"libkpp_glue_{_source_hash(GLUE)}.so")
     tag = "_phases" if phases else ""
     return os.path.join(_BUILD, f"libkpp_{_REALS[dtype]}_"
                                 f"{_lib_tag(lib, zaxis)}{tag}_"
@@ -178,7 +188,9 @@ def _lib_path(dtype, lib, phases=False, zaxis=0) -> str:
 def build(dtypes=(torch.float32, torch.float64), phases=False,
           slots=LIBS, zaxes=(0,), nice=0) -> dict:
     """Compile the kernels for ``dtypes``, the libraries ``slots`` (level
-    slots of the one-warp kernels, or one of ``PAIRS``, ``MW`` or ``CL``)
+    slots of the one-warp kernels, or one of ``PAIRS``, ``MW`` or ``CL``;
+    ``GLUE``, the step glue's, is one library whatever the dtypes, layouts
+    and ``phases``)
     and the layouts
     ``zaxes`` (0 col_lanes, the default, or 1 z_lanes; one nvcc process
     per library, all run together) unless an up-to-date library exists.
@@ -192,8 +204,8 @@ def build(dtypes=(torch.float32, torch.float64), phases=False,
     distributed run) may build into one directory at once."""
     os.makedirs(_BUILD, exist_ok=True)
     procs = {}
-    jobs = [(dt, ns, zaxis) for dt in dtypes for zaxis in zaxes
-            for ns in slots]
+    jobs = dict.fromkeys((None, GLUE, 0) if ns == GLUE else (dt, ns, zaxis)
+                         for dt in dtypes for zaxis in zaxes for ns in slots)
     nice_cmd = shutil.which("nice") if nice else None
     for dt, ns, zaxis in sorted(jobs, key=lambda j: isinstance(j[1], int)):
         out = _lib_path(dt, ns, phases, zaxis)
@@ -204,10 +216,12 @@ def build(dtypes=(torch.float32, torch.float64), phases=False,
         lib_flags = ([f"-DKPP_NS={MW_NS}", f"-DKPP_MW={spread}"]
                      if spread else [f"-DKPP_NS={ns[2:]}", "-DKPP_MW=3"]
                      if ns in PAIRS else [f"-DKPP_NS={ns}"])
+        defs = [] if ns == GLUE else [
+            f"-DKPP_REAL={_REALS[dt]}", *lib_flags, f"-DKPP_ZL={zaxis}",
+            *(["-DKPP_PHASES"] if phases else [])]
+        src = "step_glue.cu" if ns == GLUE else "fused_kernels.cu"
         cmd = [*([nice_cmd, "-n", str(nice)] if nice_cmd else []), _nvcc(),
-               *NVCC_FLAGS, f"-DKPP_REAL={_REALS[dt]}", *lib_flags,
-               f"-DKPP_ZL={zaxis}", *(["-DKPP_PHASES"] if phases else []),
-               "-o", tmp, os.path.join(_CSRC, "fused_kernels.cu")]
+               *NVCC_FLAGS, *defs, "-o", tmp, os.path.join(_CSRC, src)]
         procs[dt, ns, zaxis] = (out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True))
@@ -217,7 +231,7 @@ def build(dtypes=(torch.float32, torch.float64), phases=False,
         if p.returncode != 0:
             if os.path.exists(tmp):
                 os.remove(tmp)
-            failed.append(f"nvcc failed for {_REALS[key[0]]}, "
+            failed.append(f"nvcc failed for {_REALS.get(key[0], 'both')}, "
                           f"{_lib_tag(key[1], key[2])}:\n{log}")
             continue
         os.replace(tmp, out)
@@ -237,21 +251,59 @@ def _lib(dtype, ns, zaxis=0):
 
 
 def preload(nz: int, dtype, zaxis=0) -> None:
-    """Load (build where missing) the library whose kernels run ``nz``
-    levels in ``dtype`` and layout ``zaxis``, ahead of their first
-    launch."""
-    _lib(dtype, launch_geometry(nz, dtype, 1).lib, zaxis)
+    """Load (build where missing, the two nvcc processes together) the
+    library whose kernels run ``nz`` levels in ``dtype`` and layout
+    ``zaxis``, and the step glue's, ahead of their first launch."""
+    ns = launch_geometry(nz, dtype, 1).lib
+    build((dtype,), slots=(ns, GLUE), zaxes=(zaxis,))
+    _lib(dtype, ns, zaxis)
+    _lib(None, GLUE)
+
+
+_vp, _ll = ctypes.c_void_p, ctypes.c_longlong
+
+
+class GlueInArgs(ctypes.Structure):
+    """Field for field the C struct step_glue::InArgs (csrc/step_glue.cu)."""
+    _fields_ = ([(n, _vp) for n in ("us", "xs", "u", "x", "swdk", "swfrac",
+                                    "old", "new")]
+                + [("sw_sc", _ll * 2), ("sw_sl", _ll * 2),
+                   ("out", _vp * 10)]
+                + [(n, ctypes.c_int) for n in ("ncol", "nzp1", "wz")])
+
+
+class GlueOutArgs(ctypes.Structure):
+    """Field for field the C struct step_glue::OutArgs (csrc/step_glue.cu)."""
+    _fields_ = ([("q", _vp * 4), ("src", _vp * 4), ("src_sc", _ll * 4),
+                 ("src_sl", _ll * 4)]
+                + [(n, _vp) for n in (
+                    "st_u", "st_x", "st_us", "st_xs", "u_init", "ocnt_clim",
+                    "sal_clim", "st_rho", "st_cp", "st_tinc", "st_ocnt",
+                    "st_uref", "st_vref", "st_tref", "st_dampu", "st_dampv",
+                    "st_ff", "bottom_temp", "comp", "rp", "ocean", "old",
+                    "new", "rho0", "cp0",
+                    "u", "x", "us", "xs", "rho", "cp", "tinc", "ocnt",
+                    "uref", "vref", "tref", "dampu", "dampv", "ff")]
+                + [(n, ctypes.c_int) for n in (
+                    "ncol", "nzp1", "wz", "nz", "damp", "have_clim",
+                    "no_freeze", "bottom")]
+                + [(n, ctypes.c_double) for n in ("damp_r", "dto")])
 
 
 def load(dtype, ns, phases=False, zaxis=0):
     """The kernel library for ``dtype`` at ``ns`` level slots (or one of
-    ``PAIRS``, ``MW`` or ``CL``) in layout ``zaxis``, built if missing
-    (``phases``: see :func:`build`)."""
+    ``PAIRS``, ``MW`` or ``CL``) in layout ``zaxis``, or the step glue's
+    (``GLUE``), built if missing (``phases``: see :func:`build`)."""
     path = _lib_path(dtype, ns, phases, zaxis)
     if not os.path.exists(path):
         build((dtype,), phases, slots=(ns,), zaxes=(zaxis,))
     lib = ctypes.CDLL(path)
     vp, ci = ctypes.c_void_p, ctypes.c_int
+    if ns == GLUE:
+        for fn in (lib.kpp_glue_in, lib.kpp_glue_out):
+            fn.argtypes = [ci, ci, vp, vp]
+            fn.restype = ci
+        return lib
     lib.kpp_fused_pass.argtypes = [ci, vp, vp, vp, vp, vp]
     lib.kpp_fused_pass.restype = ci
     lib.kpp_fused_step.argtypes = [vp, vp, vp, vp, vp]

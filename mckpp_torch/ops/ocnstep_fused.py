@@ -31,8 +31,10 @@ import torch
 
 from .. import constants as c
 from ..config import KppConfig
-from ..state import ColumnParams, Forcing, State
+from ..state import ColumnParams, Forcing, State, select
 from . import fused_pass as fp
+from . import step_glue as sg
+from .overrides import finish_step
 from .swfrac import jerlov_coeffs
 
 
@@ -49,9 +51,9 @@ def pass_flags(cfg: KppConfig) -> fp.PassFlags:
 
 
 def make_ocnstep_fused(grid, cfg: KppConfig, dtype, *, impl="eager_step"):
-    """Build step_fn(st, prm, frc, first_step, with_diags) ->
-    (new_state, comp_flag).  impl: "eager" | "eager_step" | "cuda" |
-    "cuda_step"."""
+    """Build step_fn(st, prm, frc, first_step, with_diags) -> the next
+    State, ``overrides.finish_step`` included.  impl: "eager" |
+    "eager_step" | "cuda" | "cuda_step"."""
     whole_step = impl.endswith("_step")
     base_impl = impl[:-len("_step")] if whole_step else impl
     if base_impl not in ("eager", "cuda"):
@@ -93,6 +95,8 @@ def make_ocnstep_fused(grid, cfg: KppConfig, dtype, *, impl="eager_step"):
         grid, dtype, flags, dto, itermax=ph.itermax,
         hmixtolfrac=ph.hmixtolfrac, extra_iters=ph.extra_iters,
         impl=base_impl, zaxis=zaxis) if whole_step else None)
+    glue_in, glue_out = sg.make_glue(grid, cfg, impl=base_impl, zaxis=zaxis)
+
     def tok(a):
         """(ncol, nzp1) batch profile -> the kernel layout: (WZ, ncol) for
         zaxis 0, (ncol, WZ), padded only, for 1."""
@@ -118,27 +122,9 @@ def make_ocnstep_fused(grid, cfg: KppConfig, dtype, *, impl="eager_step"):
             (mask[:, None] if zaxis else mask[None, :]), a, b)
 
         # ---- history-phase repair + extrapolation (:91-112) --------------
-        old = torch.where((st.old < 0) | (st.old > 1), st.new, st.old)
-        new = torch.where((st.new < 0) | (st.new > 1), old, st.new)
-        sel_new = (new == 1)[:, None, None]
-        sel_old = (old == 1)[:, None, None]
-        us_new = torch.where(sel_new, st.us[..., 1], st.us[..., 0])
-        us_old = torch.where(sel_old, st.us[..., 1], st.us[..., 0])
-        xs_new = torch.where(sel_new, st.xs[..., 1], st.xs[..., 0])
-        xs_old = torch.where(sel_old, st.xs[..., 1], st.xs[..., 0])
-        u_ex3 = 2.0 * us_new - us_old                  # (ncol, nzp1, 2)
-        x_ex3 = 2.0 * xs_new - xs_old
-
-        u_e = tok(u_ex3[:, :, 0])
-        v_e = tok(u_ex3[:, :, 1])
-        t_e = tok(x_ex3[:, :, 0])
-        s_e = tok(x_ex3[:, :, 1])
-        uo = tok(st.u[:, :, 0])
-        vo = tok(st.u[:, :, 1])
-        to = tok(st.x[:, :, 0])
-        so = tok(st.x[:, :, 1])
-        swdk_c = tok(st.swdk_opt)
-        swfrac_c = tok(st.swfrac)
+        (u_e, v_e, t_e, s_e, uo, vo, to, so, swdk_c, swfrac_c) = glue_in(
+            st.us, st.xs, st.u, st.x, st.swdk_opt, st.swfrac, st.old,
+            st.new)
 
         one = torch.ones((ncol,), dtype=dtype, device=dev)
         zero = torch.zeros((ncol,), dtype=dtype, device=dev)
@@ -344,54 +330,9 @@ def make_ocnstep_fused(grid, cfg: KppConfig, dtype, *, impl="eager_step"):
             wu = torch.stack([iface(wu0x, wu1), iface(wu0y, wu2)], dim=-1)
             wx = torch.stack([iface(wx0t, wx1), iface(wx0s, wx2),
                               iface(wx0b, wxb)], dim=-1)
-            u_lvl, v_lvl = u_p[:, :nzp1], v_p[:, :nzp1]
-            t_lvl, s_lvl = t_p[:, :nzp1], s_p[:, :nzp1]
-        else:
-            # prognostic-only: the loop's merged solve outputs ARE the
-            # final state (the materialization pass reproduces them — the
-            # under-relaxation is idempotent at its fixed point)
-            u_lvl = tob(u_fin_k)[:, :nzp1]
-            v_lvl = tob(v_fin_k)[:, :nzp1]
-            t_lvl = tob(t_fin_k)[:, :nzp1]
-            s_lvl = tob(s_fin_k)[:, :nzp1]
-        ssurf = prm.ssref if ph.l_ssref else s_lvl[:, 0] + prm.sref
-        dampu_flag, dampv_flag = zero, zero
-        if cfg.forcing.l_damp_curr:
-            r = cfg.forcing.dtuvdamp * (86400.0 / dto)
-
-            def damp(q):
-                a = 0.99 * torch.abs(q)
-                b = q * q / r
-                qi = torch.minimum(a, b)
-                frac = (b < a).to(dtype).sum(dim=1) / float(nzp1)
-                return q - torch.sign(q) * qi, frac
-
-            u_lvl, dampu_flag = damp(u_lvl)
-            v_lvl, dampv_flag = damp(v_lvl)
-
-        # ---- history ping-pong (:343-353) ----------------------------------
-        u3 = torch.stack([u_lvl, v_lvl], dim=-1)
-        x3 = torch.stack([t_lvl, s_lvl], dim=-1)
-        old2 = new
-        new2 = 1 - old2
-        sel2 = (new2 == 1)[:, None, None]
-        us = torch.stack([torch.where(sel2, st.us[..., 0], u3),
-                          torch.where(sel2, u3, st.us[..., 1])], dim=-1)
-        xs = torch.stack([torch.where(sel2, st.xs[..., 0], x3),
-                          torch.where(sel2, x3, st.xs[..., 1])], dim=-1)
-        selh = new2 == 1
-        hmixd = torch.stack([torch.where(selh, st.hmixd[:, 0], hmixn),
-                             torch.where(selh, hmixn, st.hmixd[:, 1])],
-                            dim=-1)
-        common = dict(u=u3, x=x3, us=us, xs=xs, hmixd=hmixd, old=old2,
-                      new=new2, hmix=hmixn, kmix=kmixn,
-                      uref=u_lvl[:, 0], vref=v_lvl[:, 0], tref=t_lvl[:, 0],
-                      ssurf=ssurf.to(dtype), reset_flag=reset_flag,
-                      dampu_flag=dampu_flag, dampv_flag=dampv_flag)
-        if with_diags:
             wxnt = st.wxnt.clone()
             wxnt[:, :, 0] = wxnt_t[:, :nz + 1]
-            new_st = st.replace(
+            wide = dict(
                 rho=rho[:, :nzp1], cp=cp[:, :nzp1], buoy=buoy[:, :nzp1],
                 talpha=talpha[:, :nzp1], sbeta=sbeta[:, :nzp1],
                 rhoh2o=rhoh2o,
@@ -402,16 +343,57 @@ def make_ocnstep_fused(grid, cfg: KppConfig, dtype, *, impl="eager_step"):
                 swdk_opt=swdk_opt[:, :nz + 1],
                 tinc_fcorr=tinc[:, :nzp1], sinc_fcorr=sinc[:, :nzp1],
                 ocntcorr=ocntcorr[:, :nzp1], scorr=scorr[:, :nzp1],
-                fcorr=fcorr, **common)
-        else:
-            # wide diagnostic fields keep their previous values; the
-            # surface rho/cp rows are refreshed from the loop so the next
-            # flux update's ntflux sees what the materialization pass
-            # would have produced
-            rho_n, cp_n = st.rho.clone(), st.cp.clone()
-            rho_n[:, 0] = rho0_fin
-            cp_n[:, 0] = cp0_fin
-            new_st = st.replace(rho=rho_n, cp=cp_n, **common)
-        return new_st, comp_flag
+                fcorr=fcorr)
+            return epilogue(st, prm, frc, outs[:4], comp_flag, hmixn, kmixn,
+                            reset_flag, None, wide, glue_out, grid=grid,
+                            cfg=cfg, zaxis=zaxis)
+        # prognostic-only: the loop's merged solve outputs ARE the final
+        # state (the materialization pass reproduces them — the
+        # under-relaxation is idempotent at its fixed point); the wide
+        # diagnostic fields keep their previous values and the surface
+        # rho/cp rows are refreshed from the loop, so the next flux
+        # update's ntflux sees what the materialization pass would have
+        # produced
+        return epilogue(st, prm, frc, (u_fin_k, v_fin_k, t_fin_k, s_fin_k),
+                        comp_flag, hmixn, kmixn, reset_flag,
+                        (rho0_fin, cp0_fin), {}, glue_out, grid=grid,
+                        cfg=cfg, zaxis=zaxis)
 
     return step_fn
+
+
+def epilogue(st: State, prm: ColumnParams, frc: Forcing, q, comp_flag,
+             hmixn, kmixn, reset_flag, row0, wide, glue_out, *, grid,
+             cfg: KppConfig, zaxis):
+    """The next State from the step's results (:242-353, then
+    ``overrides.finish_step``): ``q`` the final u, v, T, S in the kernels'
+    layout; ``row0`` a lazy step's new surface rows (rho0, cp0), or None
+    in a full step, whose diagnostic fields at levels ``wide`` holds.
+    ``glue_out`` (``step_glue``) takes the profiles; the per-column values
+    and the wide fields go through their land select here.  Without it
+    (``l_no_isotherm``) the epilogue runs in torch whole."""
+    tob = (lambda a: a) if zaxis else (lambda a: a.T)
+    new = sg.repair_phase(st.old, st.new)[1]
+    old2 = new
+    new2 = 1 - old2
+    selh = new2 == 1
+    hmixd = torch.stack([torch.where(selh, st.hmixd[:, 0], hmixn),
+                         torch.where(selh, hmixn, st.hmixd[:, 1])], dim=-1)
+    ssurf = (prm.ssref if cfg.physics.l_ssref
+             else tob(q[3])[:, 0] + prm.sref)
+    small = dict(hmixd=hmixd, old=old2, new=new2, hmix=hmixn, kmix=kmixn,
+                 ssurf=ssurf.to(st.u.dtype), reset_flag=reset_flag)
+    wide = dict(wide)
+    src = tuple(wide.pop(n, getattr(st, n))
+                for n in ("rho", "cp", "tinc_fcorr", "ocntcorr"))
+    if glue_out is None:
+        new_st = st.replace(**sg.levels_state(q, st, row0, src, cfg=cfg,
+                                              zaxis=zaxis),
+                            **small, **wide)
+        return finish_step(new_st, st, prm, frc, comp_flag, grid, cfg)
+    # check_profile zeroes reset_flag where the isotherm test is off
+    small["reset_flag"] = torch.zeros_like(reset_flag)
+    rest = {k: select(prm.run_physics, v, getattr(st, k))
+            for k, v in {**small, **wide}.items()}
+    return st.replace(**rest, **glue_out(q, st, prm, frc, comp_flag, row0,
+                                         src))

@@ -9,7 +9,7 @@ from __future__ import annotations
 import torch
 
 from ..config import KppConfig
-from ..state import ColumnParams, Forcing, State
+from ..state import ColumnParams, Forcing, State, select
 
 
 def check_profile(st: State, prm: ColumnParams, frc: Forcing, comp_flag,
@@ -82,3 +82,15 @@ def bottomtemp(st: State, frc: Forcing, grid, dto) -> State:
     x = st.x.clone()
     x[:, nz, 0] = frc.bottom_temp
     return st.replace(x=x, tinc_fcorr=tinc, ocntcorr=ocntcorr)
+
+
+def finish_step(new_st: State, st: State, prm: ColumnParams, frc: Forcing,
+                comp_flag, grid, cfg: KppConfig) -> State:
+    """The step's epilogue after the physics: ``check_profile``, the land
+    select back to ``st`` (a field the step left as it was passes through
+    as the same tensor) and, where set, ``bottomtemp``."""
+    new_st = check_profile(new_st, prm, frc, comp_flag, grid, cfg)
+    out = select(prm.run_physics, new_st, st)
+    if cfg.forcing.l_vary_bottom_temp:
+        out = bottomtemp(out, frc, grid, cfg.time.dto)
+    return out

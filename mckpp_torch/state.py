@@ -36,7 +36,12 @@ def tree_map(fn, *trees):
 
 def select(mask, new, old):
     """Per-column select (mask: (ncol,) bool) between two tensors, or two
-    dataclasses of tensors, with a leading column axis."""
+    dataclasses of tensors, with a leading column axis.  A field that is
+    the same tensor on both sides passes through as it is (the select
+    would copy it bit for bit), so a step's unchanged fields stay the
+    caller's tensors."""
+    if new is old:
+        return new
     if isinstance(new, torch.Tensor):
         return torch.where(mask.reshape(mask.shape + (1,) * (new.dim() - 1)),
                            new, old)

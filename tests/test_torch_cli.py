@@ -83,6 +83,24 @@ def test_port_cli_runs(inputs, tmp_path, monkeypatch):
     assert name == "restart_out_000000.12500.npz"
 
 
+@pytest.mark.parametrize("chain", [True, False], ids=["chain", "per_step"])
+def test_port_cli_runs_no_steps(tmp_path, monkeypatch, capsys, chain):
+    """A run whose end is its start (0 steps) returns its summary, with no
+    step glue share to print."""
+    d = tmp_path / "in"
+    d.mkdir()
+    write_inputs(d)
+    nml = d / "3D_ocn.nml"
+    nml.write_text(nml.read_text().replace("finalt=0.25", "finalt=0.0"))
+    monkeypatch.setenv("MCKPP_CHAIN", "1" if chain else "0")
+    summary = cli.run(["--namelist", str(nml), "--data-dir", str(d),
+                       "--output-dir", str(tmp_path / "out"), "--device",
+                       "cpu", "--dtype", "float64"])
+    assert summary["num_steps"] == 0 and summary["restarts"] == []
+    assert not any(summary["launches"].values())
+    assert "step glue in kernels" not in capsys.readouterr().out
+
+
 def test_port_cli_profile_writes_trace(inputs, tmp_path, monkeypatch):
     prof = tmp_path / "prof"
     assert port_cli(inputs, tmp_path / "out", "--profile", str(prof),

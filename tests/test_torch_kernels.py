@@ -236,7 +236,8 @@ def test_launch_counts_and_no_fallback(cuda, monkeypatch):
     ck.reset_counts()
     m.step(st, prm, frc, first_step=True)
     assert ck.LAUNCHES == {"fused_pass_fast": 0, "fused_pass_full": 1,
-                           "fused_step": 1}
+                           "fused_step": 1, "step_glue_in": 1,
+                           "step_glue_out": 1}
     w, a = next((w, a) for w, a in rec.calls if w.name == "fused_step")
     bad = list(a)
     bad[14] = a[14][:8]                        # colscal rows

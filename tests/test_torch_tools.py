@@ -112,7 +112,8 @@ def test_run_cli_config_on_the_cpu(tmp_path, config):
     assert res["wall_s"] >= res["inputs_s"] + res["model_loop_s"] - 1e-3
     assert res["col_steps_per_s_steady"] is None      # no half of 3 steps
     assert res["launches"] == {"fused_pass_fast": 0, "fused_pass_full": 0,
-                               "fused_step": 0}
+                               "fused_step": 0, "step_glue_in": 0,
+                               "step_glue_out": 0}
     assert res["peak_memory_bytes"] is None
     json.dumps(res)
 
