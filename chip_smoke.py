@@ -123,9 +123,11 @@ Phases, each printing JSON lines; any breach raises, so the script exits
    global_1deg once more under ``--profile``, its trace digested by
    ``mckpp_torch.tools.summarize_trace`` (idle share, kpp ms, the step
    kernel named); ``mckpp_torch.tools.bench_scaling`` at 1 and 2 ranks
-   of 64,800 columns on the card (labelled time-shared); then the 4-slot
-   kernels timed at nz = 100 on 16,384 columns against their plain
-   versions and bounds;
+   of 64,800 columns on the card (labelled time-shared); then the CLI on
+   MetUM-GOML2's N216 grid (139,968 columns at nz = 100, 40% land), 9
+   steps, its outputs held, every step kernel of the 4-slot build, and
+   each kernel it launched (the step, both glue kernels, the full pass)
+   held to its plain version and timed as above (rows ``<kernel>_n216``);
 11. deep main path: the step alone at the TerraMaris width at nz = 150
    and 254 (a pair of warps a column, 3 and 4 slots) and 510 (a column
    over 4 warps), at nz = 1022
@@ -1641,35 +1643,40 @@ def phase_times(caps, counts, name, ptxas):
     return rows
 
 
-NS4_SHAPES = (16_384,)     # a wide nz = 100 (single_column's one column
-                           # is timed on its own inputs in phase 10)
-
-
-def phase_times_ns4(name, ptxas):
-    """The 4-slot kernels at nz = 100 (single_column's levels over its
-    2000 m) at ``NS4_SHAPES`` columns, on the inputs of a model's third
-    step: each held to its plain version and timed, as in phase 5 (no
-    path's launches: these shapes are this phase's own)."""
-    rows = []
-    for ncol in NS4_SHAPES:
-        caps = {}
-        for impl in ("cuda", "cuda_step"):
-            model, st, prm, frc = build(ncol, 100, dmax=2000.0,
-                                        pass_impl=impl, noise=0.05)
-            st, frc = run_steps(model, st, prm, frc, 1, 2)
-            with Capture() as cap:
-                run_steps(model, st, prm, frc, 3, 1)
-            caps[impl] = cap
-        for kname, impl in (("fused_pass_fast", "cuda"),
-                            ("fused_pass_full", "cuda_step"),
-                            ("fused_step", "cuda_step")):
-            w, a = caps[impl].first(kname)
-            row = kernel_row(kname, w, a, name, ptxas, None)
-            if row["level_slots"] != 4:
-                raise AssertionError(f"nz = 100 launched {row['level_slots']}"
-                                     " level slots")
-            rows.append(row)
-    emit({"phase": "kernel_times_ns4", "card": name, "rows": rows})
+def phase_times_ns4(name, ptxas, work, device="cuda", toy=False):
+    """The 4-slot build on the main path at a deployment's width: the CLI
+    with its defaults (float32, "cuda_step", col_lanes, CUDA graphs) on
+    MetUM-GOML2's N216 grid (``benchmark_inputs.generate("goml2_n216")``:
+    139,968 columns, 100 levels over 1000 m, 40% land) for CONFIG_STEPS
+    steps, its outputs held as in phase 10, every step kernel launched of
+    the 4-slot one-warp build; each kernel the run launched (the step,
+    the step glue's two, the full pass) held to its plain version on the
+    inputs of its first launch in that run and timed (:func:`kernel_row`,
+    with the run's own launch counts).  Returns the kernel rows.
+    (Rehearse on the CPU with ``device="cpu", toy=True``.)"""
+    from mckpp_torch.ops import cuda_kernels as ck
+    from mckpp_torch.tools import run_baseline_benchmarks as rb
+    t0 = time.perf_counter()
+    ck.reset_counts()
+    with Capture(glue=True) as cap:
+        res = rb.run_cli_config("goml2_n216", work, CONFIG_STEPS, device, toy)
+    launches = dict(ck.LAUNCHES)
+    if launches != res["launches"]:
+        raise AssertionError(f"goml2_n216: counts {launches} != the run's "
+                             f"{res['launches']}")
+    fields = hold_config(res, work, 1, device == "cuda")
+    rows = (config_kernel_rows("goml2_n216", cap, launches, name, ptxas)
+            if device == "cuda" else [])
+    del cap
+    slots = {r["level_slots"] for r in rows if r["level_slots"] is not None}
+    if device == "cuda" and slots != {4}:
+        raise AssertionError(f"nz = 100 launched {slots} level slots")
+    emit({"phase": "kernel_times_ns4", "card": name, "ncol": res["ncol"],
+          "nz": res["nz"], "land_share": res["land_share"],
+          "launches": launches, "fields_held": fields,
+          "col_steps_per_s_steady": res.get("col_steps_per_s_steady"),
+          "peak_memory_bytes": res.get("peak_memory_bytes"),
+          "seconds": time.perf_counter() - t0, "rows": rows})
     return rows
 
 
@@ -3119,9 +3126,10 @@ def main():
         data, nml, land, dmax, g, straight = phase_cli(name, smi, work)
         phase_distributed(name, smi, work, data, nml, g, straight)
         cfg_rows = phase_configs(name, smi, os.path.join(work, "cfg"), ptxas)
-        phase_times_ns4(name, ptxas)
         rows += [dict(r, name=f"{r['name']}_ns4") for r in cfg_rows
                  if r["level_slots"] == 4]
+        rows += [dict(r, name=f"{r['name']}_n216") for r in
+                 phase_times_ns4(name, ptxas, os.path.join(work, "n216"))]
         rows += phase_deep_main(name, smi, ptxas)
         rows += phase_deep_main(name, smi, ptxas, DEEP_MAIN_ZL, "z_lanes")
         phase_deep_column(name, smi, work, cpu=False)
@@ -3137,10 +3145,10 @@ def main():
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     # each kernel x library x layout a path launched: 3 slots on the main
-    # path (phase 3, both layouts), 4 on single_column's (phase 10), a pair
-    # of warps of 3 and 4 slots, a column over 4 and 8 warps and a cluster
-    # on the deep main
-    # path (phase 11; z_lanes at 4 warps and the cluster)
+    # path (phase 3, both layouts), 4 on single_column's and on the N216
+    # grid's (phase 10, the step glue's there too), a pair of warps of 3
+    # and 4 slots, a column over 4 and 8 warps and a cluster on the deep
+    # main path (phase 11; z_lanes at 4 warps and the cluster)
     emit({"kernels": [{k: r[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}

@@ -373,7 +373,7 @@ def run(argv=None) -> dict:
                         "the host inside each step: the chain runs its "
                         "spans without CUDA graphs")
         stepper = ChainedStepper(model._step, diag, graphs=graphs,
-                                 timers=timers)
+                                 timers=timers, uncounted=model.uncounted)
 
         def end_pred(nt):
             return (emit_due(diag, nt)
@@ -435,6 +435,15 @@ def run(argv=None) -> dict:
 
     _sync(device)
     marks.finish()
+    n_ocean = int(prm.l_ocean.sum())
+    if model.passes is not None:
+        # the one host read of the pass counter (land columns run none)
+        passes = int(model.passes[prm.l_ocean].sum())
+        timers.count("step.passes", passes)
+        mckpp_print(ROUTINE, f"step passes: {passes} over {n_ocean} ocean "
+                    f"columns x {num_steps} steps "
+                    f"({passes / max(n_ocean * num_steps, 1):.4f} a "
+                    "column-step)")
     steady = _steady(marks.marks_us, num_steps, ndtocn)
     if steady is not None:
         dt2, n2 = steady
@@ -456,6 +465,11 @@ def run(argv=None) -> dict:
     launches = {k: ck.LAUNCHES[k] - launches0[k] for k in launches0}
     mckpp_print(ROUTINE, "kernel launches: " + " ".join(
         f"{k}={v}" for k, v in launches.items()))
+    build = dict(ck.STEP_BUILD) if launches["fused_step"] else None
+    if build:
+        mckpp_print(ROUTINE, f"step kernel: {build['lib']}, {build['slots']}"
+                    f" level slots a lane, {build['warps']} warps a block, "
+                    f"{build['cols']} columns a block")
     peak = (torch.cuda.max_memory_allocated(device)
             if device.type == "cuda" else None)
     mckpp_print(ROUTINE, f"peak device memory: "
@@ -477,7 +491,8 @@ def run(argv=None) -> dict:
                    timers=report, ncol=ncol, num_steps=num_steps,
                    emit_gathers=diag.emit_gathers, writes=writes,
                    peak_memory_bytes=peak, spans=timers.spans(),
-                   counters=dict(timers.counters))
+                   counters=dict(timers.counters), ocean_columns=n_ocean,
+                   step_kernel=build)
     if args.distributed:
         dist.shutdown()
     return summary

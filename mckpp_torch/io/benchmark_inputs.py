@@ -19,6 +19,14 @@ ancillaries are not redistributable:
 5. ``ensemble10_dd``: the global set with ``LKPP/LRI/LDD=.T.`` (the
    members are replicated columns, made by the runner).
 
+``generate`` also writes ``goml2_n216``, which ``CONFIGS`` leaves out
+(the JAX tool has no such set to match): MetUM-GOML2's N216 grid, 432 x
+324 columns from 0.4167 E, 89.7222 S at 0.8333 x 0.5556 degrees, with
+MetUM-GOML1's column, 100 uniform levels over 1000 m; exactly 40% land
+and sea ice drawn from ``default_rng(2)``, analytic fluxes, the SST
+climatology (40 records) with relaxation on every row, the 4-slot
+one-warp kernels' deployment.
+
 Every set has the five-stream iodef.  ``--toy`` (``toy=True``) shrinks
 the horizontal grid by 8 (the regional grid to ``max(8, 64 // 8)``, the
 global grid to 45 x 22 from 45 S in 2-degree rows).
@@ -102,12 +110,12 @@ def _write_fluxes(d, lons, lats, ntimes, dtsec):
          "precip": (("time", "latitude", "longitude"), np.full(shp, 5e-5))})
 
 
-def _write_sst_sal(d, lons, lats, ndt, dto):
+def _write_sst_sal(d, lons, lats, ndt, dto, ntimes=400):
     """The SST climatology (the tool's ``_write_sst_sal`` without its 3-D
-    variant, which no configuration writes)."""
+    variant, which no configuration writes), ``ntimes`` records."""
     nx, ny = len(lons), len(lats)
     period = ndt * dto / SPD
-    times = (np.arange(400) + 0.5) * period
+    times = (np.arange(ntimes) + 0.5) * period
     lat2 = np.tile(lats[:, None], (1, nx))
     sst = 28.0 - 18.0 * (np.abs(lat2) / 90.0)[None] \
         + 0.0 * times[:, None, None]
@@ -297,8 +305,24 @@ def generate(config: str, outdir: str, toy: bool = False,
         _write_fluxes(outdir, lons, lats, 30, 3600.0)
         _namelist(outdir, nx, ny, nz, dmax, lons[0], lats[0],
                   ldd=(config == "ensemble10_dd"), finalt=1.0)
+    elif config == "goml2_n216":
+        nx, ny = 432 // shrink, 324 // shrink
+        nz, dmax = 100, 1000.0
+        lons, lats, h, zf, dd = _grids(nx, ny, nz, dmax, lon0=0.41667,
+                                       lat0=-89.72222, dlon=0.83333 * shrink,
+                                       dlat=0.55556 * shrink)
+        rng = np.random.default_rng(2)
+        lsm = np.zeros(nx * ny)
+        lsm[rng.permutation(nx * ny)[:round(0.4 * nx * ny)]] = 1.0
+        lsm = lsm.reshape(ny, nx)
+        _write_common(outdir, lons, lats, h, zf, dd, lsm,
+                      np.full((ny, nx), -dmax))
+        _write_sst_sal(outdir, lons, lats, 3, 1200.0, ntimes=40)
+        _namelist(outdir, nx, ny, nz, dmax, lons[0], lats[0],
+                  fluxdata=False, relax=True, finalt=1.0)
     else:
-        raise ValueError(f"unknown config {config!r}; one of {CONFIGS}")
+        raise ValueError(f"unknown config {config!r}; one of "
+                         f"{CONFIGS + ('goml2_n216',)}")
     return {"config": config, "nx": nx, "ny": ny, "nz": nz, "dmax": dmax,
             "land_share": float(lsm.mean())}
 

@@ -39,6 +39,7 @@ function with the same with_diags schedule.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Dict, Optional, Tuple
 
@@ -198,15 +199,19 @@ class ChainedStepper:
     ``_step``.  ``graphs``: capture each span key in a CUDA graph and
     replay it (the model on CUDA with the whole-step kernel, whose step
     never waits on the host); otherwise run the body eagerly.
+    ``uncounted``: a context manager factory around each capture's eager
+    warm-up, whose steps the replays run again (the model's
+    ``uncounted``, so that its pass counter counts each step once).
     """
 
     def __init__(self, step_fn, diag: DiagnosticsManager, *,
-                 graphs: bool = False, timers=None):
+                 graphs: bool = False, timers=None, uncounted=None):
         self.diag = diag
         self.timers = NO_TIMERS if timers is None else timers
         self.red_spec = reducing_spec(diag)
         self.wide_reducing = has_wide_reducing(diag)
         self._step_fn = step_fn
+        self._uncounted = uncounted or contextlib.nullcontext
         self.graphs = graphs
         self._templates: Optional[Dict[str, Dict[str, tuple]]] = None
         self._buf: Optional[_Buffers] = None
@@ -303,7 +308,8 @@ class ChainedStepper:
 
     def _capture(self, key, buf):
         # the eager warm-up: the kernels' lazy set-up happens here
-        self._body(buf.st, buf.prm, buf.frc, buf.acc, *key)
+        with self._uncounted():
+            self._body(buf.st, buf.prm, buf.frc, buf.acc, *key)
         torch.cuda.synchronize()
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()

@@ -12,6 +12,7 @@ does not cover (the Thomas solver, the resident wscale table).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, Optional
 
@@ -89,6 +90,12 @@ class KppModel:
         self._fused_step = (None if self.pass_impl == "reference" else
                             make_ocnstep_fused(self.grid, cfg, self.dtype,
                                                impl=self.pass_impl))
+        # the passes each column ran in the whole steps taken so far (the
+        # step's colstep row 7), float64 on the model's device, added up
+        # there; None until the first whole step, and under the per-pass
+        # and reference impls
+        self.passes: Optional[torch.Tensor] = None
+        self._counting = True
 
     @staticmethod
     def _resolve_pass_impl(ph, on_cuda: bool) -> str:
@@ -112,6 +119,28 @@ class KppModel:
                 "uses features the fused step does not cover (wscale "
                 "table / thomas solver); use 'reference' or 'auto'")
         return choice
+
+    @contextlib.contextmanager
+    def uncounted(self):
+        """Steps inside the block add nothing to :attr:`passes`: a CUDA
+        graph's eager warm-up, whose steps the replays run again."""
+        was, self._counting = self._counting, False
+        try:
+            yield
+        finally:
+            self._counting = was
+
+    def _passes_of(self, st: State):
+        """The pass counter a whole step adds to, or None; allocated at
+        the first whole step (a graph's eager warm-up, outside any
+        capture)."""
+        if not self.pass_impl.endswith("_step"):
+            return None
+        ncol = st.u.shape[0]
+        if self.passes is None or self.passes.shape[0] != ncol:
+            self.passes = torch.zeros((ncol,), dtype=torch.float64,
+                                      device=self.device)
+        return self.passes if self._counting else None
 
     def _tensor(self, a):
         return torch.as_tensor(a, device=self.device)
@@ -232,7 +261,8 @@ class KppModel:
         grid, cfg = self.grid, self.cfg
         if self.pass_impl != "reference":
             return self._fused_step(st, prm, frc, first_step,
-                                    with_diags=with_diags)
+                                    with_diags=with_diags,
+                                    passes=self._passes_of(st))
         new_st, comp = ocnstep(st, prm, frc, grid, cfg, first_step,
                                prm.run_physics, tables=self.tables)
         return finish_step(new_st, st, prm, frc, comp, grid, cfg)

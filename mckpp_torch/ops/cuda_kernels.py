@@ -105,6 +105,9 @@ from . import fused_pass as fp
 # ops/step_glue.py)
 LAUNCHES = {"fused_pass_fast": 0, "fused_pass_full": 0, "fused_step": 0,
             "step_glue_in": 0, "step_glue_out": 0}
+# the build of the last whole-step kernel launched (FusedStep.launch): its
+# library's tag, level slots a lane, warps a block and columns a block
+STEP_BUILD: dict = {}
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 _BUILD = os.path.join(os.path.dirname(os.path.dirname(__file__)), "_build")
@@ -845,4 +848,7 @@ class FusedStep:
                                 torch.cuda.current_stream(dev).cuda_stream)
         _raise_on(rc, self.name, geom)
         LAUNCHES[self.name] += 1
+        STEP_BUILD.update(lib=_lib_tag(geom.lib, self.kw.get("zaxis", 0)),
+                          slots=geom.ns, warps=geom.warps,
+                          cols=geom.cols_per_block)
         return tuple(outs)

@@ -51,9 +51,11 @@ def pass_flags(cfg: KppConfig) -> fp.PassFlags:
 
 
 def make_ocnstep_fused(grid, cfg: KppConfig, dtype, *, impl="eager_step"):
-    """Build step_fn(st, prm, frc, first_step, with_diags) -> the next
-    State, ``overrides.finish_step`` included.  impl: "eager" |
-    "eager_step" | "cuda" | "cuda_step"."""
+    """Build step_fn(st, prm, frc, first_step, with_diags, passes) -> the
+    next State, ``overrides.finish_step`` included.  impl: "eager" |
+    "eager_step" | "cuda" | "cuda_step".  ``passes``, where given, is a
+    ``(ncol,)`` tensor to which a whole-step impl adds the passes each
+    column ran (the step's colstep row 7) in place, on the device."""
     whole_step = impl.endswith("_step")
     base_impl = impl[:-len("_step")] if whole_step else impl
     if base_impl not in ("eager", "cuda"):
@@ -110,7 +112,7 @@ def make_ocnstep_fused(grid, cfg: KppConfig, dtype, *, impl="eager_step"):
     kshl = lambda a, s: fp._shl(a, s, dim=zaxis)
 
     def step_fn(st: State, prm: ColumnParams, frc: Forcing, first_step,
-                with_diags: bool = True):
+                with_diags: bool = True, passes=None):
         """``with_diags=False`` skips the final materialization pass: the
         prognostic trajectory (u, x, history, hmix, surface rho/cp for the
         next ntflux) is the same, but the wide diagnostic fields keep
@@ -257,6 +259,8 @@ def make_ocnstep_fused(grid, cfg: KppConfig, dtype, *, impl="eager_step"):
             comp_flag = co(colstep, 4) > 0.5
             reset_flag = co(colstep, 5)
             f_used = co(colstep, 6)
+            if passes is not None:
+                passes.add_(co(colstep, 7))
         else:
             u_fin_k, v_fin_k, t_fin_k, s_fin_k = u_e, v_e, t_e, s_e
             ux_f, vx_f, tx_f, sx_f = u_e, v_e, t_e, s_e

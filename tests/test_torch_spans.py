@@ -207,7 +207,7 @@ def test_summary_spans_and_counters(sst_run):
                for s in spans["diag.d2h"])
     assert set(summary["counters"]) == {
         "diag.d2h_bytes", "restart.d2h_bytes", "ancillary.h2d_bytes",
-        "forcing.h2d_bytes"}
+        "forcing.h2d_bytes", "step.passes"}
 
 
 def test_byte_counters_equal_the_tensors(sst_run):

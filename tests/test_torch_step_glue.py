@@ -311,10 +311,11 @@ def cuda():
     return torch.device("cuda")
 
 
-# the main path's width; at nz = 510 in float64 a width whose inputs and
-# plain bodies fit the card's 80 GB
-GATE = ([(nz, 65_536 if (nz, dt) == (510, "float64") else 144_507, dt, lay,
-          fl) for nz in (69, 150, 510)
+# the main path's width: TerraMaris's 144,507 columns, and at nz = 100 the
+# N216 grid's 139,968 (the 4-slot build's deployment); at nz = 510 in
+# float64 a width whose inputs and plain bodies fit the card's 80 GB
+GATE = ([(nz, 139_968 if nz == 100 else 65_536 if (nz, dt) == (510, "float64")
+          else 144_507, dt, lay, fl) for nz in (69, 100, 150, 510)
          for dt in ("float32", "float64") for lay in LAYOUTS
          for fl in ("none", "all")]
         + [(69, 3001, dt, lay, fl) for dt in ("float32", "float64")
