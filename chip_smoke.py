@@ -74,7 +74,10 @@ Phases, each printing JSON lines; any breach raises, so the script exits
 5. each kernel at the main-path shape in both layouts, on the inputs the
    main path gave it: held to its plain version (the phase-2 bar; the
    step glue's two kernels, of a prognostic step, bit for bit), timed
-   beside it and beside the card's bound;
+   beside it and beside the card's bound; the step launched with the
+   path's mask, so in its column order (ocean first), and once more
+   without it (slot order): outputs equal bit for bit, its time and
+   block fill beside the path's (here and wherever a kernel row is made);
 6. a device trace (``torch.profiler``) of one full step and of one
    prognostic step at the main-path width in each layout: device time by
    kernel name, the device-idle share, the glue's device ms and
@@ -348,7 +351,8 @@ class Capture:
     a CUDA graph capture is passed over (its inputs are not yet
     written), as is any later launch of a kernel already recorded.
     ``glue``: the step glue's two kernels too (whose inputs hold the
-    whole state)."""
+    whole state).  ``kwargs``: the keywords of each recorded launch (the
+    step's ``mask``), by kernel name."""
 
     def __init__(self, glue=False):
         from mckpp_torch.ops import cuda_kernels as ck
@@ -356,10 +360,11 @@ class Capture:
         self.classes = (ck.FusedPass, ck.FusedStep) + (
             (sg.GlueIn, sg.GlueOut) if glue else ())
         self.calls = []
+        self.kwargs = {}
 
     def __enter__(self):
         self.orig = [c.launch for c in self.classes]
-        calls = self.calls
+        calls, kwargs = self.calls, self.kwargs
         import torch
 
         def wrap(fn):
@@ -367,6 +372,7 @@ class Capture:
                 if all(c[0].name != w.name for c in calls) and \
                         not torch.cuda.is_current_stream_capturing():
                     calls.append((w, cloned(a)))
+                    kwargs[w.name] = dict(kw)
                 return fn(w, *a, **kw)
             return launch
         for c, fn in zip(self.classes, self.orig):
@@ -382,6 +388,11 @@ class Capture:
             if w.name == name:
                 return w, a
         raise AssertionError(f"kernel {name} was not launched")
+
+    def mask(self, name):
+        """The ``mask`` keyword of the recorded launch of ``name`` (None
+        where it had none)."""
+        return self.kwargs.get(name, {}).get("mask")
 
 
 def plain_of(w, args):
@@ -1539,21 +1550,24 @@ def glue_row(kname, w, a, name, ptxas, launches):
         "spill_loads": table.get("spill_loads")}
 
 
-def kernel_row(kname, w, a, name, ptxas, launches, plain_reps=2):
+def kernel_row(kname, w, a, name, ptxas, launches, plain_reps=2, mask=None):
     """One kernel at one shape, on the inputs ``a`` the path gave it: held
     to its plain version (the phase-2 bar), timed beside it and beside
     the card's bound; ``ptxas``: every library's table, by dtype and
     library ({"float32/ns3": {kernel: registers, spills}, ...,
     "float32/cw": ..., "float32/cl": ..., "glue": ...}).  ``plain_reps``
     0: the plain version's time is that of the one call the comparison
-    makes (the deep shapes, where a call takes seconds).  The step
-    glue's two kernels: :func:`glue_row`."""
+    makes (the deep shapes, where a call takes seconds).  ``mask``: the
+    step's active-column mask as the path gave it, so the step runs in
+    the path's column order (``ck.step_order``) and its row has the
+    block fill.  The step glue's two kernels: :func:`glue_row`."""
     import torch
     from mckpp_torch.ops import cuda_kernels as ck
     if kname in GLUE:
         return glue_row(kname, w, a, name, ptxas, launches)
     flops_peak, bytes_peak = card_peaks(name)
-    got = w.launch(*a)
+    kw = {} if mask is None else {"mask": mask}
+    got = w.launch(*a, **kw)
     e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     e0.record()
     ref = plain_of(w, a)
@@ -1561,7 +1575,7 @@ def kernel_row(kname, w, a, name, ptxas, launches, plain_reps=2):
     sync()
     err = max(float((x - y).abs().max()) for x, y in zip(got, ref))
     rel = compare(w, got, ref, TOL_F32)
-    ms = time_cuda(lambda: w.launch(*a),
+    ms = time_cuda(lambda: w.launch(*a, **kw),
                    5 if kname != "fused_step" else 3)
     plain_ms = (time_cuda(lambda: plain_of(w, a), plain_reps) if plain_reps
                 else e0.elapsed_time(e1))
@@ -1579,14 +1593,27 @@ def kernel_row(kname, w, a, name, ptxas, launches, plain_reps=2):
         kmix, npass = outs[8][1].double(), outs[8][7].double()
         ops = float((npass * ck.pass_ops(nz, aref, kmix, ldd)).sum())
         # a block holds its SM share until its slowest column is done:
-        # passes run over passes the blocks' columns were held for
+        # passes run over passes the blocks' columns were held for, in
+        # the order the blocks took their columns
         wb = geom.cols_per_block
-        pad = torch.nn.functional.pad(npass, (0, (-ncol) % wb))
+        order, fill = (None, None) if mask is None else ck.step_order(mask,
+                                                                      wb)
+        slots = npass if order is None else npass[order.long()]
+        pad = torch.nn.functional.pad(slots, (0, (-ncol) % wb))
         held = float(pad.view(-1, wb).amax(dim=1).sum()) * wb
         extra = {"npass_mean_active": float(npass[npass > 0].mean()),
                  "npass_max": float(npass.max()),
                  "warp_pass_share_of_block_hold": float(npass.sum())
-                 / held}
+                 / held, "block_fill": fill}
+        if order is not None:
+            # the same launch in slot order, as without the mask: bit-equal
+            # outputs, its time and its fill beside the path's
+            if not all(torch.equal(x, y) for x, y in zip(got, w.launch(*a))):
+                raise AssertionError(f"{kname}: the launch in slot order "
+                                     "differs from the path's order")
+            extra.update(ms_slot_order=time_cuda(lambda: w.launch(*a), 3),
+                         block_fill_slot_order=ck.block_fill(
+                             mask.cpu().numpy(), wb))
     else:
         kbl = outs[8 if kname == "fused_pass_fast" else 4][1].double()
         ops = float(ck.pass_ops(nz, aref, kbl, ldd).sum())
@@ -1635,7 +1662,8 @@ def phase_times(caps, counts, name, ptxas):
                    **dict.fromkeys(GLUE, caps["lazy:cuda_step" + tag])}
         for kname in sources:
             w, a = sources[kname].first(kname)
-            row = kernel_row(kname, w, a, name, ptxas, counts[layout][kname])
+            row = kernel_row(kname, w, a, name, ptxas, counts[layout][kname],
+                             mask=sources[kname].mask(kname))
             if layout == "z_lanes":
                 row["name"] = kname + "_zl"
             rows.append(row)
@@ -1665,6 +1693,7 @@ def phase_times_ns4(name, ptxas, work, device="cuda", toy=False):
         raise AssertionError(f"goml2_n216: counts {launches} != the run's "
                              f"{res['launches']}")
     fields = hold_config(res, work, 1, device == "cuda")
+    fill = ck.STEP_BUILD.get("block_fill")   # the run's, before the rows'
     rows = (config_kernel_rows("goml2_n216", cap, launches, name, ptxas)
             if device == "cuda" else [])
     del cap
@@ -1676,6 +1705,7 @@ def phase_times_ns4(name, ptxas, work, device="cuda", toy=False):
           "launches": launches, "fields_held": fields,
           "col_steps_per_s_steady": res.get("col_steps_per_s_steady"),
           "peak_memory_bytes": res.get("peak_memory_bytes"),
+          "block_fill": fill,
           "seconds": time.perf_counter() - t0, "rows": rows})
     return rows
 
@@ -1747,7 +1777,7 @@ def phase_deep_main(name, smi, ptxas, depths=DEEP_MAIN, layout="col_lanes"):
         for kname in ("fused_pass_fast", "fused_pass_full", "fused_step"):
             w, a = cap.first(kname)
             row = kernel_row(kname, w, a, name, ptxas, counts[kname],
-                             plain_reps=0)
+                             plain_reps=0, mask=cap.mask(kname))
             row["name"] = (
                 f"{kname}_cl{row['blocks_per_cluster']}x"
                 f"{row['warps_per_block']}" if row["library"] == ck.CL
@@ -1877,7 +1907,7 @@ def phase_deep_column(name, smi, work, device="cuda", nz=DEEP_COLUMN_NZ,
         if ptxas is None or not n:
             continue
         w, a = cap.first(kname)
-        row = kernel_row(kname, w, a, name, ptxas, n)
+        row = kernel_row(kname, w, a, name, ptxas, n, mask=cap.mask(kname))
         row["name"] = (f"{kname}_column" if kname in GLUE else
                        f"{kname}_cl{row['blocks_per_cluster']}x"
                        f"{row['warps_per_block']}_column")
@@ -2683,9 +2713,9 @@ def config_kernel_rows(config, cap, launches, name, ptxas):
     """:func:`kernel_row` for every kernel a configuration's run launched,
     on the inputs of its first launch there, with the run's counts; every
     launched kernel must have been captured."""
-    rows = [{"config": config, **kernel_row(w.name, w, a, name, ptxas,
-                                            launches[w.name])}
-            for w, a in cap.calls]
+    rows = [{"config": config, **kernel_row(
+        w.name, w, a, name, ptxas, launches[w.name],
+        mask=cap.mask(w.name))} for w, a in cap.calls]
     if {r["name"] for r in rows} != {k for k, v in launches.items() if v}:
         raise AssertionError(f"{config}: kernels captured "
                              f"{[r['name'] for r in rows]}, launched "

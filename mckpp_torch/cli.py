@@ -467,9 +467,11 @@ def run(argv=None) -> dict:
         f"{k}={v}" for k, v in launches.items()))
     build = dict(ck.STEP_BUILD) if launches["fused_step"] else None
     if build:
+        fill = build.get("block_fill")
         mckpp_print(ROUTINE, f"step kernel: {build['lib']}, {build['slots']}"
                     f" level slots a lane, {build['warps']} warps a block, "
-                    f"{build['cols']} columns a block")
+                    f"{build['cols']} columns a block, block fill "
+                    f"{'unknown' if fill is None else f'{fill:.6f}'}")
     peak = (torch.cuda.max_memory_allocated(device)
             if device.type == "cuda" else None)
     mckpp_print(ROUTINE, f"peak device memory: "

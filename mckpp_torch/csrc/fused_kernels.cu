@@ -53,7 +53,12 @@
 //   never waits for a slower column, and a land column's warp skips them;
 // * a block of W >= 8 warps takes W consecutive columns and stages their
 //   inputs and outputs through shared memory, so each level row of a
-//   profile moves as whole 32-byte sectors;
+//   profile moves as whole 32-byte sectors; the step's one-warp and pair
+//   blocks take W consecutive entries of a column order instead where
+//   the wrapper gives one (the ocean columns first, then the land ones:
+//   a block holds its SM's warp slots until its slowest column is done,
+//   so a land warp beside ocean ones would hold its slot idle), each
+//   block's row then W near-consecutive values;
 // * both layouts of the JAX package (its zaxis; the template parameter L
 //   of the staging, one library each, KPP_ZL): COL_LANES (zaxis = 0),
 //   profiles (WZ, ncol), and Z_LANES (zaxis = 1), profiles (ncol, WZ), the
@@ -286,6 +291,7 @@ static void unpack(const void* ins, const void* outs, int n_out,
   in->ref_hi = static_cast<const int*>(ip[kpp::N_IN]);
   in->aref_t = static_cast<const Real*>(ip[kpp::N_IN + 1]);
   in->grid_t = static_cast<const Real*>(ip[kpp::N_IN + 2]);
+  in->order = static_cast<const int*>(ip[kpp::N_IN + 3]);
   for (int i = 0; i < kpp::N_OUT_MAX; ++i)
     out->p[i] = i < n_out ? static_cast<Real*>(op[i]) : nullptr;
 }
@@ -337,7 +343,8 @@ int kpp_phase_zero() {
 // ins: host array of kpp::N_IN device pointers (the 25 pass inputs + the
 // depth prefix), then the int32 aref row extents, then aref's device tile
 // (null unless geom's aref_dev is set), then the grid rows' padded tile
-// (null unless geom's grid_dev is set); outs: 9 (full=0) or 23
+// (null unless geom's grid_dev is set), then a null (the column order,
+// which the passes do not take); outs: 9 (full=0) or 23
 // (full=1) device pointers; params: host PassParams; geom: host Geometry;
 // stream: cudaStream_t.  Returns a cudaError_t code.
 int kpp_fused_pass(int full, const void* ins, const void* outs,
@@ -358,7 +365,8 @@ int kpp_fused_pass(int full, const void* ins, const void* outs,
 
 // ins: the step's 21 inputs placed in the pass slots (ux..sx repeat
 // u0..s0) + the depth prefix + the aref row extents + aref's device tile
-// (or null) + the grid rows' tile (or null); outs: 9 device pointers.
+// (or null) + the grid rows' tile (or null) + the int32 column order (or
+// null: slot i takes column i); outs: 9 device pointers.
 int kpp_fused_step(const void* ins, const void* outs, const void* params,
                    const void* geom, void* stream) {
   const PassParams& P = *static_cast<const PassParams*>(params);

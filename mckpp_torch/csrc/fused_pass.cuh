@@ -305,12 +305,17 @@ constexpr int N_OUT_MAX = 23;
 // memory (cuda_kernels._ref_tile), read where Geometry::aref_dev is set;
 // grid_t: the rows zm, hm, dm, tdn, tup, pfx padded to LZ levels as their
 // shared copy pads them (cuda_kernels._grid_tile), read where
-// Geometry::grid_dev is set
+// Geometry::grid_dev is set; order: the step's column order, a
+// permutation of 0..ncol-1 (cuda_kernels.step_order: the ocean columns,
+// then the land ones), so that a one-warp or pair block's column slots
+// hold ocean columns together and land warps do not sit beside working
+// ones; slot i of the launch takes column order[i] (null: column i)
 template <typename T> struct Inputs {
   const T* p[N_IN];
   const int* ref_hi;
   const T* aref_t;
   const T* grid_t;
+  const int* order;
 };
 template <typename T> struct Outputs { T* p[N_OUT_MAX]; };
 
@@ -2152,6 +2157,8 @@ KPP_DEV Block<T, NS, PAIR> load_pair(const PassParams& P, const Geometry& G,
   st.kstep = TC;
   st.col = size_t(blockIdx.x) * C + st.j;
   st.col_ok = st.col < size_t(nc);
+  if constexpr (STEP)   // the step's column order (the write-back too)
+    if (in.order && st.col_ok) st.col = size_t(in.order[st.col]);
   T* wb = b.cols + st.j * col_stride(LZ);
   constexpr int NFIRST = STEP ? 4 : 8, NPROF = NFIRST + 6;
   T v[NPROF][NS], cs[NS];
@@ -2240,6 +2247,9 @@ KPP_DEV Block<T, NS, MW> load_block(const PassParams& P, const Geometry& G,
   st.kstep = nt;
   st.col = size_t(blockIdx.x) * W + st.j;
   st.col_ok = st.col < size_t(nc);
+  if constexpr (STEP && MW == WARP)   // the step's column order (the
+    if (in.order && st.col_ok)        // write-back too)
+      st.col = size_t(in.order[st.col]);
   T* wb = b.cols + st.j * warp_stride(NS);
   // u..sx (pass) or u0..s0 (step), then uo..so, swdk, swfrac: input i
   // goes to slot i, and slots 0..13 match IN_U..IN_SWFRAC

@@ -106,7 +106,9 @@ from . import fused_pass as fp
 LAUNCHES = {"fused_pass_fast": 0, "fused_pass_full": 0, "fused_step": 0,
             "step_glue_in": 0, "step_glue_out": 0}
 # the build of the last whole-step kernel launched (FusedStep.launch): its
-# library's tag, level slots a lane, warps a block and columns a block
+# library's tag, level slots a lane, warps a block, columns a block and
+# block fill (:func:`block_fill` of its column order; None where the launch
+# was given no mask)
 STEP_BUILD: dict = {}
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
@@ -753,11 +755,72 @@ def _ptrs(tensors):
         *[None if t is None else t.data_ptr() for t in tensors])
 
 
+def block_fill(ocean, cols: int, order=None) -> float:
+    """The ocean columns over the column slots of the blocks of ``cols``
+    columns that hold at least one (1 where none does): a block keeps its
+    SM's warp slots until its slowest column is done, and a land column's
+    warp idles meanwhile.  ``ocean``: a column's flag, in column order;
+    ``order``: the columns the launch's slots take (None: slot i takes
+    column i)."""
+    o = np.asarray(ocean, dtype=bool)
+    if order is not None:
+        o = o[np.asarray(order)]
+    slots = np.pad(o, (0, -o.size % cols)).reshape(-1, cols)
+    busy = int(slots.any(axis=1).sum())
+    return float(o.sum()) / (busy * cols) if busy else 1.0
+
+
+# id(mask) -> [weak reference, its _version, its flags on the host,
+# {columns a block: (column order on the mask's device or None, block
+# fill)}, the orders a rebuild replaced]; the mask is static, so each is
+# read back to the host once; an order a captured CUDA graph may read
+# stays alive while its mask does
+_orders: dict = {}
+
+
+def step_order(mask: torch.Tensor, cols: int):
+    """(column order, block fill) of a step launch whose blocks take
+    ``cols`` columns, for the active-column mask ``mask`` (``run_physics``,
+    one flag a column): the ocean columns in ascending order, then the
+    land ones, int32 on the mask's device, so that no block holds a land
+    warp beside ocean ones but the one where the two meet; None (slot i
+    takes column i) where the mask has no land or a block holds one
+    column.  Made once per mask tensor (again after a write to it), before
+    any graph capture; a capture that meets a mask not seen before gets
+    (None, None)."""
+    hit = _orders.get(id(mask))
+    if hit is not None and hit[0]() is not mask:
+        hit = None                           # another tensor at that id
+    if hit is None or hit[1] != mask._version:
+        if mask.is_cuda and torch.cuda.is_current_stream_capturing():
+            return None, None
+        ocean = mask.detach().cpu().numpy().astype(bool)
+        if hit is None or not np.array_equal(ocean, hit[2]):
+            if len(_orders) > 64:            # drop entries of dead tensors
+                for key in [k for k, v in _orders.items() if v[0]() is None]:
+                    del _orders[key]
+            kept = [] if hit is None else hit[4] + [
+                o for o, _ in hit[3].values() if o is not None]
+            hit = [weakref.ref(mask), None, ocean, {}, kept]
+            _orders[id(mask)] = hit
+        hit[1] = mask._version
+    if cols not in hit[3]:
+        ocean = hit[2]
+        order = None
+        if cols > 1 and not ocean.all():
+            order = np.concatenate([np.flatnonzero(ocean),
+                                    np.flatnonzero(~ocean)]).astype(np.int32)
+        hit[3][cols] = (None if order is None else
+                        torch.as_tensor(order, device=mask.device),
+                        block_fill(ocean, cols, order))
+    return hit[3][cols]
+
+
 def _launch_args(arrays, kw, ncol, dtype):
     """The library, the inputs in the kernels' order (``arrays`` with
     aref in its col_lanes form, then the depth prefix, aref row extents,
-    aref's device tile or None, the grid rows' tile or None) and the
-    launch geometry."""
+    aref's device tile or None, the grid rows' tile or None; the caller
+    appends the column order) and the launch geometry."""
     nz = kw["nz"]
     zaxis = kw.get("zaxis", 0)
     aref = _kernel_aref(arrays[-1], zaxis)
@@ -801,6 +864,7 @@ class FusedPass:
                    [mk(wz) for _ in range(18)]
         else:
             outs = [mk(wz) for _ in range(8)] + [mk(8)]
+        ins.append(None)                      # the passes take no order
         params = _params(self.kw, ncol)
         dev = arrays[0].device
         pin, pout = _ptrs(ins), _ptrs(outs)   # alive across the call
@@ -822,22 +886,31 @@ class FusedStep:
     def __init__(self, kw: dict):
         self.kw = kw
 
-    def __call__(self, *arrays):
+    def __call__(self, *arrays, mask=None):
         if len(arrays) != fp.N_STEP_IN:
             raise ValueError(f"expected {fp.N_STEP_IN} inputs")
         if arrays[0].device.type == "cpu":
             return fp._step_body(*arrays, **self.kw)
-        return self.launch(*arrays)
+        return self.launch(*arrays, mask=mask)
 
-    def launch(self, *arrays):
-        """Launch the kernel."""
+    def launch(self, *arrays, mask=None):
+        """Launch the kernel; ``mask``: the columns' active flags
+        (colscal's ``CS_ACTIVE`` row as a tensor of its own, static from
+        step to step), from which the blocks take their columns ocean
+        first (:func:`step_order`; without it, in slot order)."""
         ncol, dtype = _check(arrays, self.kw, 8)
         lib, ins, geom = _launch_args(arrays, self.kw, ncol, dtype)
         wz = self.kw["nz"] + 2
         mk = _out_maker(self.kw, ncol, arrays[0])
         outs = [mk(wz) for _ in range(8)] + [mk(8)]
+        order, fill = None, None
+        if mask is not None:
+            if tuple(mask.shape) != (ncol,) or mask.device != arrays[0].device:
+                raise ValueError(f"mask {tuple(mask.shape)} on {mask.device}:"
+                                 f" expected ({ncol},) on {arrays[0].device}")
+            order, fill = step_order(mask, geom.cols_per_block)
         # the pass slots: u0..s0 stand in for ux..sx (unused by the step)
-        ins = ins[:4] + ins
+        ins = ins[:4] + ins + [order]
         params = _params(self.kw, ncol)
         dev = arrays[0].device
         pin, pout = _ptrs(ins), _ptrs(outs)   # alive across the call
@@ -850,5 +923,5 @@ class FusedStep:
         LAUNCHES[self.name] += 1
         STEP_BUILD.update(lib=_lib_tag(geom.lib, self.kw.get("zaxis", 0)),
                           slots=geom.ns, warps=geom.warps,
-                          cols=geom.cols_per_block)
+                          cols=geom.cols_per_block, block_fill=fill)
         return tuple(outs)

@@ -905,7 +905,10 @@ def make_fused_step(grid, dtype, flags: PassFlags, dto: float, *,
     """Build the whole-step callable (see :func:`_step_body`):
     fn(*21 inputs) -> (u, v, t, s, ux, vx, tx, sx, colstep); the inputs are
     (u0, v0, t0, s0, uo, vo, to, so, swdk, swfrac, ocnt_clim, sal_clim,
-    fcorr_z, sfcorr_z, colscal, zm, hm, dm, tdn, tup, aref).
+    fcorr_z, sfcorr_z, colscal, zm, hm, dm, tdn, tup, aref); the keyword
+    ``mask``, the columns' active flags, lets the kernel's blocks take the
+    ocean columns first (``cuda_kernels.FusedStep``; the plain body
+    ignores it).
 
     impl, zaxis: as in :func:`make_fused_pass`.
     """
@@ -918,7 +921,7 @@ def make_fused_step(grid, dtype, flags: PassFlags, dto: float, *,
               hm_bot=float(grid.hm[nz - 1]), dm_nz=float(grid.dm[nz]),
               zaxis=zaxis)
     if impl == "eager":
-        return lambda *a: _step_body(*a, **kw)
+        return lambda *a, mask=None: _step_body(*a, **kw)
     if impl == "cuda":
         from . import cuda_kernels
         return cuda_kernels.FusedStep(kw)

@@ -249,7 +249,7 @@ def make_ocnstep_fused(grid, cfg: KppConfig, dtype, *, impl="eager_step"):
             outs = fstep(u_e, v_e, t_e, s_e, uo, vo, to, so,
                          swdk_c, swfrac_c, ocnt_p, sal_p, fcz_p, sfcz_p,
                          colscal_of(prm.f), zm_r, hm_r, dm_r, tdn_r, tup_r,
-                         aref)
+                         aref, mask=prm.run_physics)
             u_fin_k, v_fin_k, t_fin_k, s_fin_k = outs[:4]
             ux_f, vx_f, tx_f, sx_f = outs[4:8]
             colstep = outs[8]

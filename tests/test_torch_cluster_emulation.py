@@ -256,6 +256,7 @@ static void unpack(const void* ins, const void* outs, int n_out,
   in->ref_hi = static_cast<const int*>(ip[kpp::N_IN]);
   in->aref_t = static_cast<const Real*>(ip[kpp::N_IN + 1]);
   in->grid_t = static_cast<const Real*>(ip[kpp::N_IN + 2]);
+  in->order = static_cast<const int*>(ip[kpp::N_IN + 3]);
   for (int i = 0; i < kpp::N_OUT_MAX; ++i)
     out->p[i] = i < n_out ? static_cast<Real*>(op[i]) : nullptr;
 }
@@ -438,7 +439,7 @@ def first_inputs(nz, pass_impl, monkeypatch):
     st, frc = tforcing.update_fluxes(cfg, st, prm, frc, raw, True, m.grid.dm)
     got = []
 
-    def call(w, *a):
+    def call(w, *a, **kw):
         got.append((w, a))
         raise Stop
     for cls in (ck.FusedPass, ck.FusedStep):
@@ -453,10 +454,10 @@ def first_inputs(nz, pass_impl, monkeypatch):
 SPREAD = {ck.CL: 2, ck.MW: 1, **{p: 3 for p in ck.PAIRS}}
 
 
-def run(lib, w, a, geom, monkeypatch, spread=None):
-    """``w``'s kernel on ``a`` through the emulation at ``geom``, in
-    ``w``'s layout, by the kernels of ``spread`` (by default those of the
-    geometry's library)."""
+def run(lib, w, a, geom, monkeypatch, spread=None, **kw):
+    """``w``'s kernel on ``a`` (and the launch's keywords ``kw``) through
+    the emulation at ``geom``, in ``w``'s layout, by the kernels of
+    ``spread`` (by default those of the geometry's library)."""
     lib.emu_zaxis(w.kw.get("zaxis", 0))
     lib.emu_spread(SPREAD.get(geom.lib, 0) if spread is None else spread)
     monkeypatch.setattr(ck, "_lib", lambda *x, **k: lib)
@@ -465,7 +466,7 @@ def run(lib, w, a, geom, monkeypatch, spread=None):
     monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None:
                         types.SimpleNamespace(cuda_stream=0))
     try:
-        return w.launch(*a)
+        return w.launch(*a, **kw)
     finally:
         monkeypatch.undo()
 
@@ -548,12 +549,14 @@ def emu_zl(tmp_path_factory):
     return build_emu(tmp_path_factory, 3, True)
 
 
-def layout_inputs(nz, ncol, dmax, pass_impl, monkeypatch, dscale=0.0):
+def layout_inputs(nz, ncol, dmax, pass_impl, monkeypatch, dscale=0.0,
+                  land=(1,), kwargs=None):
     """The wrapper and (col_lanes) inputs of the first kernel call of a
     float64 step at ``nz`` over ``dmax`` m and ``ncol`` columns on the CPU
     (a grid stretched by ``dscale`` where it is not 0), with double
-    diffusion: column 1 land, column 0 with large T and u noise (the trap
-    retries it), the others quiet."""
+    diffusion: the columns ``land`` land, column 0 with large T and u
+    noise (the trap retries it), the others quiet.  ``kwargs``: a dict
+    that receives the call's keywords (the step's ``mask``)."""
     cfg = T.KppConfig(
         domain=T.DomainConfig(nx=ncol, ny=1, nz=nz, dmax=dmax,
                               l_stretchgrid=dscale > 0, dscale=dscale),
@@ -573,7 +576,7 @@ def layout_inputs(nz, ncol, dmax, pass_impl, monkeypatch, dscale=0.0):
     u0[0] += 2.1 * rng.standard_normal((nz + 1, 2))
     prm = init_params(ncol, nz + 1, dtype=m.dtype)
     wet = torch.ones(ncol, dtype=torch.bool)
-    wet[1] = False
+    wet[list(land)] = False
     lat = torch.linspace(-40.0, 40.0, ncol, dtype=m.dtype)
     prm = prm.replace(f=coriolis(lat), l_ocean=wet, run_physics=wet)
     st, prm, frc = m.warm_start(u0, t0, s0, prm)
@@ -581,8 +584,10 @@ def layout_inputs(nz, ncol, dmax, pass_impl, monkeypatch, dscale=0.0):
     st, frc = tforcing.update_fluxes(cfg, st, prm, frc, raw, True, m.grid.dm)
     got = []
 
-    def call(w, *a):
+    def call(w, *a, **kw):
         got.append((w, a))
+        if kwargs is not None:
+            kwargs.update(kw)
         raise Stop
     for cls in (ck.FusedPass, ck.FusedStep):
         monkeypatch.setattr(cls, "__call__", call)

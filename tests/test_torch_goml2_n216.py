@@ -154,8 +154,8 @@ def test_pass_counter_sums_colstep_row_7(n216_rows, tmp_path, monkeypatch):
     def recording(*a, **k):
         fn = make(*a, **k)
 
-        def step(*args):
-            outs = fn(*args)
+        def step(*args, **kw):
+            outs = fn(*args, **kw)
             rows.append(outs[8][7].clone())
             return outs
         return step
@@ -253,9 +253,9 @@ def test_ns4_step_kernel_matches_its_plain_body(cuda, full_width,
     calls = []
     orig = ck.FusedStep.__call__
 
-    def call(w, *a):
-        calls.append((w, a))
-        return orig(w, *a)
+    def call(w, *a, **kw):
+        calls.append((w, a, kw))
+        return orig(w, *a, **kw)
     monkeypatch.setattr(ck.FusedStep, "__call__", call)
     raw = forcing.constant_test_fluxes(st.u.shape[0], model.dtype, cuda)
     st, frc = forcing.update_fluxes(kcfg, st, prm, frc, raw, True,
@@ -264,11 +264,12 @@ def test_ns4_step_kernel_matches_its_plain_body(cuda, full_width,
     model.step(st, prm, frc, first_step=False, with_diags=False)
     assert len(calls) == 2
     pos, int_rows = INT_ROWS["fused_step"]
-    for w, a in calls:
+    for w, a, kw in calls:
         g = ck.launch_geometry(100, a[0].dtype, a[0].shape[1],
                                ck._ref_extents(a[-1])[1])
         assert (g.lib, g.ns, g.warps, g.cols_per_block) == (4, 4, 8, 8)
-        got = w.launch(*a)
+        assert kw["mask"] is prm.run_physics
+        got = w.launch(*a, **kw)
         ref = fp._step_body(*a, **w.kw)
         torch.cuda.synchronize()
         for g_, r in zip(got, ref):
@@ -277,8 +278,9 @@ def test_ns4_step_kernel_matches_its_plain_body(cuda, full_width,
             assert rel <= 1e-5, rel
         for row in int_rows:
             assert torch.equal(got[pos][row], ref[pos][row]), row
-    assert ck.STEP_BUILD == {"lib": "ns4", "slots": 4, "warps": 8,
-                             "cols": 8}
+    build = dict(ck.STEP_BUILD)
+    assert build.pop("block_fill") >= 0.9999      # the ocean columns first
+    assert build == {"lib": "ns4", "slots": 4, "warps": 8, "cols": 8}
 
 
 @pytest.mark.gpu
@@ -297,8 +299,11 @@ def test_cli_counts_passes_once_a_step(cuda, full_width, tmp_path,
     eager = cli.run(argv + ["--output-dir", str(tmp_path / "e")])
     assert graphs["captures"] > 0
     assert graphs["launches"]["fused_step"] > STEPS
-    assert graphs["step_kernel"] == eager["step_kernel"] == {
-        "lib": "ns4", "slots": 4, "warps": 8, "cols": 8}
+    builds = [dict(r["step_kernel"]) for r in (graphs, eager)]
+    for b in builds:
+        assert b.pop("block_fill") >= 0.9999
+    assert builds[0] == builds[1] == {"lib": "ns4", "slots": 4, "warps": 8,
+                                      "cols": 8}
     passes = graphs["counters"]["step.passes"]
     assert passes == eager["counters"]["step.passes"]
     assert 4 * STEPS * graphs["ocean_columns"] <= passes

@@ -86,9 +86,9 @@ class Recorder:
         for cls in (ck.FusedPass, ck.FusedStep):
             orig = cls.__call__
 
-            def call(w, *a, _orig=orig):
+            def call(w, *a, _orig=orig, **kw):
                 self.calls.append((w, a))
-                return _orig(w, *a)
+                return _orig(w, *a, **kw)
             monkeypatch.setattr(cls, "__call__", call)
 
 
